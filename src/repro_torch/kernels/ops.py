@@ -1,0 +1,44 @@
+"""Dispatch between each kernel and its plain version.
+
+A CUDA tensor goes to the hand-written kernel, a CPU tensor to the plain
+PyTorch version in :mod:`repro_torch.kernels.ref`. There is no other route:
+a CUDA call whose kernel does not build or launch raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import ref
+from .ell_spmv import ell_spmm_cuda, ell_spmm_sliced_cuda
+
+
+def _on_cuda(x: torch.Tensor) -> bool:
+    if x.device.type == "cuda":
+        return True
+    if x.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel for device {x.device}")
+
+
+def ell_spmm(neighbors: torch.Tensor, mask: torch.Tensor,
+             weights: torch.Tensor, x: torch.Tensor, *,
+             threshold: torch.Tensor | None = None) -> torch.Tensor:
+    """Batched (B, n) pull-form SpMM over the dense (n, K) table;
+    ``threshold`` fuses FORA's push condition into the gather."""
+    if _on_cuda(x):
+        return ell_spmm_cuda(neighbors, mask, weights, x, threshold)
+    return ref.ell_spmm_ref(neighbors, mask, x, weights, threshold)
+
+
+def ell_spmm_sliced(neighbors: torch.Tensor, mask: torch.Tensor,
+                    weights: torch.Tensor, row_map: torch.Tensor,
+                    x: torch.Tensor, *,
+                    threshold: torch.Tensor | None = None) -> torch.Tensor:
+    """Sliced-ELL batched SpMM: virtual rows (n_virtual, W) folded onto the
+    real rows through the ascending ``row_map``."""
+    if _on_cuda(x):
+        return ell_spmm_sliced_cuda(neighbors, mask, weights, row_map, x,
+                                    threshold)
+    return ref.ell_spmm_sliced_ref(neighbors, mask, x, weights, threshold,
+                                   row_map)

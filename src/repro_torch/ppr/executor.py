@@ -1,0 +1,185 @@
+"""Bridges the PPR engine to the D&A core (the paper's experiment plumbing).
+
+``ForaExecutor`` satisfies the D&A executor interface
+(:data:`repro_torch.core.slots.Executor`): given query ids it runs each
+query through :func:`~repro_torch.ppr.fora.fora_fused` and returns the
+**measured** per-query wall times. A query id maps to a source vertex
+through the workload. One query per call is the paper's one-query-per-core
+model; ``block_size > 1`` runs a whole block as one batched device call and
+shares the block's time among its queries.
+
+The graph goes to the device once, as a :class:`DeviceGraph`; the walk lane
+count is calibrated once per workload from a probe push; every measured
+block is one ``fora_fused`` call, timed up to a device synchronisation
+after its readout. Each query's walks come from its own generator, seeded
+from (workload seed, query id), so its answer does not depend on the block
+it runs in.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from collections.abc import Sequence
+from dataclasses import dataclass, field, replace
+
+import numpy as np
+import torch
+
+from .._device import resolve_device, synchronize
+from ..core.estimator import RuntimeStats
+from .fora import (FusedForaResult, ForaParams, _pow2_ceil_host,
+                   default_walk_budget, fora_fused)
+from .forward_push import forward_push_np
+from .graph import DeviceGraph, Graph
+
+
+@dataclass
+class PprWorkload:
+    """X queries = X source vertices, deterministic per seed."""
+
+    graph: Graph
+    num_queries: int
+    seed: int = 0
+    sources: np.ndarray = field(init=False)
+
+    def __post_init__(self) -> None:
+        rng = np.random.default_rng(self.seed)
+        self.sources = rng.integers(0, self.graph.n, size=self.num_queries,
+                                    dtype=np.int64)
+
+    def source_of(self, qid: int) -> int:
+        """Source vertex of query ``qid``; out-of-range ids raise."""
+        if not 0 <= qid < self.num_queries:
+            raise IndexError(
+                f"query id {qid} out of range [0, {self.num_queries})")
+        return int(self.sources[qid])
+
+
+@dataclass
+class ForaExecutor:
+    """Measured executor: wall-clocks FORA per query (paper mode) or per
+    block (vectorised mode) on ``device``. A warmup run builds the kernels,
+    uploads the graph and calibrates the walk budget before any measured
+    query, mirroring the paper's steady-state measurements."""
+
+    workload: PprWorkload
+    params: ForaParams = field(default_factory=ForaParams)
+    block_size: int = 1            # 1 = paper-faithful
+    device: str | torch.device = "cuda"
+    calls: int = field(default=0, init=False)
+    _dev: torch.device = field(init=False, repr=False)
+    _warmed: bool = field(default=False, init=False)
+    _device_graph: DeviceGraph | None = field(default=None, init=False,
+                                              repr=False)
+    _num_walks: int | None = field(default=None, init=False)
+
+    def __post_init__(self) -> None:
+        if self.block_size < 1:
+            raise ValueError("block_size must be >= 1")
+        self._dev = resolve_device(self.device)
+
+    @property
+    def device_graph(self) -> DeviceGraph | None:
+        return self._device_graph
+
+    def _block_sources(self, qids: Sequence[int]) -> np.ndarray:
+        return np.array([self.workload.source_of(q) for q in qids],
+                        dtype=np.int64)
+
+    def _run_block(self, qids: Sequence[int]) -> FusedForaResult:
+        return fora_fused(self._device_graph, self._block_sources(qids),
+                          self.params, self.workload.seed,
+                          num_walks=self._num_walks, query_ids=qids,
+                          device=self._dev)
+
+    def _timed_block(self, qids: Sequence[int]) -> float:
+        t0 = time.perf_counter()
+        self._run_block(qids)
+        synchronize(self._dev)          # the block's readout
+        return time.perf_counter() - t0
+
+    def _calibration_qids(self, size: int = 8) -> list[int]:
+        """Seeded random probe block without replacement, on a stream
+        distinct from the one that drew the workload's sources."""
+        nq = self.workload.num_queries
+        rng = np.random.default_rng([self.workload.seed, 1])
+        return np.sort(rng.choice(nq, size=min(size, nq),
+                                  replace=False)).tolist()
+
+    def _calibrate_walk_budget(self) -> int:
+        """One walk lane count for the whole workload: push a probe block
+        (during warmup, never in measured time), read the worst residual
+        mass, and budget pow2(ceil(r_max * omega)). Rows that would need
+        more lanes stay unbiased (weight r_sum/W), only noisier."""
+        rp = self.params.resolve(self.workload.graph)
+        sources = self._block_sources(self._calibration_qids())
+        push = forward_push_np(self.workload.graph, sources, alpha=rp.alpha,
+                               rmax=rp.rmax, device=self._dev)
+        r_max = float(push.r.sum(dim=1).max())
+        need = max(1, math.ceil(r_max * rp.omega))
+        return min(_pow2_ceil_host(need), default_walk_budget(rp))
+
+    def _probe_qids(self) -> list[int]:
+        nq = self.workload.num_queries
+        probes = {0, 1, nq // 2, nq - 1}
+        return sorted(q for q in probes if 0 <= q < nq)
+
+    def warmup(self) -> None:
+        """Upload the graph, calibrate the walk budget and run a few probe
+        blocks, so that kernel builds and first-call allocations stay out
+        of the measured statistics."""
+        if self._warmed:
+            return
+        if self._device_graph is None:
+            self._device_graph = self.workload.graph.device(self._dev)
+        if self._num_walks is None:
+            self._num_walks = self._calibrate_walk_budget()
+        nq = self.workload.num_queries
+        size = min(self.block_size, nq)
+        for qid in self._probe_qids():
+            start = min(qid, nq - size)
+            self._run_block(list(range(start, start + size)))
+        synchronize(self._dev)
+        self._warmed = True
+
+    def run_chunk(self, query_ids: Sequence[int]) -> RuntimeStats:
+        """One chunk of queries as a single batched device call; its time
+        is shared evenly among the chunk's queries."""
+        ids = list(query_ids)
+        if not ids:
+            raise ValueError("empty query chunk")
+        self.warmup()
+        dt = self._timed_block(ids)
+        self.calls += 1
+        return RuntimeStats(np.full(len(ids), dt / len(ids)))
+
+    def current_walk_budget(self) -> int | None:
+        """The calibrated walk lane count (after warmup)."""
+        return self._num_walks
+
+    def degrade(self, factor: float) -> None:
+        """Graceful degradation for the remaining queries: raise epsilon by
+        1/factor (coarser guarantee, fewer pushes and walks) and cap the
+        calibrated walk lanes by ``factor`` (power-of-two floor). Answers
+        stay unbiased, only noisier."""
+        if not 0.0 < factor < 1.0:
+            raise ValueError(f"factor must be in (0,1), got {factor}")
+        self.params = replace(self.params,
+                              epsilon=self.params.epsilon / factor)
+        if self._num_walks is not None and self._num_walks > 1:
+            capped = max(1, int(self._num_walks * factor))
+            self._num_walks = 1 << (capped.bit_length() - 1)   # pow2 floor
+        self._warmed = False
+
+    def __call__(self, query_ids: Sequence[int]) -> RuntimeStats:
+        ids = list(query_ids)
+        if not ids:
+            raise ValueError("empty query block")
+        self.warmup()
+        times = np.empty(len(ids), dtype=np.float64)
+        for lo in range(0, len(ids), self.block_size):
+            chunk = ids[lo: lo + self.block_size]
+            times[lo: lo + len(chunk)] = self._timed_block(chunk) / len(chunk)
+            self.calls += 1
+        return RuntimeStats(times)

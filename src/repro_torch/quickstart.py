@@ -1,0 +1,101 @@
+"""Quickstart: the paper's loop on the port.
+
+Builds a (scaled) Web-Stanford stand-in, checks FORA against exact PPR,
+measures real FORA queries with :class:`ForaExecutor`, and lets D&A_REAL
+(paper Alg. 2) decide how many cores the workload needs, beside the
+Lemma-2 Hoeffding baseline. The deadline is doubled while it is
+infeasible, as in paper §III-A.
+
+    PYTHONPATH=src python -m repro_torch.quickstart [--device cpu] [--scale N]
+"""
+
+from __future__ import annotations
+
+import argparse
+from collections.abc import Callable
+
+import numpy as np
+import torch
+
+from ._device import resolve_device
+from .core import InfeasibleDeadline, dna_real, fraction_sample_size
+from .ppr import (ForaExecutor, ForaParams, PprWorkload, fora, load,
+                  ppr_power_iteration)
+
+EPSILON = 0.5
+
+
+def run(*, scale: int = 512, num_queries: int = 64, check_sources: int = 1,
+        device: str | torch.device = "cuda",
+        log: Callable[[str], None] = print) -> dict:
+    """Run the quickstart loop, one query per call (the paper's mode), and
+    return what it decided and measured."""
+    dev = resolve_device(device)
+    graph = load("web-stanford", scale=scale)
+    workload = PprWorkload(graph=graph, num_queries=num_queries, seed=0)
+    log(f"graph: {graph.summary()}")
+
+    # FORA vs exact PPR on the first sources
+    params = ForaParams(epsilon=EPSILON)
+    srcs = workload.sources[:check_sources]
+    exact = ppr_power_iteration(graph, srcs, alpha=params.alpha, device=dev)
+    res = fora(graph, srcs, params, device=dev)
+    mask = exact >= 1.0 / graph.n
+    rel = float((np.abs(res.pi - exact)[mask] / exact[mask]).max())
+    log(f"FORA max rel err: {rel:.3f} over {check_sources} sources "
+        f"(guarantee eps={EPSILON})")
+
+    # D&A_REAL: minimum cores to finish X queries in T seconds
+    executor = ForaExecutor(workload=workload, params=params, device=dev)
+    s = fraction_sample_size(num_queries, 0.25)
+    executor(list(range(s)))                     # steady-state warmup
+    probe = executor(list(range(s)))
+    T = max(num_queries * probe.t_avg / 4, probe.t_max * 6, probe.t_pre * 8)
+    result = None
+    for _ in range(3):
+        try:
+            result = dna_real(num_queries, T, executor, max_cores=64,
+                              sample_size=s, scaling_factor=1.0)
+            break
+        except InfeasibleDeadline:
+            T *= 2.0
+    if result is None:
+        raise RuntimeError("D&A_REAL found no feasible deadline in 3 tries")
+    times = np.concatenate([result.sample_stats.times,
+                            list(result.execution.per_query_times.values())])
+    out = {
+        "graph": graph.summary(), "device": str(dev),
+        "layout": executor.device_graph.layout,
+        "walk_lanes": executor.current_walk_budget(),
+        "fora_max_rel_err": rel, "deadline_s": T,
+        "num_queries": num_queries, "cores": result.cores,
+        "lemma2_cores": result.bounds.lemma2_cores,
+        "reduction_vs_lemma2_pct": result.reduction_vs_lemma2_pct,
+        "completion_time_s": result.completion_time,
+        "accepted": result.accepted,
+        "per_query_ms_mean": float(times.mean() * 1e3),
+        "per_query_ms_max": float(times.max() * 1e3),
+    }
+    log(f"deadline T={T:.3f}s  queries X={num_queries}  "
+        f"layout={out['layout']}  walk lanes={out['walk_lanes']}")
+    log(f"D&A_REAL cores      : {result.cores}")
+    log(f"Lemma-2 bound cores : {result.bounds.lemma2_cores}")
+    log(f"reduction           : {result.reduction_vs_lemma2_pct:.1f}%")
+    log(f"per-query ms        : mean {out['per_query_ms_mean']:.3f} "
+        f"max {out['per_query_ms_max']:.3f}")
+    log(f"completed in        : {result.completion_time:.3f}s "
+        f"(accepted={result.accepted})")
+    return out
+
+
+def main(argv: list[str] | None = None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--scale", type=int, default=512,
+                    help="1/scale of the paper's node count")
+    args = ap.parse_args(argv)
+    run(scale=args.scale, device=args.device)
+
+
+if __name__ == "__main__":
+    main()
