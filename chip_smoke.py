@@ -6,20 +6,33 @@
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
 drives the port's main path, in phases:
 
-1. every kernel against its plain PyTorch version on the card, on the
-   push tables of the paths (K1: ``small_test_graph(n=2000)``, K2: the
-   full-size Web-Stanford stand-in) at the batch widths the paths launch
-   them with and at 8 and 64, with and without the fused threshold, and on
-   the sliced table's edge cases. The plain version runs in float64 on the
-   same float32 inputs; an output passes where
+1. every kernel against its plain PyTorch version on the card. K1 and K2
+   on the push tables of the paths (K1: ``small_test_graph(n=2000)``, K2:
+   the full-size Web-Stanford stand-in) at the batch widths the paths
+   launch them with and at 8 and 64, with and without the fused
+   threshold, and on the sliced table's edge cases; K3 on endpoint tables
+   of both index paths' shapes at B in {1, 3, 8} and L in {1, 130, 4096}
+   and the dense path's L, with full and retired budgets and a hub that
+   every lane ends at. The plain version runs in float64 on the same
+   inputs; an output passes where
    ``|out - want| <= RTOL * |want| + ATOL_FRAC * max|want|``, and the
    printed ratio is the largest ``|out - want|`` over that limit. The
-   check must also refuse two broken folds;
+   check must also refuse broken versions (folds that drop slices or
+   rows, a gather that ignores the budget or drops a lane per cell), and a
+   second launch must give the same bits. Then the lane streams drawn on
+   the card must equal those drawn on the CPU;
 2. the dense path: ``fora_fused`` on ``small_test_graph(n=2000)``;
 3. the paper path at real size: 256 FORA queries on the full-size
    Web-Stanford stand-in through ``ForaExecutor`` into ``dna_real``, with
    FORA checked against power iteration on three sources;
-4. kernel times at the paths' shapes beside their bound, their plain
+4. the index paths (FORA+): rows of each walk index rebuilt on the CPU
+   must equal the card's; the dense path through
+   ``ForaExecutor(index_budget=DENSE_INDEX_WIDTH)`` at coverage 1.0; the
+   paper path as in phase 3, served from one index of width
+   ``PAPER_INDEX_WIDTH`` built once; and a run with retired rows (the
+   partial branch), each within FORA's eps and each launching its push
+   kernel as well as K3;
+5. kernel times at the paths' shapes beside their bound, their plain
    version's time and one PyTorch library call's. Each time is device
    time: the card's kernel durations under ``torch.profiler``, summed and
    divided by the calls. The host's pace (CUDA events around back-to-back
@@ -54,9 +67,18 @@ ATOL_FRAC = 1e-6
 LIBRARY_RTOL = 1e-3      # torch.sparse.mm's summation order is its own
 DENSE_SOURCES = (0, 7, 42)     # phase 2's fora_fused sources
 CHECK_SOURCES = 3              # phase 3's FORA check (a B=3 push)
+# walk index widths: the dense path's calibrated walk budget is 2^15, so
+# its index is that wide to cover it; the paper graph's full coverage would
+# be 1.18 TB, so its index is partial (2^12 of 2^20 lanes, 4.6 GB)
+DENSE_INDEX_WIDTH = 1 << 15
+PAPER_INDEX_WIDTH = 1 << 12
 REPLACES = {"ell_spmm": "src/repro/kernels/ell_spmv.py:141",
-            "ell_spmm_sliced": "src/repro/kernels/ell_spmv.py:234"}
-SOURCE = "src/repro_torch/kernels/csrc/ell_spmm.cu"
+            "ell_spmm_sliced": "src/repro/kernels/ell_spmv.py:234",
+            "walk_endpoint_gather": "src/repro/kernels/walk_gather.py:57"}
+SOURCES = {"ell_spmm": "src/repro_torch/kernels/csrc/ell_spmm.cu",
+           "ell_spmm_sliced": "src/repro_torch/kernels/csrc/ell_spmm.cu",
+           "walk_endpoint_gather":
+               "src/repro_torch/kernels/csrc/walk_gather.cu"}
 
 
 class SmokeFailure(RuntimeError):
@@ -98,21 +120,31 @@ def device_ms(fn, reps: int) -> float:
     """Mean device milliseconds per call of ``fn``: the durations of every
     kernel and copy it ran on the card over ``reps`` calls, as
     ``torch.profiler`` records them, summed and divided by ``reps``."""
+    return sum(device_split_us(fn, reps).values()) / 1e3
+
+
+def device_split_us(fn, reps: int) -> dict[str, float]:
+    """Mean device microseconds per call of ``fn``, by kernel name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    busy_us = sum(sum(ts) for ts in device_us(prof).values())
-    if busy_us <= 0:
-        raise SmokeFailure("torch.profiler recorded no device time")
-    return busy_us / reps / 1e3
+    # a profile window now and then comes back without device events; a
+    # window is taken again up to twice before the run fails
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        by_name = device_us(prof)
+        if sum(sum(ts) for ts in by_name.values()) > 0:
+            return {k: sum(ts) / reps for k, ts in by_name.items()}
+        print(f"  (torch.profiler recorded no device time over {reps} "
+              f"calls; profiling again)")
+    raise SmokeFailure("torch.profiler recorded no device time")
 
 
 def device_us(prof) -> dict[str, list[float]]:
@@ -162,7 +194,37 @@ def spmm_cost(nnz: int, n: int, B: int, rows: int, fused: bool,
         "operations"
 
 
-def profile_queries(graph, count: int) -> None:
+def gather_cost(B: int, L: int, n: int, W: int) -> tuple[float, str]:
+    """Least time (ms) for one K3 call on these shapes: the (B, n) output
+    written once, starts and weights read once, and per lane two random
+    4-byte reads (budget, endpoint) of one 32-byte sector each, each stream
+    capped at its array's size (n budgets, n * W endpoints); one add per
+    lane."""
+    nbytes = B * n * 4 + B * L * 8 + min(B * L * 32, n * 4) \
+        + min(B * L * 32, n * W * 4)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, B * L / FP32_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else \
+        "operations"
+
+
+def drop_last_lane(endpoints, budget, starts, weights):
+    """Weights with the highest valid lane of every (row, endpoint) cell
+    zeroed: what a gather that loses one lane per cell would fold."""
+    import torch
+
+    B, L = starts.shape
+    n = endpoints.shape[0]
+    lane = torch.arange(L, device=starts.device)
+    s = starts.long()
+    valid = lane[None] < budget[s]
+    cell = endpoints[s, lane[None]].long() + \
+        torch.arange(B, device=s.device)[:, None] * n
+    last = torch.full((B * n,), -1, dtype=torch.long, device=s.device)
+    last.scatter_reduce_(0, cell[valid], lane.expand(B, L)[valid], "amax")
+    return torch.where(valid & (lane[None] == last[cell]), 0.0, weights)
+
+
+def profile_queries(graph, count: int, walk_index=None) -> None:
     """Where a paper-path query's time goes: ``count`` measured queries
     under ``torch.profiler``, device time summed by kernel name, and the
     share of the wall time the card was idle."""
@@ -172,7 +234,8 @@ def profile_queries(graph, count: int) -> None:
     from repro_torch.ppr import ForaExecutor, ForaParams, PprWorkload
 
     ex = ForaExecutor(workload=PprWorkload(graph, count, seed=1),
-                      params=ForaParams(epsilon=0.5), device="cuda")
+                      params=ForaParams(epsilon=0.5),
+                      walk_index=walk_index, device="cuda")
     ex.warmup()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -207,10 +270,15 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
 
-    from repro_torch.kernels import _build, ell_spmv, ref
-    from repro_torch.ppr import (ForaExecutor, ForaParams, fora_fused, load,
-                                 ppr_power_iteration, small_test_graph)
+    from repro_torch.index import WalkIndex, walk_rows
+    from repro_torch.kernels import _build, ell_spmv, ref, walk_gather
+    from repro_torch.ppr import (ForaExecutor, ForaParams, LaneStreams,
+                                 PprWorkload, forward_push, fora_fused, load,
+                                 ppr_power_iteration, sample_walk_starts,
+                                 small_test_graph)
+    from repro_torch.ppr.forward_push import one_hot_seeds
     from repro_torch.ppr.graph import Graph, _resolve_push_layout
+    from repro_torch.ppr.random_walk import lane_weights, walk_length_for_tail
     from repro_torch import quickstart
 
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -376,9 +444,89 @@ def main() -> int:
     y_pad = ell_spmv.ell_spmm_sliced_cuda(nbr_p, msk_p, w_p, rm_p, x)
     y_ref = ell_spmv.ell_spmm_sliced_cuda(nbr_s, msk_s, w_s, rm_s, x)
     check(bool(torch.equal(y_pad, y_ref)), "padding rows changed output")
+
+    # K3 on endpoint tables of both index paths' shapes
+    def gather_check(label, args, extra_bad=()):
+        """Hold one K3 launch against the float64 plain version, repeat it
+        bitwise, and require the limit to refuse each (name, weights)
+        broken version in ``extra_bad``."""
+        etab, budget, starts, weights = args
+        st = stats["walk_endpoint_gather"]
+        torch.cuda.synchronize()
+        out = walk_gather.walk_endpoint_gather_cuda(*args)
+        torch.cuda.synchronize()
+        want = ref.walk_endpoint_gather_ref(etab, budget, starts,
+                                            weights.double())
+        check(out.shape == want.shape and bool(torch.isfinite(out).all()),
+              f"walk_endpoint_gather {label}: bad output")
+        err, ratio = err_ratio(out, want, RTOL)
+        st["max_abs_err"] = max(st["max_abs_err"], err)
+        st["ratio"] = max(st["ratio"], ratio)
+        check(bool(torch.equal(out, walk_gather.walk_endpoint_gather_cuda(
+            *args))), f"walk_endpoint_gather {label}: a second launch gave "
+              "other bits")
+        print(f"  walk_endpoint_gather {label:40s} max_abs_err={err:.3e} "
+              f"max|want|={float(want.abs().max()):.3e} err/limit="
+              f"{ratio:.4f} {'ok' if ratio <= 1 else 'FAIL'}")
+        check(ratio <= 1.0, f"walk_endpoint_gather {label}: error {err} "
+              f"above the limit (ratio {ratio})")
+        for bad, (bt, bb, bs, bw) in extra_bad:
+            broken = ref.walk_endpoint_gather_ref(bt, bb, bs, bw)
+            _, r = err_ratio(broken, want, RTOL)
+            print(f"  walk_endpoint_gather {'broken: ' + bad:40s} "
+                  f"err/limit={r:.4g} {'refused' if r > 1 else 'PASSED'}")
+            check(r > 1.0, f"walk_endpoint_gather: the check passes a "
+                  f"broken gather ({bad})")
+
+    for pname, (n_k, W_k) in (("dense", (small.n, DENSE_INDEX_WIDTH)),
+                              ("paper", (web.n, PAPER_INDEX_WIDTH))):
+        etab = torch.randint(0, n_k, (n_k, W_k), generator=gen, device=dev,
+                              dtype=torch.int32)
+        full = torch.full((n_k,), W_k, dtype=torch.int32, device=dev)
+        retired = full.clone()
+        rows = torch.randperm(n_k, generator=gen, device=dev)[:n_k // 3]
+        retired[rows] = torch.randint(0, W_k + 1, (rows.numel(),),
+                                      generator=gen, device=dev,
+                                      dtype=torch.int32)
+        Ls = {1, 130, 4096} | ({W_k} if pname == "dense" else set())
+        for B in (1, 3, 8):
+            for L in sorted(Ls):
+                starts = torch.randint(0, n_k, (B, L), generator=gen,
+                                       device=dev, dtype=torch.int32)
+                w = torch.rand((B, L), generator=gen, device=dev)
+                for bname, bud in (("full", full), ("retired", retired)):
+                    bad = ()
+                    if bname == "retired" and B == 1 and L == 4096:
+                        bad = (("budget ignored", (etab, full, starts, w)),
+                               ("last lane of each cell dropped",
+                                (etab, bud, starts, drop_last_lane(
+                                    etab, bud, starts, w))))
+                    gather_check(f"{pname} n={n_k} W={W_k} B={B} L={L} "
+                                 f"{bname}", (etab, bud, starts, w), bad)
+        # the hub: every lane of every row ends at one node
+        etab.fill_(n_k // 2)
+        for L in sorted(Ls - {1, 130}):
+            starts = torch.randint(0, n_k, (1, L), generator=gen, device=dev,
+                                   dtype=torch.int32)
+            w = torch.rand((1, L), generator=gen, device=dev)
+            gather_check(f"{pname} hub W={W_k} B=1 L={L}",
+                         (etab, full, starts, w))
+        del etab
     for name, st in stats.items():
         print(f"  {name}: max_abs_err {st['max_abs_err']:.3e}, largest "
               f"err/limit {st['ratio']:.4f}")
+
+    # lane streams: the same draws on the card and on the CPU
+    lanes = torch.randperm(1 << 20, generator=torch.Generator().manual_seed(
+        1))[:1 << 16]
+    n_steps = walk_length_for_tail(0.2)
+    streams = LaneStreams(5)
+    on_card = torch.stack(list(streams.steps(lanes.to(dev), n_steps)))
+    on_cpu = torch.stack(list(streams.steps(lanes, n_steps)))
+    check(bool(torch.equal(on_card.cpu(), on_cpu)),
+          "lane streams differ between the card and the CPU")
+    print(f"  lane streams: {tuple(on_cpu.shape)} draws of lanes in "
+          f"[0, 2^20) equal on the card and the CPU")
 
     launches = {}
     print("phase 2: dense path, fora_fused on small_test_graph(n=2000)")
@@ -423,7 +571,131 @@ def main() -> int:
     check(launches["ell_spmm_sliced"] > 0, "paper path never launched K2")
     profile_queries(web, 8)
 
-    print(f"phase 4: kernel times (device time by torch.profiler; events = "
+    print("phase 4: index paths (FORA+), K3 on the walk index")
+    params = ForaParams(epsilon=0.5)
+    rp = params.resolve(web)
+
+    def rows_match(graph, idx, label):
+        """Rows {0, 7, the top in-degree hub, n-1} of ``idx`` rebuilt on
+        the CPU on the same lane streams must equal the card's."""
+        cpu = graph.device("cpu")
+        nodes = torch.tensor(sorted({0, 7, int(np.argmax(graph.in_degree)),
+                                     graph.n - 1}))
+        rows = walk_rows((cpu.edge_dst, cpu.out_offsets, cpu.out_degree),
+                         nodes, idx.streams, idx.width, alpha=idx.alpha,
+                         num_steps=idx.num_steps)
+        check(bool(torch.equal(rows, idx.endpoints[nodes.to(dev)].cpu())),
+              f"{label}: index rows differ between the card and the CPU")
+        print(f"  {label}: rows {nodes.tolist()} rebuilt on the CPU equal "
+              f"the card's")
+
+    def rel_err(pi, exact, n):
+        mask = exact >= 1.0 / n
+        return float((np.abs(pi - exact)[mask] / exact[mask]).max())
+
+    # dense path: the executor's index covers its whole walk budget
+    walk_gather.reset_launches()
+    ell_spmv.reset_launches()
+    dex = ForaExecutor(workload=PprWorkload(small, 64, seed=0),
+                       params=params, index_budget=DENSE_INDEX_WIDTH,
+                       device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dex.warmup()
+    torch.cuda.synchronize()
+    print(f"  dense: warmup with index build {time.perf_counter() - t0:.2f}s"
+          f", index {dex.walk_index.nbytes / 2**20:.1f} MiB, walk budget "
+          f"{dex.current_walk_budget()}, coverage {dex.index_coverage}")
+    check(dex.index_coverage == 1.0,
+          f"dense index covers {dex.index_coverage} of the walk budget")
+    dstats = dex(list(range(64)))
+    res = fora_fused(dg, srcs, params, num_walks=dex.current_walk_budget(),
+                     index=dex.walk_index, device="cuda")
+    pi = res.pi.cpu().numpy()
+    rel = rel_err(pi, exact, small.n)
+    launches["dense_index"] = walk_gather.LAUNCHES["walk_endpoint_gather"]
+    push_launches = dict(ell_spmv.LAUNCHES)
+    print(f"  dense: 64 queries, per query mean {dstats.t_avg * 1e3:.3f} ms "
+          f"max {dstats.t_max * 1e3:.3f} ms; FORA max rel err {rel:.4f}; "
+          f"K3 launches {launches['dense_index']}, push {push_launches}")
+    check(np.isfinite(pi).all() and np.allclose(pi.sum(axis=1), 1.0,
+                                                atol=1e-3),
+          "dense index path: bad output")
+    check(rel < 0.5, f"dense index path: FORA rel err {rel} >= eps")
+    check(launches["dense_index"] > 0, "dense index path never launched K3")
+    check(push_launches["ell_spmm"] > 0, "dense index path never launched K1")
+    rows_match(small, dex.walk_index, "dense index")
+    dense_L = min(dex.walk_index.width, dex.current_walk_budget())
+
+    # the paper graph's index, built once and timed; the paper index path,
+    # the profile and the retired-rows run all serve from it
+    web_dg = web.device("cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    widx = WalkIndex.build(web_dg, width=PAPER_INDEX_WIDTH, alpha=rp.alpha,
+                           walk_tail=rp.walk_tail, seed=0)
+    torch.cuda.synchronize()
+    print(f"  paper index build: {time.perf_counter() - t0:.2f}s, "
+          f"{widx.nbytes / 2**30:.3f} GiB ({widx.nbytes} bytes), width "
+          f"{widx.width}, {web.n} x {widx.width} x {widx.num_steps} "
+          f"lane-steps")
+    rows_match(web, widx, "paper index")
+
+    # paper path: 256 queries through the index into dna_real
+    walk_gather.reset_launches()
+    ell_spmv.reset_launches()
+    t0 = time.perf_counter()
+    iout = quickstart.run(scale=1, num_queries=256,
+                          check_sources=CHECK_SOURCES, device="cuda",
+                          walk_index=widx, log=lambda s: print(f"  {s}"))
+    torch.cuda.synchronize()
+    launches["walk_endpoint_gather"] = \
+        walk_gather.LAUNCHES["walk_endpoint_gather"]
+    push_launches = dict(ell_spmv.LAUNCHES)
+    print(f"  paper index path: {json.dumps(iout)}")
+    print(f"  wall {time.perf_counter() - t0:.1f}s, K3 launches "
+          f"{launches['walk_endpoint_gather']}, push {push_launches}; "
+          f"per query mean/max: index "
+          f"{iout['per_query_ms_mean']:.3f}/{iout['per_query_ms_max']:.3f} "
+          f"ms, live (phase 3) {out['per_query_ms_mean']:.3f}/"
+          f"{out['per_query_ms_max']:.3f} ms")
+    check(iout["graph"]["n"] == 281903, "not the full-size graph")
+    check(iout["accepted"], "index path: dna_real result not accepted")
+    check(iout["fora_max_rel_err"] < 0.5,
+          f"index path: FORA rel err {iout['fora_max_rel_err']} >= eps")
+    check(launches["walk_endpoint_gather"] > 0,
+          "paper index path never launched K3")
+    check(push_launches["ell_spmm_sliced"] > 0,
+          "paper index path never launched K2")
+    full_budget = widx.budget.clone()
+    profile_queries(web, 8, walk_index=widx)
+
+    # retired rows: the partial branch walks every lane live as well; last,
+    # since the index stays partial
+    pick = torch.randperm(web.n, generator=gen, device=dev)[:web.n // 3]
+    widx.retire(pick.cpu().numpy(), budget=PAPER_INDEX_WIDTH // 3)
+    check(widx.partial, "retired index is not partial")
+    psrcs = PprWorkload(web, 256, seed=0).sources[:CHECK_SOURCES]
+    pexact = ppr_power_iteration(web, psrcs, device="cuda")
+    walk_gather.reset_launches()
+    ell_spmv.reset_launches()
+    res = fora_fused(web_dg, psrcs, params, num_walks=iout["walk_lanes"],
+                     index=widx, device="cuda")
+    pi = res.pi.cpu().numpy()
+    rel = rel_err(pi, pexact, web.n)
+    launches["retired_index"] = walk_gather.LAUNCHES["walk_endpoint_gather"]
+    push_launches = dict(ell_spmv.LAUNCHES)
+    print(f"  retired third of the rows to budget {PAPER_INDEX_WIDTH // 3}: "
+          f"FORA max rel err {rel:.4f} over {CHECK_SOURCES} sources, K3 "
+          f"launches {launches['retired_index']}, push {push_launches}")
+    check(np.isfinite(pi).all() and rel < 0.5,
+          f"retired index path: FORA rel err {rel} >= eps")
+    check(launches["retired_index"] > 0, "retired index run never "
+          "launched K3")
+    check(push_launches["ell_spmm_sliced"] > 0, "retired index run never "
+          "launched K2")
+
+    print(f"phase 5: kernel times (device time by torch.profiler; events = "
           f"host pace of back-to-back calls), card {card}")
 
     def timed(name, nbr, msk, w, rm, thr, x, label, reps=200):
@@ -497,11 +769,61 @@ def main() -> int:
         timed("ell_spmm", *uni_t, None, uni_thr,
               mass_rows(gen, B, uni.n, dev),
               f"uniform n={uni.n} K={uni_t[0].shape[1]} B={B}", reps=50)
+
+    def timed_gather(idx, budget, graph, dgraph, L, label, reps=200):
+        """K3 at a path's shape: the index's table, and starts and weights
+        of one real query (a push from node 0, starts sampled from its
+        residual as the fused query samples them)."""
+        seeds = one_hot_seeds([0], graph.n, dev)
+        push = forward_push(dgraph.in_neighbors, dgraph.in_mask,
+                            dgraph.in_weights, dgraph.out_degree, seeds,
+                            alpha=rp.alpha,
+                            rmax=params.resolve(graph).rmax,
+                            row_map=dgraph.in_row_map)
+        u = torch.rand((1, L), generator=gen, device=dev)
+        starts, r_sum = sample_walk_starts(push.r, u)
+        starts = starts.contiguous()
+        w = lane_weights(r_sum, L).contiguous()
+        args = (idx.endpoints, budget, starts, w)
+        kern = lambda: walk_gather.walk_endpoint_gather_cuda(  # noqa: E731
+            *args)
+        plain = lambda: ref.walk_endpoint_gather_ref(*args)  # noqa: E731
+        # the library yardstick: one index_add_ of the (cell, weight) pairs
+        # already gathered, the gather itself left out
+        lane = torch.arange(L, device=dev)
+        s64 = starts.long()
+        cell = idx.endpoints[s64, lane[None]].long().reshape(-1)
+        wv = torch.where(lane[None] < budget[s64], w, 0.0).reshape(-1)
+        lib = lambda: torch.zeros(  # noqa: E731
+            graph.n, device=dev).index_add_(0, cell, wv)
+        want = ref.walk_endpoint_gather_ref(*args[:3], w.double())
+        _, lib_ratio = err_ratio(lib()[None], want, LIBRARY_RTOL)
+        check(lib_ratio <= 1.0, "library yardstick disagrees for K3")
+        split = device_split_us(kern, reps)
+        ms = sum(split.values()) / 1e3
+        plain_ms = device_ms(plain, max(5, reps // 20))
+        lib_ms = device_ms(lib, reps)
+        ev_ms = events_ms(kern, reps)
+        bound, by = gather_cost(1, L, graph.n, idx.width)
+        print("    K3 device time by kernel: " + ", ".join(
+            f"{name[:40]} {us:.2f} us" for name, us in split.items()))
+        print(f"  {'walk_endpoint_gather':20s} {label:34s} kernel "
+              f"{ms * 1e3:9.2f} us (events {ev_ms * 1e3:9.2f} us)  bound "
+              f"{bound * 1e3:8.2f} us ({by})  plain {plain_ms * 1e3:10.2f} us"
+              f"  index_add_ (gather excluded) {lib_ms * 1e3:9.2f} us  "
+              f"[{card}]")
+        return ms, plain_ms, bound, by, lib_ms
+
+    timed_gather(dex.walk_index, dex.walk_index.budget, small, dg, dense_L,
+                 f"dense path n=2000 B=1 L={dense_L}")
+    k3 = timed_gather(widx, full_budget, web, web_dg, PAPER_INDEX_WIDTH,
+                      f"paper path web-stanford B=1 L={PAPER_INDEX_WIDTH}")
     summary = []
-    for name, (ms, plain_ms, bound, by, lib_ms) in (("ell_spmm", k1),
-                                                    ("ell_spmm_sliced", k2)):
+    for name, (ms, plain_ms, bound, by, lib_ms) in (
+            ("ell_spmm", k1), ("ell_spmm_sliced", k2),
+            ("walk_endpoint_gather", k3)):
         summary.append({
-            "name": name, "route": "cuda", "source": SOURCE,
+            "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": stats[name]["max_abs_err"], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,

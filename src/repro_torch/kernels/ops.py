@@ -11,6 +11,7 @@ import torch
 
 from . import ref
 from .ell_spmv import ell_spmm_cuda, ell_spmm_sliced_cuda
+from .walk_gather import walk_endpoint_gather_cuda
 
 
 def _on_cuda(x: torch.Tensor) -> bool:
@@ -42,3 +43,14 @@ def ell_spmm_sliced(neighbors: torch.Tensor, mask: torch.Tensor,
                                     threshold)
     return ref.ell_spmm_sliced_ref(neighbors, mask, x, weights, threshold,
                                    row_map)
+
+
+def walk_endpoint_gather(endpoints: torch.Tensor, budget: torch.Tensor,
+                         starts: torch.Tensor,
+                         weights: torch.Tensor) -> torch.Tensor:
+    """The index-backed walk phase: each lane's stored endpoint
+    ``endpoints[starts[b,i], i]`` gets its weight, where the start node's
+    ``budget`` covers the lane (the live walk owns the others). (B, n)."""
+    if _on_cuda(starts):
+        return walk_endpoint_gather_cuda(endpoints, budget, starts, weights)
+    return ref.walk_endpoint_gather_ref(endpoints, budget, starts, weights)

@@ -51,3 +51,29 @@ def ell_spmm_sliced_ref(neighbors: torch.Tensor, mask: torch.Tensor,
     out = torch.zeros((x.shape[0], n), dtype=partials.dtype,
                       device=partials.device)
     return out.index_add_(1, row_map[keep].long(), partials[:, keep])
+
+
+def walk_endpoint_gather_ref(endpoints: torch.Tensor, budget: torch.Tensor,
+                             starts: torch.Tensor,
+                             weights: torch.Tensor) -> torch.Tensor:
+    """Index-backed walk aggregation: lane i of row b reads the stored
+    endpoint ``endpoints[starts[b,i], i]`` and adds its weight there,
+    provided the start node's stored budget covers the lane:
+
+        out[b, t] = sum_i w[b,i] * [i < budget[starts[b,i]]]
+                                 * [endpoints[starts[b,i], i] == t]
+
+    endpoints (n, W) int32, budget (n,) int32, starts (B, L <= W) int32,
+    weights (B, L). Returns (B, n) in the weights' dtype (float32 on the
+    path; the card check runs it in float64).
+    """
+    n = endpoints.shape[0]
+    B, L = starts.shape
+    lane = torch.arange(L, device=starts.device)
+    s = starts.long()
+    e = endpoints[s, lane[None, :]].long()                  # (B, L)
+    valid = lane[None, :] < budget[s]
+    w = torch.where(valid, weights, 0.0)
+    flat = e + torch.arange(B, device=e.device)[:, None] * n
+    out = torch.zeros(B * n, dtype=weights.dtype, device=weights.device)
+    return out.index_add_(0, flat.reshape(-1), w.reshape(-1)).view(B, n)

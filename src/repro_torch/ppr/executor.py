@@ -13,7 +13,10 @@ count is calibrated once per workload from a probe push; every measured
 block is one ``fora_fused`` call, timed up to a device synchronisation
 after its readout. Each query's walks come from its own generator, seeded
 from (workload seed, query id), so its answer does not depend on the block
-it runs in.
+it runs in. With ``index_budget > 0`` a :class:`~repro_torch.index.WalkIndex`
+of that many lanes per node is built once, at warmup, and every block
+serves its covered walk lanes from it (the FORA+ mode); ``walk_index``
+hands the executor one already built instead.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import math
 import time
 from collections.abc import Sequence
 from dataclasses import dataclass, field, replace
+from typing import TYPE_CHECKING
 
 import numpy as np
 import torch
@@ -32,6 +36,9 @@ from .fora import (FusedForaResult, ForaParams, _pow2_ceil_host,
                    default_walk_budget, fora_fused)
 from .forward_push import forward_push_np
 from .graph import DeviceGraph, Graph
+
+if TYPE_CHECKING:
+    from ..index import WalkIndex
 
 
 @dataclass
@@ -67,6 +74,13 @@ class ForaExecutor:
     params: ForaParams = field(default_factory=ForaParams)
     block_size: int = 1            # 1 = paper-faithful
     device: str | torch.device = "cuda"
+    index_budget: int = 0          # >0: pre-draw a WalkIndex of this many
+    #                                lanes per node and serve covered walk
+    #                                lanes from it
+    index_seed: int = 0
+    # a prebuilt index of the workload's graph to serve from; its width
+    # stands for index_budget and warmup builds none
+    walk_index: "WalkIndex | None" = field(default=None, repr=False)
     calls: int = field(default=0, init=False)
     _dev: torch.device = field(init=False, repr=False)
     _warmed: bool = field(default=False, init=False)
@@ -77,6 +91,14 @@ class ForaExecutor:
     def __post_init__(self) -> None:
         if self.block_size < 1:
             raise ValueError("block_size must be >= 1")
+        if self.index_budget < 0:
+            raise ValueError("index_budget must be >= 0")
+        if self.walk_index is not None:
+            if self.index_budget not in (0, self.walk_index.width):
+                raise ValueError(
+                    f"index_budget {self.index_budget} != the given walk "
+                    f"index's width {self.walk_index.width}")
+            self.index_budget = self.walk_index.width
         self._dev = resolve_device(self.device)
 
     @property
@@ -91,7 +113,7 @@ class ForaExecutor:
         return fora_fused(self._device_graph, self._block_sources(qids),
                           self.params, self.workload.seed,
                           num_walks=self._num_walks, query_ids=qids,
-                          device=self._dev)
+                          index=self.walk_index, device=self._dev)
 
     def _timed_block(self, qids: Sequence[int]) -> float:
         t0 = time.perf_counter()
@@ -135,6 +157,14 @@ class ForaExecutor:
             self._device_graph = self.workload.graph.device(self._dev)
         if self._num_walks is None:
             self._num_walks = self._calibrate_walk_budget()
+        if self.index_budget and self.walk_index is None:
+            # drawn once per workload; build time is warmup, never measured
+            from ..index import WalkIndex
+
+            rp = self.params.resolve(self.workload.graph)
+            self.walk_index = WalkIndex.build(
+                self._device_graph, width=self.index_budget, alpha=rp.alpha,
+                walk_tail=rp.walk_tail, seed=self.index_seed)
         nq = self.workload.num_queries
         size = min(self.block_size, nq)
         for qid in self._probe_qids():
@@ -158,11 +188,20 @@ class ForaExecutor:
         """The calibrated walk lane count (after warmup)."""
         return self._num_walks
 
+    @property
+    def index_coverage(self) -> float:
+        """Fraction of the calibrated walk budget the walk index serves
+        (0.0 without an index or before warmup)."""
+        if self.walk_index is None or self._num_walks is None:
+            return 0.0
+        return self.walk_index.coverage(self._num_walks)
+
     def degrade(self, factor: float) -> None:
         """Graceful degradation for the remaining queries: raise epsilon by
         1/factor (coarser guarantee, fewer pushes and walks) and cap the
         calibrated walk lanes by ``factor`` (power-of-two floor). Answers
-        stay unbiased, only noisier."""
+        stay unbiased, only noisier. The walk index stays: its endpoints
+        depend on alpha and the truncation length, which this keeps."""
         if not 0.0 < factor < 1.0:
             raise ValueError(f"factor must be in (0,1), got {factor}")
         self.params = replace(self.params,

@@ -13,8 +13,10 @@ the residual distribution, and adds their endpoint mass to the reserve.
 :func:`fora_fused` keeps the whole query block on the device: push, the
 power-of-two walk budget, the walks and the readout ``pi = push.pi +
 endpoint``; the host waits on it only at the push's convergence tests and
-at readout. :func:`fora` is the legacy path that reads the residual mass
-back to choose the walk count on the host.
+at readout. With a :class:`~repro_torch.index.WalkIndex` it serves the
+walk lanes the index covers from its table (kernel K3) and walks the rest
+live on the index's lane streams. :func:`fora` is the legacy path that
+reads the residual mass back to choose the walk count on the host.
 """
 
 from __future__ import annotations
@@ -22,16 +24,21 @@ from __future__ import annotations
 import math
 from collections.abc import Sequence
 from dataclasses import dataclass
-from typing import NamedTuple
+from typing import TYPE_CHECKING, NamedTuple
 
 import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..kernels import ops
 from .forward_push import forward_push, forward_push_np, one_hot_seeds
 from .graph import DeviceGraph, Graph
-from .random_walk import (QueryDraws, WalkDraws, residual_walks,
-                          walk_length_for_tail)
+from .random_walk import (QueryDraws, WalkDraws, fold_endpoints,
+                          lane_weights, residual_walks, sample_walk_starts,
+                          walk_endpoints, walk_length_for_tail)
+
+if TYPE_CHECKING:
+    from ..index import WalkIndex
 
 MAX_PUSH_ITERS = 10_000
 
@@ -97,10 +104,60 @@ def default_walk_budget(rp: ResolvedFora) -> int:
     return _pow2_ceil_host(min(rp.max_walks, math.ceil(rp.omega)))
 
 
+def _check_index(index: "WalkIndex", dg: DeviceGraph, rp: ResolvedFora,
+                 steps: int) -> None:
+    if index.n != dg.n:
+        raise ValueError(f"index built for n={index.n}, graph has {dg.n}")
+    if abs(index.alpha - rp.alpha) > 1e-12 or index.num_steps != steps:
+        raise ValueError(
+            f"index walked alpha={index.alpha}/L={index.num_steps}, query "
+            f"needs alpha={rp.alpha}/L={steps} — rebuild the index")
+    if index.device != dg.device:
+        raise ValueError(f"index lives on {index.device}, graph on "
+                         f"{dg.device}")
+
+
+def _index_walks(dg: DeviceGraph, index: "WalkIndex", residual: torch.Tensor,
+                 draws: WalkDraws, w_eff: torch.Tensor, *, alpha: float,
+                 num_walks: int, num_steps: int) -> torch.Tensor:
+    """The walk phase served from ``index``: (B, n) endpoint mass.
+
+    Starts are sampled from the query's start uniforms as on the live path,
+    with weights r_sum / w_eff on the active lanes. The table lanes
+    [0, min(width, W)) are folded by K3; the others walk live on the
+    index's lane streams, shared by every row. A partial index walks every
+    lane live and zero-weights the lanes its table served."""
+    B = residual.shape[0]
+    starts, r_sum = sample_walk_starts(residual, draws.start_uniforms())
+    if starts.shape != (B, num_walks):
+        raise ValueError(f"draws give {tuple(starts.shape)} starts, "
+                         f"need ({B}, {num_walks})")
+    weights = lane_weights(r_sum, num_walks, w_eff)
+    k = min(index.width, num_walks)
+    endpoint = ops.walk_endpoint_gather(index.endpoints, index.budget,
+                                        starts[:, :k].contiguous(),
+                                        weights[:, :k].contiguous())
+    live_lo = 0 if index.partial else k
+    if live_lo == num_walks:
+        return endpoint
+    lanes = torch.arange(live_lo, num_walks, device=residual.device)
+    pos = walk_endpoints(dg.edge_dst, dg.out_offsets, dg.out_degree,
+                         starts[:, live_lo:],
+                         index.streams.steps(lanes, num_steps), alpha=alpha)
+    w_live = weights[:, live_lo:]
+    if index.partial:
+        covered = torch.zeros_like(w_live, dtype=torch.bool)
+        covered[:, :k] = (lanes[None, :k]
+                          < index.budget[starts[:, :k].long()])
+        w_live = torch.where(covered, 0.0, w_live)
+    return endpoint + fold_endpoints(pos, w_live, dg.n)
+
+
 def fora_fused(dg: DeviceGraph, sources, params: ForaParams = ForaParams(),
                seed: int = 0, *, num_walks: int | None = None,
                query_ids: Sequence[int] | None = None,
                draws: WalkDraws | None = None,
+               index: "WalkIndex | None" = None,
                device: str | torch.device = "cuda") -> FusedForaResult:
     """FORA for a block of B sources on a :class:`DeviceGraph` that lives
     on ``device``.
@@ -112,6 +169,12 @@ def fora_fused(dg: DeviceGraph, sources, params: ForaParams = ForaParams(),
     device. The walks draw from ``draws`` when given (the tests replay the
     JAX package's draws), else from one generator per query seeded from
     (``seed``, query id); ``query_ids`` default to the row positions.
+
+    ``index`` attaches a :class:`~repro_torch.index.WalkIndex` on the same
+    device, built at this call's alpha and walk tail (checked here): the
+    lanes its budget covers are served from its table by K3, and the rest
+    walk live on its lane streams; only the start uniforms then come from
+    ``draws``.
     """
     dev = resolve_device(device)
     if dg.device != dev:
@@ -120,6 +183,8 @@ def fora_fused(dg: DeviceGraph, sources, params: ForaParams = ForaParams(),
     num_walks = _pow2_ceil_host(default_walk_budget(rp) if num_walks is None
                                 else num_walks)
     steps = walk_length_for_tail(rp.alpha, rp.walk_tail)
+    if index is not None:
+        _check_index(index, dg, rp, steps)
     seeds = one_hot_seeds(sources, dg.n, dev)
     B = seeds.shape[0]
     push = forward_push(dg.in_neighbors, dg.in_mask, dg.in_weights,
@@ -134,10 +199,15 @@ def fora_fused(dg: DeviceGraph, sources, params: ForaParams = ForaParams(),
         if len(qids) != B:
             raise ValueError(f"{len(qids)} query ids for {B} sources")
         draws = QueryDraws(seed, qids, num_walks, dev)
-    endpoint = residual_walks(dg.edge_dst, dg.out_offsets, dg.out_degree,
-                              push.r, draws, alpha=rp.alpha,
-                              num_walks=num_walks, num_steps=steps,
-                              active_walks=w_eff)
+    if index is not None:
+        endpoint = _index_walks(dg, index, push.r, draws, w_eff,
+                                alpha=rp.alpha, num_walks=num_walks,
+                                num_steps=steps)
+    else:
+        endpoint = residual_walks(dg.edge_dst, dg.out_offsets, dg.out_degree,
+                                  push.r, draws, alpha=rp.alpha,
+                                  num_walks=num_walks, num_steps=steps,
+                                  active_walks=w_eff)
     return FusedForaResult(pi=push.pi + endpoint, residual_mass=r_sum,
                            push_iters=push.iters, walks_effective=w_eff,
                            walks_budget=num_walks)

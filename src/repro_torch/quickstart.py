@@ -4,9 +4,14 @@ Builds a (scaled) Web-Stanford stand-in, checks FORA against exact PPR,
 measures real FORA queries with :class:`ForaExecutor`, and lets D&A_REAL
 (paper Alg. 2) decide how many cores the workload needs, beside the
 Lemma-2 Hoeffding baseline. The deadline is doubled while it is
-infeasible, as in paper §III-A.
+infeasible, as in paper §III-A. With ``--index-budget W`` the executor
+pre-draws a walk index of W lanes per node and serves the covered walk
+lanes from it (FORA+); the accuracy check then runs through that index.
+``run(walk_index=...)`` serves from an index already built on the same
+graph instead.
 
     PYTHONPATH=src python -m repro_torch.quickstart [--device cpu] [--scale N]
+        [--index-budget W]
 """
 
 from __future__ import annotations
@@ -19,13 +24,15 @@ import torch
 
 from ._device import resolve_device
 from .core import InfeasibleDeadline, dna_real, fraction_sample_size
-from .ppr import (ForaExecutor, ForaParams, PprWorkload, fora, load,
-                  ppr_power_iteration)
+from .index import WalkIndex
+from .ppr import (ForaExecutor, ForaParams, PprWorkload, fora, fora_fused,
+                  load, ppr_power_iteration)
 
 EPSILON = 0.5
 
 
 def run(*, scale: int = 512, num_queries: int = 64, check_sources: int = 1,
+        index_budget: int = 0, walk_index: WalkIndex | None = None,
         device: str | torch.device = "cuda",
         log: Callable[[str], None] = print) -> dict:
     """Run the quickstart loop, one query per call (the paper's mode), and
@@ -34,19 +41,28 @@ def run(*, scale: int = 512, num_queries: int = 64, check_sources: int = 1,
     graph = load("web-stanford", scale=scale)
     workload = PprWorkload(graph=graph, num_queries=num_queries, seed=0)
     log(f"graph: {graph.summary()}")
+    params = ForaParams(epsilon=EPSILON)
+    executor = ForaExecutor(workload=workload, params=params,
+                            index_budget=index_budget,
+                            walk_index=walk_index, device=dev)
 
     # FORA vs exact PPR on the first sources
-    params = ForaParams(epsilon=EPSILON)
     srcs = workload.sources[:check_sources]
     exact = ppr_power_iteration(graph, srcs, alpha=params.alpha, device=dev)
-    res = fora(graph, srcs, params, device=dev)
+    if executor.index_budget:
+        executor.warmup()                # builds the walk index if none
+        pi = fora_fused(executor.device_graph, srcs, params,
+                        num_walks=executor.current_walk_budget(),
+                        index=executor.walk_index, device=dev).pi
+        pi = pi.cpu().numpy()
+    else:
+        pi = fora(graph, srcs, params, device=dev).pi
     mask = exact >= 1.0 / graph.n
-    rel = float((np.abs(res.pi - exact)[mask] / exact[mask]).max())
+    rel = float((np.abs(pi - exact)[mask] / exact[mask]).max())
     log(f"FORA max rel err: {rel:.3f} over {check_sources} sources "
         f"(guarantee eps={EPSILON})")
 
     # D&A_REAL: minimum cores to finish X queries in T seconds
-    executor = ForaExecutor(workload=workload, params=params, device=dev)
     s = fraction_sample_size(num_queries, 0.25)
     executor(list(range(s)))                     # steady-state warmup
     probe = executor(list(range(s)))
@@ -67,6 +83,8 @@ def run(*, scale: int = 512, num_queries: int = 64, check_sources: int = 1,
         "graph": graph.summary(), "device": str(dev),
         "layout": executor.device_graph.layout,
         "walk_lanes": executor.current_walk_budget(),
+        "index_width": executor.index_budget,
+        "index_coverage": executor.index_coverage,
         "fora_max_rel_err": rel, "deadline_s": T,
         "num_queries": num_queries, "cores": result.cores,
         "lemma2_cores": result.bounds.lemma2_cores,
@@ -93,8 +111,10 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--scale", type=int, default=512,
                     help="1/scale of the paper's node count")
+    ap.add_argument("--index-budget", type=int, default=0,
+                    help="walk index lanes per node (0: no index)")
     args = ap.parse_args(argv)
-    run(scale=args.scale, device=args.device)
+    run(scale=args.scale, index_budget=args.index_budget, device=args.device)
 
 
 if __name__ == "__main__":
