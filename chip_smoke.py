@@ -36,7 +36,30 @@ drives the port's main path, in phases:
    version's time and one PyTorch library call's. Each time is device
    time: the card's kernel durations under ``torch.profiler``, summed and
    divided by the calls. The host's pace (CUDA events around back-to-back
-   calls) is printed beside it.
+   calls) is printed beside it;
+6. gemma-2b serving at full width and depth (18 layers, d 2048, 8 query
+   heads on 1 KV head, Dh 256, vocab 256,000, bf16, 2,506,172,416 random
+   parameters from a seed), cut in batch and sequence only: 4 prompts of
+   4,096 tokens prefilled into a cache of 4,128, then 32 greedy decode
+   steps, all attention through K6. K6 is held against its float64 plain
+   version at layer 0's prefill q/k/v, at a decode step's q against a view
+   of the cache, at GQA and MHA shapes and over the JAX package's sweep
+   (float32 and bfloat16); the limit must refuse a kernel that ignores
+   q_offset and one that maps query head h to KV head h % Hkv. Decode's
+   logits at position S must equal a prefill's over S + 1 tokens. Then
+   K6's times at the prefill and decode shapes beside its bound, the
+   float32 plain version's and ``F.scaled_dot_product_attention``'s, and a
+   profile of each path;
+7. DIN serving with its full-size tables (10M x 18 items, 100k x 18
+   categories): serve_p99 (B = 512, L = 100) through ``score`` and
+   1,000,000 candidates in blocks of 8,192 through ``score_candidates``,
+   unfactored and factored, the history pooling through K5. K5 is held
+   against its float64 plain version at the path's inputs and over the JAX
+   package's sweep, and the limit must refuse a kernel that drops the last
+   history item and one that ignores the weights; factored must equal
+   unfactored, and 256 candidates must equal ``score`` on the same pairs.
+   Then K5's times beside its bound, the plain version's and
+   ``F.embedding_bag``'s, and a profile of each path.
 
 The launch counts of each path are zeroed just before it and read just
 after. Any failed phase exits non-zero; without a card, or without the
@@ -72,13 +95,54 @@ CHECK_SOURCES = 3              # phase 3's FORA check (a B=3 push)
 # be 1.18 TB, so its index is partial (2^12 of 2^20 lanes, 4.6 GB)
 DENSE_INDEX_WIDTH = 1 << 15
 PAPER_INDEX_WIDTH = 1 << 12
+# phase 6: gemma-2b at full width and depth, cut in batch and sequence only
+LM_BATCH = 4
+LM_PROMPT = 4096
+LM_CACHE_SLACK = 32            # cache Smax = LM_PROMPT + LM_CACHE_SLACK
+LM_DECODE_STEPS = 32
+GEMMA_PARAMS = 2_506_172_416
+LM_LOGIT_TOL = 2e-2            # bf16: decode vs prefill, of max|logit|
+BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor cores
+# K6 against its float64 plain version, by q's dtype, the output's last
+# rounding: float32, a few ulp of the final division (2^-20); bfloat16, one
+# ulp (2^-7): the rounding's half ulp is up to 2^-8 of the value, and the
+# float32 sum before it differs from the exact one as well
+ATTN_RTOL = {"torch.float32": 2.0**-20, "torch.bfloat16": 2.0**-7}
+# tests/test_kernels.py::test_flash_attention_sweep's shapes
+ATTN_SWEEP = [(1, 128, 128, 2, 2, 64, True, 0),
+              (2, 100, 100, 4, 2, 32, True, 0),
+              (1, 1, 256, 4, 1, 64, True, 255),
+              (2, 64, 192, 8, 8, 128, False, 0),
+              (1, 37, 53, 2, 1, 16, True, 16)]
+FLUSH_BYTES = 64 << 20         # overwritten between timed calls: > 50 MB L2
+FLUSH_KERNEL = "FillFunctor<unsigned char>"   # the kernel of its zero_()
+PROFILE_TRIES = 5
+# phase 7: DIN with its full-size tables
+DIN_TABLE_BYTES = 727_200_000
+DIN_SERVE_REQUESTS = 20
+DIN_BLOCK = 8192               # retrieval candidates a block
+DIN_ATOL = 1e-5                # tests/test_models.py's factored-retrieval atol
+LIBRARY_BAG_RTOL = 1e-5        # F.embedding_bag, of sum_l |w| |row|
+# tests/test_kernels.py::test_embedding_bag_sweep's shapes (V, d, B, L)
+BAG_SWEEP = [(100, 8, 16, 5), (1000, 18, 64, 100), (64, 32, 300, 7),
+             (50_000, 16, 128, 64)]
 REPLACES = {"ell_spmm": "src/repro/kernels/ell_spmv.py:141",
             "ell_spmm_sliced": "src/repro/kernels/ell_spmv.py:234",
-            "walk_endpoint_gather": "src/repro/kernels/walk_gather.py:57"}
+            "walk_endpoint_gather": "src/repro/kernels/walk_gather.py:57",
+            "flash_attention": "src/repro/kernels/flash_attention.py:83",
+            "embedding_bag": "src/repro/kernels/embedding_bag.py:40"}
 SOURCES = {"ell_spmm": "src/repro_torch/kernels/csrc/ell_spmm.cu",
            "ell_spmm_sliced": "src/repro_torch/kernels/csrc/ell_spmm.cu",
            "walk_endpoint_gather":
-               "src/repro_torch/kernels/csrc/walk_gather.cu"}
+               "src/repro_torch/kernels/csrc/walk_gather.cu",
+           "flash_attention":
+               "src/repro_torch/kernels/csrc/flash_attention.cu",
+           "embedding_bag": "src/repro_torch/kernels/csrc/embedding_bag.cu"}
+# the TPU kernel with no path in the JAX package yet, and so none here
+NOT_PORTED = [{"name": "ell_spmv",
+               "replaces": "src/repro/kernels/ell_spmv.py:71",
+               "status": "not ported",
+               "why": "no caller in src/repro: no path drives it yet"}]
 
 
 class SmokeFailure(RuntimeError):
@@ -124,27 +188,12 @@ def device_ms(fn, reps: int) -> float:
 
 
 def device_split_us(fn, reps: int) -> dict[str, float]:
-    """Mean device microseconds per call of ``fn``, by kernel name."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
+    """Mean device microseconds per call of ``fn``, by kernel name, from a
+    window that recorded device time (see :func:`profile_window`)."""
     fn()
-    fn()
-    torch.cuda.synchronize()
-    # a profile window now and then comes back without device events; a
-    # window is taken again up to twice before the run fails
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        by_name = device_us(prof)
-        if sum(sum(ts) for ts in by_name.values()) > 0:
-            return {k: sum(ts) / reps for k, ts in by_name.items()}
-        print(f"  (torch.profiler recorded no device time over {reps} "
-              f"calls; profiling again)")
-    raise SmokeFailure("torch.profiler recorded no device time")
+    by_name = profile_window(
+        fn, reps, lambda b: sum(sum(ts) for ts in b.values()) > 0)
+    return {k: sum(ts) / reps for k, ts in by_name.items()}
 
 
 def device_us(prof) -> dict[str, list[float]]:
@@ -255,6 +304,616 @@ def profile_queries(graph, count: int, walk_index=None) -> None:
               f"{sum(ts) / len(ts):8.2f} us  {name[:90]}")
 
 
+def limit_ratio(out, want, limit) -> tuple[float, float]:
+    """(max |out - want|, the largest |out - want| / limit); want and
+    limit are float64."""
+    import torch
+
+    diff = (out.double() - want).abs()
+    ratio = diff / limit.clamp_min(torch.finfo(torch.float64).tiny)
+    return float(diff.max()), float(ratio.max())
+
+
+def attention_limit(q, k, v, want, causal: bool, q_offset: int):
+    """(K6's limit against the float64 plain version, the magnitudes): the
+    output rounded to q's type (ATTN_RTOL of |want|) plus float32
+    accumulation along the keys and the head dim, (Skv + Dh + 8) * 2^-24
+    of the magnitudes sum_j p_j |v_j| (the plain version run on |v|)."""
+    from repro_torch.kernels import ref
+
+    mag = ref.flash_attention_ref(q.double(), k.double(), v.double().abs(),
+                                  causal=causal, q_offset=q_offset)
+    return ATTN_RTOL[str(q.dtype)] * want.abs() \
+        + (k.shape[1] + k.shape[3] + 8) * 2.0**-24 * mag, mag
+
+
+def attention_cost(B: int, Sq: int, Hq: int, Hkv: int, Dh: int, Skv: int,
+                   causal: bool, q_offset: int, elem: int
+                   ) -> tuple[float, str]:
+    """Least time (ms) for one K6 call on these shapes: 4 Dh flops per
+    visible (query, key) pair at the dense bf16 tensor-core peak; q and the
+    output, and the keys and values some query sees, each moved once."""
+    if causal:
+        rows = np.arange(Sq) + q_offset
+        pairs = int(np.minimum(rows + 1, Skv).sum())
+        seen = min(Skv, q_offset + Sq)
+    else:
+        pairs, seen = Sq * Skv, Skv
+    flops = 4.0 * Dh * B * Hq * pairs
+    nbytes = elem * Dh * (2 * B * Sq * Hq + 2 * B * seen * Hkv)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else \
+        "operations"
+
+
+def bag_cost(table, ids, weights) -> tuple[float, str]:
+    """Least time (ms) for one K5 call on these inputs: ids and weights as
+    they lie read once (a broadcast history once), each distinct gathered
+    row once in whole 32-byte sectors, the (B, d) output written once; one
+    multiply-add per gathered element."""
+    B, L = weights.shape
+    d = table.shape[1]
+    id_bytes = 4 * (L if ids.stride(0) == 0 else B * L)
+    rows = int(ids.unique().numel())
+    nbytes = id_bytes + 4 * B * L + rows * 32 * -(-4 * d // 32) + 4 * B * d
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 2.0 * B * L * d / FP32_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else \
+        "operations"
+
+
+def profile_calls(label: str, fn, calls: int = 1) -> None:
+    """Where a path's time goes: ``calls`` calls of ``fn`` under
+    ``torch.profiler``, device time summed by kernel name, and the share of
+    the wall time the card was idle."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_name = device_us(prof)
+    busy = sum(sum(v) for v in by_name.values())
+    print(f"  profile {label}: {calls} calls, wall {wall_us / 1e3:.3f} ms, "
+          f"device busy {busy / 1e3:.3f} ms, idle share "
+          f"{1 - busy / wall_us:.3f}")
+    top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:8]
+    for name, ts in top:
+        print(f"    {sum(ts) / 1e3:9.3f} ms {len(ts):6d}x "
+              f"{sum(ts) / len(ts):10.2f} us  {name[:90]}")
+
+
+def flushing(fn, flush):
+    """``fn`` after overwriting ``flush`` (larger than the 50 MB L2), so
+    that each call finds its inputs in device memory, as a caller between
+    other work would. The overwrite runs as a kernel whose name contains
+    FLUSH_KERNEL, which the timings below leave out."""
+    def run():
+        flush.zero_()
+        return fn()
+    return run
+
+
+def profile_window(fn, reps: int, usable) -> dict[str, list[float]]:
+    """Device microseconds by kernel name over ``reps`` calls of ``fn``
+    under ``torch.profiler``. A window now and then comes back without some
+    or all of its device events; one that ``usable`` refuses is taken again,
+    up to PROFILE_TRIES times, before the run fails."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        by_name = device_us(prof)
+        if usable(by_name):
+            return by_name
+        print(f"  (profile window over {reps} calls lost its device events;"
+              f" profiling again)")
+    raise SmokeFailure("torch.profiler keeps losing device events")
+
+
+def kernel_launch_ms(fn, reps: int, kernel: str) -> tuple[float, int]:
+    """(mean device ms of one launch of the CUDA kernel whose name contains
+    ``kernel``, launches recorded) over ``reps`` calls of ``fn``: a mean
+    over the launches recorded, so a window that loses some is still
+    right."""
+    def launches(by_name):
+        return [t for name, ts in by_name.items() if kernel in name
+                for t in ts]
+
+    ts = launches(profile_window(fn, reps, lambda b: bool(launches(b))))
+    return sum(ts) / len(ts) / 1e3, len(ts)
+
+
+def call_ms(fn, reps: int) -> float:
+    """Mean device ms per call of ``fn``, built with :func:`flushing`: the
+    sum of every kernel it runs but the flush over ``reps`` calls, divided
+    by ``reps``. A window counts when it recorded the flush, and, for a
+    call that keeps the card busy for a millisecond or more, when its sum
+    is at least half the CUDA-event time of a call."""
+    ev = events_ms(fn, max(2, reps))
+
+    def work(by_name):
+        return sum(sum(ts) for name, ts in by_name.items()
+                   if FLUSH_KERNEL not in name) / reps / 1e3
+
+    def usable(by_name):
+        flushed = any(FLUSH_KERNEL in name for name in by_name)
+        return flushed and (ev < 1.0 or work(by_name) >= 0.5 * ev)
+
+    return work(profile_window(fn, reps, usable))
+
+
+def sdpa(q, k, v, causal: bool, q_offset: int):
+    """``F.scaled_dot_product_attention`` on the same function, in the
+    (B, S, H, Dh) layout: a yardstick for K6, on no path of the port.
+    With ``q_offset`` a decode row (Sq = 1) sees the first q_offset + 1
+    keys."""
+    import torch.nn.functional as F
+
+    Hq, Hkv = q.shape[2], k.shape[2]
+    if causal and q_offset:
+        if q.shape[1] != 1:
+            raise ValueError("the yardstick takes q_offset at Sq = 1 only")
+        k, v, causal = k[:, :q_offset + 1], v[:, :q_offset + 1], False
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=causal, enable_gqa=Hq != Hkv).transpose(1, 2)
+
+
+def phase6_lm(dev, gen, card: str) -> dict:
+    """K6 and gemma-2b serving at full width and depth."""
+    import torch
+
+    from repro_torch.configs import LM_SHAPES, get_arch
+    from repro_torch.kernels import flash_attention, ref
+    from repro_torch.models import transformer
+    from repro_torch.models.common import (apply_rope, rms_norm,
+                                           rope_frequencies)
+
+    arch = get_arch("gemma-2b")
+    cfg = arch.cfg
+    B, S, steps = LM_BATCH, LM_PROMPT, LM_DECODE_STEPS
+    Smax = S + LM_CACHE_SLACK
+    print(f"phase 6: gemma-2b serving through K6 (flash attention), card "
+          f"{card}")
+    pre, dec = LM_SHAPES["prefill_32k"], LM_SHAPES["decode_32k"]
+    full_cache = cfg.n_layers * 2 * dec["batch"] * dec["seq"] \
+        * cfg.n_kv_heads * cfg.head_dim * 2
+    print(f"  cut: prefill_32k B={pre['batch']} S={pre['seq']} -> B={B} "
+          f"S={S}; decode_32k B={dec['batch']} cache {dec['seq']} -> B={B} "
+          f"cache {Smax}, {steps} greedy steps (decode_32k's cache alone "
+          f"is {full_cache / 1e9:.1f} GB beside "
+          f"{cfg.param_count * 2 / 1e9:.2f} GB of weights); width and depth "
+          f"as published")
+    t0 = time.perf_counter()
+    params = arch.init_params(gen, dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in params.parameters())
+    check(n_params == cfg.param_count == GEMMA_PARAMS,
+          f"gemma-2b has {n_params} parameters, config {cfg.param_count}")
+    print(f"  init: {cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} "
+          f"query heads on {cfg.n_kv_heads} KV head, Dh {cfg.head_dim}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype}: {n_params} "
+          f"parameters, {n_params * 2 / 1e9:.2f} GB, "
+          f"{time.perf_counter() - t0:.2f}s")
+    prompt = arch.make_inputs("prefill_32k", gen, dev, batch=B, seq=S)
+    prefill = arch.build_step("prefill_32k")
+    decode = arch.build_step("decode_32k")
+    prefill(params, {"tokens": prompt["tokens"][:, :128]})     # warm up
+    torch.cuda.synchronize()
+
+    # the main path: prefill, then greedy decode against the cache
+    flash_attention.reset_launches()
+    t0 = time.perf_counter()
+    logits, kv = prefill(params, prompt)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    cache = transformer.make_kv_cache(cfg, B, Smax, device=dev)
+    cache[:, :, :, :S] = kv
+    first_token = logits.argmax(-1, keepdim=True).to(torch.int32)
+    token = first_token
+    step_ms, first_logits = [], None
+    for t in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, _ = decode(params, {"token": token, "kv_cache": cache,
+                                "cache_len": S + t})
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if first_logits is None:
+            first_logits = lg
+        token = lg.argmax(-1, keepdim=True).to(torch.int32)
+    launches = flash_attention.LAUNCHES["flash_attention"]
+    want_launches = cfg.n_layers * (1 + steps)
+    print(f"  prefill B={B} S={S}: {t_prefill:.3f}s, "
+          f"{B * S / t_prefill:.0f} tokens/s; decode {steps} steps: "
+          f"{np.mean(step_ms):.3f} ms a step mean, "
+          f"{np.median(step_ms):.3f} median, {max(step_ms):.3f} max "
+          f"({B / np.mean(step_ms) * 1e3:.0f} tokens/s); K6 launches "
+          f"{launches} (want {want_launches})")
+    for kind, sid, seconds in (("prefill", "prefill_32k", t_prefill),
+                               ("decode step", "decode_32k",
+                                np.median(step_ms) / 1e3)):
+        flops = arch.model_flops(sid, batch=B, seq=S)
+        nbytes = arch.model_bytes(sid, batch=B, seq=S)
+        least = max(flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S)
+        print(f"  {kind} roofline (configs' model_flops/model_bytes at B={B}"
+              f" S={S}): {flops:.4e} flops, {nbytes:.4e} bytes, least "
+              f"{least * 1e3:.3f} ms against {seconds * 1e3:.3f} ms measured"
+              f" ({least / seconds:.4f} of the roofline)")
+    check(bool(torch.isfinite(logits).all() and torch.isfinite(lg).all()),
+          "gemma-2b: non-finite logits")
+    check(launches == want_launches,
+          f"gemma-2b path launched K6 {launches} times, not {want_launches}")
+
+    # layer 0's prefill q, k, v and a decode step's q against the cache
+    p0 = transformer.layer_params(params, 0)
+    cos, sin = rope_frequencies(cfg.head_dim, Smax, cfg.rope_theta, dev)
+
+    def qkv(tokens, pos):
+        x = rms_norm(transformer._embed(params, cfg, tokens), p0["ln1"],
+                     cfg.norm_eps)
+        n = tokens.shape[1]
+        shape = (B, n, -1, cfg.head_dim)
+        a = p0["attn"]
+        return (apply_rope((x @ a["wq"]).reshape(shape), cos, sin, pos),
+                apply_rope((x @ a["wk"]).reshape(shape), cos, sin, pos),
+                (x @ a["wv"]).reshape(shape))
+
+    pos = torch.arange(S, device=dev).expand(B, S)
+    q0, k0, v0 = qkv(prompt["tokens"], pos)
+    mid = S + steps // 2
+    qd, _, _ = qkv(first_token, torch.full((B, 1), mid, device=dev))
+    stats = {"max_abs_err": 0.0}
+
+    def attn_check(label, q, k, v, causal, off, broken=()):
+        torch.cuda.synchronize()
+        out = flash_attention.flash_attention_cuda(q, k, v, causal=causal,
+                                                   q_offset=off)
+        torch.cuda.synchronize()
+        want = ref.flash_attention_ref(q.double(), k.double(), v.double(),
+                                       causal=causal, q_offset=off)
+        limit, _ = attention_limit(q, k, v, want, causal, off)
+        err, ratio = limit_ratio(out, want, limit)
+        stats["max_abs_err"] = max(stats["max_abs_err"], err)
+        again = flash_attention.flash_attention_cuda(q, k, v, causal=causal,
+                                                     q_offset=off)
+        print(f"  flash_attention {label:44s} max_abs_err={err:.3e} "
+              f"max|want|={float(want.abs().max()):.3e} err/limit="
+              f"{ratio:.4f} {'ok' if ratio <= 1 else 'FAIL'}")
+        check(out.shape == want.shape and out.dtype == q.dtype,
+              f"K6 {label}: shape or dtype")
+        check(ratio <= 1.0, f"K6 {label}: error {err} above the limit "
+              f"(ratio {ratio})")
+        check(bool(torch.equal(out, again)),
+              f"K6 {label}: a second launch gave other bits")
+        for bad, got in broken:
+            _, r = limit_ratio(got, want, limit)
+            print(f"  flash_attention {'broken: ' + bad:44s} "
+                  f"err/limit={r:.4g} {'refused' if r > 1 else 'PASSED'}")
+            check(r > 1.0, f"K6: the check passes a broken kernel ({bad})")
+
+    print("  K6 against its float64 plain version (rtol 2^-20 float32, 2^-7 "
+          "bfloat16; atol (Skv + Dh + 8) * 2^-24 * sum_j p_j |v_j|)")
+    attn_check(f"gemma prefill layer 0 B={B} S={S} bf16", q0, k0, v0, True,
+               0)
+    ck, cv = cache[0, 0], cache[0, 1]
+    check(ck.untyped_storage().data_ptr() == cache.untyped_storage()
+          .data_ptr(), "the decode check must read a view of the cache")
+    attn_check(f"gemma decode q_offset={mid} cache {Smax} (a view)", qd,
+               ck, cv, True, mid,
+               broken=[("q_offset ignored",
+                        ref.flash_attention_ref(qd, ck, cv, causal=True,
+                                                q_offset=0))])
+    # a GQA shape, where h % Hkv differs from h // group, and an MHA one
+    for Hq, Hkv in ((8, 2), (8, 8)):
+        rng = torch.Generator(device=dev).manual_seed(Hq * 10 + Hkv)
+        q, k, v = (torch.randn((2, 128, h, 256), generator=rng, device=dev,
+                               dtype=torch.bfloat16)
+                   for h in (Hq, Hkv, Hkv))
+        broken = []
+        if Hq != Hkv:
+            perm = torch.tensor([h % Hkv for h in range(Hq)], device=dev)
+            broken.append(("KV head h % Hkv", ref.flash_attention_ref(
+                q, k[:, :, perm], v[:, :, perm])))
+        attn_check(f"Hq={Hq} Hkv={Hkv} Dh=256 S=128 bf16", q, k, v, True, 0,
+                   broken)
+    # keys and values that are truly strided: one packed (B, S, 2, H, Dh)
+    rng = torch.Generator(device=dev).manual_seed(7)
+    packed = torch.randn((2, 300, 2, 2, 64), generator=rng, device=dev)
+    q = torch.randn((2, 5, 4, 64), generator=rng, device=dev)
+    attn_check("packed kv (strides of a (B,S,2,H,Dh)) f32", q,
+               packed[:, :, 0], packed[:, :, 1], True, 290)
+    for (Bs, Sq, Skv, Hq, Hkv, Dh, causal, off) in ATTN_SWEEP:
+        for dt in (torch.float32, torch.bfloat16):
+            rng = torch.Generator(device=dev).manual_seed(Sq * 1000 + Skv)
+            q = torch.randn((Bs, Sq, Hq, Dh), generator=rng, device=dev,
+                            dtype=dt)
+            k, v = (torch.randn((Bs, Skv, Hkv, Dh), generator=rng,
+                                device=dev, dtype=dt) for _ in range(2))
+            attn_check(f"sweep {(Bs, Sq, Skv, Hq, Hkv, Dh)} causal={causal} "
+                       f"off={off} {str(dt)[6:]}", q, k, v, causal, off)
+
+    # decode's logits for token S equal a prefill's over S + 1 tokens
+    longer = torch.cat([prompt["tokens"], first_token], dim=1)
+    full_logits, _ = prefill(params, {"tokens": longer})
+    scale = float(full_logits.abs().max())
+    diff = float((first_logits - full_logits).abs().max())
+    agree = float((first_logits.argmax(-1) == full_logits.argmax(-1))
+                  .float().mean())
+    print(f"  decode logits at position {S} vs prefill over {S + 1} "
+          f"tokens: max|diff| {diff:.4e} (limit {LM_LOGIT_TOL} * "
+          f"{scale:.4e}), argmax agreement {agree:.2f}")
+    check(diff <= LM_LOGIT_TOL * scale,
+          f"decode and prefill disagree: {diff} > {LM_LOGIT_TOL} * {scale}")
+
+    # times at the path's shapes, each call after an L2 flush
+    del full_logits, longer, kv
+    torch.cuda.empty_cache()
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    rows = []
+    for label, (q, k, v, off, reps) in (
+            ("prefill", (q0, k0, v0, 0, 5)),
+            ("decode", (qd, ck, cv, mid, 50))):
+        kern = lambda: flash_attention.flash_attention_cuda(  # noqa: E731
+            q, k, v, causal=True, q_offset=off)
+        plain = lambda: ref.flash_attention_ref(  # noqa: E731
+            q, k, v, causal=True, q_offset=off)
+        lib = lambda: sdpa(q, k, v, True, off)  # noqa: E731
+        want = ref.flash_attention_ref(q.double(), k.double(), v.double(),
+                                       causal=True, q_offset=off)
+        _, mag = attention_limit(q, k, v, want, True, off)
+        # its probabilities are rounded to bf16 before the value product
+        _, lib_ratio = limit_ratio(lib(), want, ATTN_RTOL[str(q.dtype)]
+                                   * want.abs() + 2.0**-7 * mag)
+        check(lib_ratio <= 1.0, f"the SDPA yardstick disagrees at {label}")
+        del want, mag
+        ms, seen = kernel_launch_ms(flushing(kern, flush), reps, "flash_fwd")
+        warm, _ = kernel_launch_ms(kern, reps, "flash_fwd")
+        plain_ms = call_ms(flushing(plain, flush), max(2, reps // 10))
+        lib_ms = call_ms(flushing(lib, flush), reps)
+        bound, by = attention_cost(B, q.shape[1], cfg.n_heads,
+                                   cfg.n_kv_heads, cfg.head_dim, k.shape[1],
+                                   True, off, 2)
+        print(f"  flash_attention {label} B={B} Sq={q.shape[1]} "
+              f"Skv={k.shape[1]} q_offset={off}: kernel {ms * 1e3:10.2f} us "
+              f"({seen} launches; L2 warm {warm * 1e3:10.2f} us)  bound "
+              f"{bound * 1e3:8.2f} us ({by})  plain f32 "
+              f"{plain_ms * 1e3:10.2f} us  sdpa {lib_ms * 1e3:9.2f} us  "
+              f"[{card}]")
+        rows.append((ms, plain_ms, bound, by, lib_ms))
+    del flush
+    profile_calls(f"gemma-2b prefill B={B} S={S}",
+                  lambda: prefill(params, prompt))
+    profile_calls(f"gemma-2b decode B={B} at {S}",
+                  lambda: decode(params, {"token": first_token,
+                                          "kv_cache": cache,
+                                          "cache_len": S}), calls=4)
+    ms, plain_ms, bound, by, lib_ms = rows[0]
+    return {"name": "flash_attention", "launches": launches,
+            "max_abs_err": stats["max_abs_err"], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": lib_ms}
+
+
+def phase7_din(dev, gen, card: str) -> dict:
+    """K5 and DIN serving with the full-size tables."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import DIN_SHAPES, get_arch
+    from repro_torch.kernels import embedding_bag, ref
+    from repro_torch.models.recsys import din
+
+    arch = get_arch("din")
+    cfg = arch.cfg
+    print(f"phase 7: DIN serving through K5 (embedding bag), card {card}")
+    t0 = time.perf_counter()
+    params = arch.init_params(gen, dev)
+    torch.cuda.synchronize()
+    table_bytes = (params.item_emb.numel() + params.cat_emb.numel()) * 4
+    print(f"  init: tables {tuple(params.item_emb.shape)} + "
+          f"{tuple(params.cat_emb.shape)} float32, {table_bytes / 1e6:.1f}"
+          f" MB, {time.perf_counter() - t0:.2f}s")
+    check(table_bytes == DIN_TABLE_BYTES,
+          f"DIN tables are {table_bytes} bytes")
+    serve_b = arch.make_inputs("serve_p99", gen, dev)
+    ret_b = arch.make_inputs("retrieval_cand", gen, dev)
+    n_cand = DIN_SHAPES["retrieval_cand"]["candidates"]
+    serve = arch.build_step("serve_p99")
+    unfactored = arch.build_step("retrieval_cand", block=DIN_BLOCK)
+    factored = arch.build_step("retrieval_cand", block=DIN_BLOCK,
+                               factored=True)
+    serve(params, serve_b)
+    torch.cuda.synchronize()
+
+    # the main path: serve_p99 requests, then 1M-candidate retrieval
+    embedding_bag.reset_launches()
+    lat = []
+    for _ in range(DIN_SERVE_REQUESTS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scores = serve(params, serve_b)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    walls = {}
+    cands = {}
+    for name, step in (("unfactored", unfactored), ("factored", factored)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cands[name] = step(params, ret_b)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+    launches = embedding_bag.LAUNCHES["embedding_bag"]
+    Bs = DIN_SHAPES["serve_p99"]["batch"]
+    blocks = -(-n_cand // DIN_BLOCK)
+    want_launches = 2 * (DIN_SERVE_REQUESTS + 2 * blocks)
+    print(f"  serve_p99 B={Bs} L={cfg.seq_len}: {DIN_SERVE_REQUESTS} "
+          f"requests, latency p50 {np.percentile(lat, 50):.3f} ms, p99 "
+          f"{np.percentile(lat, 99):.3f} ms, "
+          f"{Bs / np.mean(lat) * 1e3:.0f} scores/s")
+    for name, wall in walls.items():
+        print(f"  retrieval_cand {name}: {n_cand} candidates in blocks of "
+              f"{DIN_BLOCK}: {wall:.3f}s, "
+              f"{n_cand / wall:.0f} candidates/s")
+    for label, sid, cuts, seconds in (
+            ("serve_p99 request", "serve_p99", {}, np.median(lat) / 1e3),
+            ("retrieval_cand factored", "retrieval_cand", {},
+             walls["factored"])):
+        flops = arch.model_flops(sid, **cuts)
+        nbytes = arch.model_bytes(sid, **cuts)
+        least = max(flops / FP32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S)
+        print(f"  {label} roofline (configs' model_flops/model_bytes, float32"
+              f" peak): {flops:.4e} flops, {nbytes:.4e} bytes, least "
+              f"{least * 1e3:.3f} ms against {seconds * 1e3:.3f} ms measured"
+              f" ({least / seconds:.4f} of the roofline)")
+    print(f"  K5 launches {launches} (want {want_launches})")
+    check(launches == want_launches,
+          f"DIN path launched K5 {launches} times, not {want_launches}")
+    check(scores.shape == (Bs,) and bool(torch.isfinite(scores).all()),
+          "serve_p99: bad scores")
+    for name, c in cands.items():
+        check(c.shape == (n_cand,) and bool(torch.isfinite(c).all()),
+              f"retrieval {name}: bad scores")
+    diff = float((cands["factored"] - cands["unfactored"]).abs().max())
+    print(f"  factored vs unfactored over {n_cand} candidates: max|diff| "
+          f"{diff:.3e} (atol {DIN_ATOL})")
+    check(diff <= DIN_ATOL, f"factored retrieval differs by {diff}")
+    # 256 candidates against one user equal score on the same pairs
+    sub = {k: ret_b[k] for k in ("hist_items", "hist_cats", "hist_mask")}
+    sub["cand_items"] = ret_b["cand_items"][:256]
+    sub["cand_cats"] = ret_b["cand_cats"][:256]
+    few = unfactored(params, sub)
+    pairs = {k: sub[k].expand(256, -1) for k in ("hist_items", "hist_cats",
+                                                  "hist_mask")}
+    pairs["target_item"], pairs["target_cat"] = sub["cand_items"], \
+        sub["cand_cats"]
+    point = serve(params, pairs)
+    diff = float((few - point).abs().max())
+    print(f"  score_candidates on 256 vs score on the same pairs: max|diff| "
+          f"{diff:.3e} (atol {DIN_ATOL}); vs the {n_cand}-candidate run's "
+          f"first 256: "
+          f"{float((few - cands['unfactored'][:256]).abs().max()):.3e}")
+    check(diff <= DIN_ATOL, f"score_candidates and score differ by {diff}")
+
+    # K5 against its float64 plain version, at the path's inputs
+    hist_e = din._pair_embed(params, serve_b["hist_items"],
+                             serve_b["hist_cats"])
+    target_e = din._pair_embed(params, serve_b["target_item"],
+                               serve_b["target_cat"])
+    t = target_e[:, None].expand(hist_e.shape)
+    with torch.no_grad():
+        w_serve = params.attn(torch.cat([hist_e, t, hist_e - t,
+                                            hist_e * t], -1),
+                                 "sigmoid")[..., 0]
+    w_serve = (w_serve * serve_b["hist_mask"]).contiguous()
+    blk = DIN_BLOCK
+    ids_ret = ret_b["hist_items"][0][None].expand(blk, cfg.seq_len)
+    w_ret = torch.rand((blk, cfg.seq_len), generator=gen, device=dev)
+    stats = {"max_abs_err": 0.0}
+
+    def bag_check(label, table, ids, w, broken=()):
+        torch.cuda.synchronize()
+        out = embedding_bag.embedding_bag_cuda(table, ids, w)
+        torch.cuda.synchronize()
+        want = ref.embedding_bag_ref(table.double(), ids, w.double())
+        limit = ids.shape[1] * 2.0**-24 * ref.embedding_bag_ref(
+            table.double().abs(), ids, w.double().abs())
+        err, ratio = limit_ratio(out, want, limit)
+        stats["max_abs_err"] = max(stats["max_abs_err"], err)
+        again = embedding_bag.embedding_bag_cuda(table, ids, w)
+        print(f"  embedding_bag {label:46s} max_abs_err={err:.3e} "
+              f"max|want|={float(want.abs().max()):.3e} err/limit="
+              f"{ratio:.4f} {'ok' if ratio <= 1 else 'FAIL'}")
+        check(ratio <= 1.0, f"K5 {label}: error {err} above the limit "
+              f"(ratio {ratio})")
+        check(bool(torch.equal(out, again)),
+              f"K5 {label}: a second launch gave other bits")
+        for bad, bw in broken:
+            _, r = limit_ratio(ref.embedding_bag_ref(table.double(), ids,
+                                                     bw.double()),
+                               want, limit)
+            print(f"  embedding_bag {'broken: ' + bad:46s} err/limit={r:.4g}"
+                  f" {'refused' if r > 1 else 'PASSED'}")
+            check(r > 1.0, f"K5: the check passes a broken kernel ({bad})")
+
+    print("  K5 against its float64 plain version (atol L * 2^-24 * "
+          "sum_l |w| |row|)")
+    no_last = w_serve.clone()
+    no_last[torch.arange(Bs, device=dev),
+            serve_b["hist_mask"].sum(1) - 1] = 0.0
+    bag_check(f"serve_p99 items B={Bs} L={cfg.seq_len}", params.item_emb,
+              serve_b["hist_items"], w_serve,
+              broken=[("last history item dropped", no_last),
+                      ("weights ignored", serve_b["hist_mask"].float())])
+    bag_check(f"serve_p99 categories B={Bs}", params.cat_emb,
+              serve_b["hist_cats"], w_serve)
+    bag_check(f"retrieval block {blk} broadcast history",
+              params.item_emb, ids_ret, w_ret)
+    for V, d, Bq, L in BAG_SWEEP:
+        rng = torch.Generator(device=dev).manual_seed(V + L)
+        table = torch.randn((V, d), generator=rng, device=dev)
+        ids = torch.randint(0, V, (Bq, L), generator=rng, device=dev,
+                            dtype=torch.int32)
+        w = torch.rand((Bq, L), generator=rng, device=dev)
+        bag_check(f"sweep V={V} d={d} B={Bq} L={L}", table, ids, w)
+
+    # times at the path's shapes, each call after an L2 flush; the library
+    # yardstick is F.embedding_bag
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    rows = []
+    for label, (table, ids, w) in (
+            (f"serve_p99 items B={Bs} L={cfg.seq_len}",
+             (params.item_emb, serve_b["hist_items"], w_serve)),
+            (f"retrieval block B={blk} broadcast ids",
+             (params.item_emb, ids_ret, w_ret))):
+        ids_c = ids.long().contiguous()
+        kern = lambda: embedding_bag.embedding_bag_cuda(  # noqa: E731
+            table, ids, w)
+        plain = lambda: ref.embedding_bag_ref(table, ids, w)  # noqa: E731
+        lib = lambda: F.embedding_bag(  # noqa: E731
+            ids_c, table, mode="sum", per_sample_weights=w)
+        want = ref.embedding_bag_ref(table.double(), ids, w.double())
+        _, lib_ratio = limit_ratio(lib(), want, LIBRARY_BAG_RTOL
+                                   * ref.embedding_bag_ref(
+                                       table.double().abs(), ids,
+                                       w.double().abs()))
+        check(lib_ratio <= 1.0, "F.embedding_bag disagrees with K5's plain "
+              "version")
+        ms, seen = kernel_launch_ms(flushing(kern, flush), 100, "bag_sum")
+        warm, _ = kernel_launch_ms(kern, 100, "bag_sum")
+        plain_ms = call_ms(flushing(plain, flush), 50)
+        lib_ms = call_ms(flushing(lib, flush), 100)
+        bound, by = bag_cost(table, ids, w)
+        print(f"  embedding_bag {label:38s} kernel {ms * 1e3:9.2f} us "
+              f"({seen} launches; L2 warm {warm * 1e3:9.2f} us)  bound "
+              f"{bound * 1e3:8.2f} us ({by})  plain {plain_ms * 1e3:9.2f} us"
+              f"  F.embedding_bag {lib_ms * 1e3:9.2f} us  [{card}]")
+        rows.append((ms, plain_ms, bound, by, lib_ms))
+    del flush
+    profile_calls(f"DIN serve_p99 B={Bs}", lambda: serve(params, serve_b),
+                  calls=10)
+    profile_calls(f"DIN retrieval_cand factored ({n_cand} candidates)",
+                  lambda: factored(params, ret_b))
+    ms, plain_ms, bound, by, lib_ms = rows[0]
+    return {"name": "embedding_bag", "launches": launches,
+            "max_abs_err": stats["max_abs_err"], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": lib_ms}
+
+
 def main() -> int:
     # the port must not need JAX or the JAX package
     sys.modules["jax"] = None
@@ -296,7 +955,9 @@ def main() -> int:
                 print(f"  ptxas {name}: {line.strip()}")
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    stats = {k: {"max_abs_err": 0.0, "ratio": 0.0} for k in REPLACES}
+    # phases 1-5's kernels; phases 6 and 7 keep their own
+    stats = {k: {"max_abs_err": 0.0, "ratio": 0.0}
+             for k in ("ell_spmm", "ell_spmm_sliced", "walk_endpoint_gather")}
     small = small_test_graph(n=2000)
     web = load("web-stanford", scale=1)
     print(f"graphs: {small.summary()} | {web.summary()} "
@@ -818,6 +1479,17 @@ def main() -> int:
                  f"dense path n=2000 B=1 L={dense_L}")
     k3 = timed_gather(widx, full_budget, web, web_dg, PAPER_INDEX_WIDTH,
                       f"paper path web-stanford B=1 L={PAPER_INDEX_WIDTH}")
+    del widx, dex, web_dg, dg
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    k6 = phase6_lm(dev, gen, card)
+    print(f"  phase 6 wall {time.perf_counter() - t0:.1f}s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    k5 = phase7_din(dev, gen, card)
+    print(f"  phase 7 wall {time.perf_counter() - t0:.1f}s")
+
     summary = []
     for name, (ms, plain_ms, bound, by, lib_ms) in (
             ("ell_spmm", k1), ("ell_spmm_sliced", k2),
@@ -828,7 +1500,12 @@ def main() -> int:
             "max_abs_err": stats[name]["max_abs_err"], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
             "library_ms": lib_ms})
-    print(json.dumps({"kernels": summary}))
+    for row in (k6, k5):
+        summary.append({"name": row["name"], "route": "cuda",
+                        "source": SOURCES[row["name"]],
+                        "replaces": REPLACES[row["name"]],
+                        **{k: v for k, v in row.items() if k != "name"}})
+    print(json.dumps({"kernels": summary, "not_ported": NOT_PORTED}))
 
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -6,6 +6,6 @@ run on the card (``device="cuda"``) unless the caller asks for the CPU, and
 raise when asked for a card that is not there.
 """
 
-from . import core, index, kernels, ppr
+from . import configs, core, index, kernels, models, ppr
 
-__all__ = ["core", "index", "kernels", "ppr"]
+__all__ = ["configs", "core", "index", "kernels", "models", "ppr"]

@@ -39,8 +39,10 @@ class RuntimeStats:
 
     @property
     def t_avg(self) -> float:
-        """mean t_i  (Alg. 2 Line 2)."""
-        return float(self.times.mean())
+        """mean t_i  (Alg. 2 Line 2). Clamped to ``t_max``: the float mean
+        of equal samples can round one ulp above them, which would put the
+        Lemma 2 upper bound ``t_hat`` below the mean."""
+        return min(float(self.times.mean()), self.t_max)
 
     @property
     def t_pre(self) -> float:

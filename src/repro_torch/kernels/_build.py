@@ -21,7 +21,9 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES: dict[str, str] = {"ell_spmm": "ell_spmm.cu",
-                           "walk_gather": "walk_gather.cu"}
+                           "walk_gather": "walk_gather.cu",
+                           "flash_attention": "flash_attention.cu",
+                           "embedding_bag": "embedding_bag.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v")

@@ -1,0 +1,122 @@
+"""CUDA wrapper for the attention forward of the decoder LM's serving steps.
+
+``flash_attention_cuda`` (K6) replaces
+``repro/kernels/flash_attention.py::flash_attention_pallas`` (line 83, body
+``_flash_kernel``) and launches ``csrc/flash_attention.cu``. The JAX model
+calls ``flash_attention_jnp`` where the Pallas kernel is meant to run
+(``repro/models/common.py``); the port's transformer calls this kernel
+there, at prefill and at decode against the KV cache.
+
+What bounds it on the H100: operations at prefill (4 Dh flops per visible
+(query, key) pair), bytes at decode (the cache is read once a step). The
+Pallas kernel carries its running max, sum and output across a sequential
+grid of key blocks in VMEM scratch; on the card the key loop runs inside
+one block and that state lives in registers, float32 throughout (see the
+source's header). Query heads of one KV head are folded into the block's
+rows, so at decode the group shares each K/V tile.
+
+The wrapper checks device, dtype, shape and strides, allocates the output
+with ``torch.empty``, launches on PyTorch's current stream, raises on a
+non-zero ``cudaGetLastError()``, and counts its launches in
+:data:`LAUNCHES`. K and V may be strided views (a layer's slice of the
+cache) as long as their last axis is contiguous: nothing is copied.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from . import _build
+
+# launches since the last reset_launches()
+LAUNCHES: dict[str, int] = {"flash_attention": 0}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_SIGNATURES = {
+    "flash_attention_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                _L, _L, _L, _L, _L, _L, _L, _L, _L,
+                                _I, _I, ctypes.c_float, _P], _I),
+    "flash_attention_error_string": ([_I], ctypes.c_char_p),
+}
+HEAD_DIMS = (8, 16, 32, 64, 128, 256)       # the kernel's template instances
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_INT32_MAX = 2**31 - 1
+_GRID_YZ_MAX = 65535
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _lib() -> ctypes.CDLL:
+    return _build.load("flash_attention", _SIGNATURES)
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True,
+                         q_offset: int = 0) -> torch.Tensor:
+    """K6: attention of q (B, Sq, Hq, Dh) over k, v (B, Skv, Hkv, Dh) on
+    the card, Hq a multiple of Hkv, Dh in :data:`HEAD_DIMS`, all three
+    float32 or all bfloat16 with the last axis contiguous (and k, v rows
+    16-byte aligned, as any view of a cache is). ``q_offset`` is
+    the global position of query row 0 for the causal mask (the cache
+    length at decode), a run-time value. Returns (B, Sq, Hq, Dh) in q's
+    dtype, contiguous."""
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"q must be a CUDA tensor, got {dev}")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"need 4-D q, k, v; got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, Sq, Hq, Dh = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    if tuple(k.shape) != (B, Skv, Hkv, Dh) or v.shape != k.shape:
+        raise ValueError(f"k and v must be (B, Skv, Hkv, Dh) = "
+                         f"{(B, Skv, Hkv, Dh)}, got {tuple(k.shape)} and "
+                         f"{tuple(v.shape)}")
+    if Hkv < 1 or Hq % Hkv:
+        raise ValueError(f"Hq={Hq} is not a multiple of Hkv={Hkv}")
+    if Dh not in HEAD_DIMS:
+        raise ValueError(f"head dim {Dh} not in {HEAD_DIMS}")
+    if not (1 <= B <= _GRID_YZ_MAX and Hkv <= _GRID_YZ_MAX and Sq >= 1
+            and 1 <= Skv <= _INT32_MAX and Sq * Hq <= _INT32_MAX):
+        raise ValueError(f"shapes out of range: q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}")
+    q_offset = int(q_offset)
+    if not 0 <= q_offset <= _INT32_MAX - Sq:
+        raise ValueError(f"q_offset {q_offset} out of range")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"q, k, v must all be float32 or all bfloat16, got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, q on {dev}")
+        if t.stride(3) != 1:
+            raise ValueError(f"{name}'s last axis must be contiguous, "
+                             f"strides {t.stride()}")
+    for t, name in ((k, "k"), (v, "v")):      # K/V rows load 16 bytes at once
+        if t.data_ptr() % 16 or any(st * t.element_size() % 16
+                                    for st in t.stride()[:3]):
+            raise ValueError(f"{name}'s rows must start on 16-byte "
+                             f"boundaries (address {t.data_ptr()}, strides "
+                             f"{t.stride()})")
+    out = torch.empty((B, Sq, Hq, Dh), dtype=q.dtype, device=dev)
+    lib = _lib()
+    stream = torch.cuda.current_stream(dev.index).cuda_stream
+    err = lib.flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        _DTYPES[q.dtype], B, Sq, Skv, Hq, Hkv, Dh, *q.stride()[:3],
+        *k.stride()[:3], *v.stride()[:3], int(bool(causal)), q_offset,
+        1.0 / math.sqrt(Dh), stream)
+    if err != 0:
+        msg = lib.flash_attention_error_string(err).decode()
+        raise RuntimeError(f"flash_attention launch failed: CUDA error {err} "
+                           f"({msg})")
+    LAUNCHES["flash_attention"] += 1
+    return out

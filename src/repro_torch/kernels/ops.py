@@ -11,6 +11,8 @@ import torch
 
 from . import ref
 from .ell_spmv import ell_spmm_cuda, ell_spmm_sliced_cuda
+from .embedding_bag import embedding_bag_cuda
+from .flash_attention import flash_attention_cuda
 from .walk_gather import walk_endpoint_gather_cuda
 
 
@@ -54,3 +56,22 @@ def walk_endpoint_gather(endpoints: torch.Tensor, budget: torch.Tensor,
     if _on_cuda(starts):
         return walk_endpoint_gather_cuda(endpoints, budget, starts, weights)
     return ref.walk_endpoint_gather_ref(endpoints, budget, starts, weights)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, q_offset: int = 0) -> torch.Tensor:
+    """Attention of q (B, Sq, Hq, Dh) over k, v (B, Skv, Hkv, Dh) with GQA
+    folding and, if ``causal``, the mask at global query positions
+    ``q_offset + i``. Output in q's dtype."""
+    if _on_cuda(q):
+        return flash_attention_cuda(q, k, v, causal=causal, q_offset=q_offset)
+    return ref.flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset)
+
+
+def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
+                  weights: torch.Tensor) -> torch.Tensor:
+    """Weighted bag sum ``out[b] = sum_l weights[b,l] * table[ids[b,l]]``:
+    (B, d) from table (V, d), ids and weights (B, L)."""
+    if _on_cuda(table):
+        return embedding_bag_cuda(table, ids, weights)
+    return ref.embedding_bag_ref(table, ids, weights)

@@ -8,6 +8,8 @@ them on the same inputs.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -77,3 +79,44 @@ def walk_endpoint_gather_ref(endpoints: torch.Tensor, budget: torch.Tensor,
     flat = e + torch.arange(B, device=e.device)[:, None] * n
     out = torch.zeros(B * n, dtype=weights.dtype, device=weights.device)
     return out.index_add_(0, flat.reshape(-1), w.reshape(-1)).view(B, n)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True,
+                        q_offset: int = 0) -> torch.Tensor:
+    """softmax(q k^T / sqrt(Dh)) v with GQA head folding: query head h reads
+    KV head ``h // (Hq // Hkv)``. q (B, Sq, Hq, Dh); k, v (B, Skv, Hkv, Dh).
+    With ``causal``, query i (at global position ``q_offset + i``) sees the
+    keys at positions <= its own; a masked score is -1e30, as in the JAX
+    package. Keys past ``Skv`` do not exist here: a caller's padding is
+    sliced off, which is what masking it amounts to. Scores, softmax and the
+    value sum run in float32, or float64 for float64 inputs (the card check
+    runs it so); the output has q's dtype.
+    """
+    B, Sq, Hq, Dh = q.shape
+    Hkv = k.shape[2]
+    if Hq % Hkv:
+        raise ValueError(f"Hq={Hq} is not a multiple of Hkv={Hkv}")
+    acc = torch.float64 if q.dtype == torch.float64 else torch.float32
+    group = Hq // Hkv
+    kr = k.to(acc).repeat_interleave(group, dim=2)
+    vr = v.to(acc).repeat_interleave(group, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(acc), kr) / math.sqrt(Dh)
+    if causal:
+        qi = torch.arange(Sq, device=q.device) + q_offset
+        ki = torch.arange(k.shape[1], device=q.device)
+        s = torch.where(qi[:, None] >= ki[None, :], s,
+                        torch.tensor(-1e30, dtype=acc, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vr).to(q.dtype)
+
+
+def embedding_bag_ref(table: torch.Tensor, ids: torch.Tensor,
+                      weights: torch.Tensor | None = None) -> torch.Tensor:
+    """EmbeddingBag(sum): ``out[b] = sum_l w[b,l] * table[ids[b,l]]``.
+    table (V, d), ids (B, L) int32, weights (B, L) or None (all ones).
+    Returns (B, d) in the table's dtype: DIN's weighted history pooling."""
+    rows = table[ids.long()]                       # (B, L, d)
+    if weights is None:
+        return rows.sum(dim=1)
+    return torch.einsum("bl,bld->bd", weights.to(table.dtype), rows)

@@ -1,6 +1,7 @@
-"""The port's CUDA kernels on a card: each against its plain version, and
-the fused query on the card against the same query on the CPU, with and
-without the walk index. Every test
+"""The port's CUDA kernels on a card: each against its plain version, the
+fused query on the card against the same query on the CPU, with and
+without the walk index, and the model serving paths (K5, K6) on the card
+against the same paths on the CPU. Every test
 here needs an NVIDIA card and ``nvcc`` and skips without them; this file
 imports neither JAX nor ``repro``, so it runs where only torch is
 installed:
@@ -14,8 +15,10 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_arch
 from repro_torch.index import WalkIndex
-from repro_torch.kernels import ell_spmv, ref, walk_gather
+from repro_torch.kernels import (embedding_bag, ell_spmv, flash_attention,
+                                 ops, ref, walk_gather)
 from repro_torch.ppr import (ForaExecutor, ForaParams, LaneStreams,
                              PprWorkload, TableDraws, fora_fused, load,
                              small_test_graph, walk_length_for_tail)
@@ -180,3 +183,123 @@ def test_executor_with_walk_index_on_card(card):
     assert ex.index_coverage == 1.0
     assert ex.walk_index.device == card
     assert walk_gather.LAUNCHES["walk_endpoint_gather"] >= 8
+
+
+# K6: tests/test_kernels.py's sweep, gemma-2b's MQA at Dh 256, and Dh 8
+ATTN_SHAPES = [(1, 128, 128, 2, 2, 64, True, 0),
+               (2, 100, 100, 4, 2, 32, True, 0),
+               (1, 1, 256, 4, 1, 64, True, 255),
+               (2, 64, 192, 8, 8, 128, False, 0),
+               (1, 37, 53, 2, 1, 16, True, 16),
+               (2, 70, 300, 8, 1, 256, True, 230),
+               (1, 1, 1100, 8, 1, 256, True, 1050),
+               (2, 33, 33, 8, 8, 8, True, 0)]
+
+
+def _attn_limit(q, k, v, want, causal, off):
+    """As ``chip_smoke.py`` holds K6: the output's last rounding (2^-20 of
+    |want| in float32, one bf16 ulp, 2^-7, in bfloat16) plus float32 sums
+    along keys and head dim, (Skv + Dh + 8) * 2^-24 of sum_j p_j |v_j|."""
+    mag = ref.flash_attention_ref(q.double(), k.double(), v.double().abs(),
+                                  causal=causal, q_offset=off)
+    rtol = 2.0**-20 if q.dtype == torch.float32 else 2.0**-7
+    return rtol * want.abs() + (k.shape[1] + k.shape[3] + 8) * 2.0**-24 * mag
+
+
+def _within(got, want, limit) -> None:
+    excess = ((got.double() - want).abs() - limit).max()
+    assert float(excess) <= 0.0, float(excess)
+
+
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,Dh,causal,off", ATTN_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_matches_plain_and_repeats_bitwise(
+        card, B, Sq, Skv, Hq, Hkv, Dh, causal, off, dtype):
+    g = torch.Generator(device=card).manual_seed(Sq * 1000 + Skv)
+    q = torch.randn((B, Sq, Hq, Dh), generator=g, device=card, dtype=dtype)
+    k, v = (torch.randn((B, Skv, Hkv, Dh), generator=g, device=card,
+                        dtype=dtype) for _ in range(2))
+    got = flash_attention.flash_attention_cuda(q, k, v, causal=causal,
+                                               q_offset=off)
+    again = flash_attention.flash_attention_cuda(q, k, v, causal=causal,
+                                                 q_offset=off)
+    assert got.dtype == dtype and got.shape == q.shape
+    want = ref.flash_attention_ref(q.double(), k.double(), v.double(),
+                                   causal=causal, q_offset=off)
+    _within(got, want, _attn_limit(q, k, v, want, causal, off))
+    assert torch.equal(got, again)
+
+
+def test_flash_attention_reads_strided_keys_and_values(card):
+    g = torch.Generator(device=card).manual_seed(3)
+    cache = torch.randn((3, 2, 2, 96, 2, 64), generator=g, device=card,
+                        dtype=torch.bfloat16)       # (L, 2, B, Smax, H, Dh)
+    q = torch.randn((2, 1, 4, 64), generator=g, device=card,
+                    dtype=torch.bfloat16)
+    k, v = cache[1, 0], cache[1, 1]
+    got = flash_attention.flash_attention_cuda(q, k, v, q_offset=70)
+    assert torch.equal(got, flash_attention.flash_attention_cuda(
+        q, k.contiguous(), v.contiguous(), q_offset=70))
+    packed = torch.randn((2, 50, 2, 2, 32), generator=g, device=card)
+    q = torch.randn((2, 9, 4, 32), generator=g, device=card)
+    k, v = packed[:, :, 0], packed[:, :, 1]
+    assert not k.is_contiguous()
+    got = flash_attention.flash_attention_cuda(q, k, v, q_offset=41)
+    want = ref.flash_attention_ref(q.double(), k.double(), v.double(),
+                                   q_offset=41)
+    _within(got, want, _attn_limit(q, k, v, want, True, 41))
+
+
+@pytest.mark.parametrize("V,d,B,L", [(100, 8, 16, 5), (1000, 18, 64, 100),
+                                     (64, 32, 300, 7), (50_000, 16, 128, 64),
+                                     (100_000, 18, 512, 100)])
+def test_embedding_bag_matches_plain_and_repeats_bitwise(card, V, d, B, L):
+    g = torch.Generator(device=card).manual_seed(V + L)
+    table = torch.randn((V, d), generator=g, device=card)
+    ids = torch.randint(0, V, (B, L), generator=g, device=card,
+                        dtype=torch.int32)
+    w = torch.rand((B, L), generator=g, device=card)
+    for bag_ids in (ids, ids[:1].expand(B, L)):      # own and shared history
+        got = embedding_bag.embedding_bag_cuda(table, bag_ids, w)
+        want = ref.embedding_bag_ref(table.double(), bag_ids, w.double())
+        # sequential float32 multiply-adds: each of L roundings is at most
+        # 2^-24 of sum_l |w| |row|
+        limit = L * 2.0**-24 * ref.embedding_bag_ref(
+            table.double().abs(), bag_ids, w.double().abs())
+        _within(got, want, limit)
+        assert torch.equal(got, embedding_bag.embedding_bag_cuda(
+            table, bag_ids, w))
+
+
+def test_cuda_tensors_reach_the_kernels(card, monkeypatch):
+    def no_plain(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(ref, "flash_attention_ref", no_plain)
+    monkeypatch.setattr(ref, "embedding_bag_ref", no_plain)
+    flash_attention.reset_launches()
+    embedding_bag.reset_launches()
+    q = torch.randn((1, 4, 2, 16), device=card)
+    ops.flash_attention(q, q, q)
+    ops.embedding_bag(torch.randn((10, 4), device=card),
+                      torch.zeros((2, 3), dtype=torch.int32, device=card),
+                      torch.ones((2, 3), device=card))
+    assert flash_attention.LAUNCHES["flash_attention"] == 1
+    assert embedding_bag.LAUNCHES["embedding_bag"] == 1
+
+
+@pytest.mark.parametrize("arch_id", ["gemma-2b", "din"])
+def test_infer_run_on_card_matches_cpu(card, arch_id):
+    """The smoke configuration's serving steps on the card, through K5 or
+    K6, against the same steps on the CPU from the same seeded draws."""
+    arch = get_arch(arch_id)
+    flash_attention.reset_launches()
+    embedding_bag.reset_launches()
+    on_card = arch.infer_run(torch.Generator().manual_seed(0), card)
+    launched = (embedding_bag.LAUNCHES["embedding_bag"] if arch_id == "din"
+                else flash_attention.LAUNCHES["flash_attention"])
+    assert launched > 0
+    on_cpu = arch.infer_run(torch.Generator().manual_seed(0), "cpu")
+    assert on_card.keys() == on_cpu.keys()
+    for key, value in on_card.items():
+        assert value == pytest.approx(on_cpu[key], rel=1e-4, abs=1e-5), key

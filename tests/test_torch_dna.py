@@ -72,6 +72,18 @@ def test_sample_sizes_and_bounds_same(ci):
         jcore.lemma2_hoeffding_bound(1000, 100.0, js)
 
 
+@pytest.mark.parametrize("t,n", [(0.22421063920637035, 3),
+                                 (2.66749253410175, 47), (1.5, 8)])
+def test_lemma2_equal_samples_mean_not_above_max(t, n):
+    """Equal samples whose float mean rounds one ulp above them still give
+    the Lemma 2 bound t_bar + slack with t_bar == t_hat == t."""
+    stats = tcore.RuntimeStats(np.full(n, t))
+    assert stats.t_avg == stats.t_max == t
+    slack = np.sqrt(t * t * np.log(2 / 0.125) / (2 * n))
+    assert tcore.lemma2_hoeffding_bound(10, 10 * t, stats, p_f=0.125) == \
+        pytest.approx((10 / (10 * t)) * (t + slack), rel=1e-12)
+
+
 def test_quickstart_runs_on_cpu():
     lines = []
     out = quickstart.run(scale=512, num_queries=16, device="cpu",

@@ -156,6 +156,9 @@ def test_import_without_jax_loads_no_repro():
             "import repro_torch, repro_torch.quickstart\n"
             "import repro_torch.kernels._build, repro_torch.kernels.ell_spmv\n"
             "import repro_torch.index, repro_torch.kernels.walk_gather\n"
+            "import repro_torch.models, repro_torch.configs\n"
+            "import repro_torch.kernels.flash_attention\n"
+            "import repro_torch.kernels.embedding_bag\n"
             "bad = [m for m, v in sys.modules.items() if v is not None "
             "and (m == 'repro' or m.startswith(('repro.', 'jax')))]\n"
             "assert not bad, bad\n"
