@@ -7,24 +7,29 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
 drives the port's main path, in phases:
 
 1. every kernel against its plain PyTorch version on the card. K1 and K2
-   on the push tables of the paths (K1: ``small_test_graph(n=2000)``, K2:
-   the full-size Web-Stanford stand-in) at the batch widths the paths
-   launch them with and at 8 and 64, with and without the fused
-   threshold, and on the sliced table's edge cases; K3 on endpoint tables
+   on the push tables of the paths (K1: ``small_test_graph(n=2000)`` and
+   phase 8's Pokec-order table with its threshold, K2: the full-size
+   Web-Stanford stand-in) at the batch widths the paths launch them with
+   (and K1 and K2 at 8 and 64), with and without the fused threshold, and
+   on the sliced table's edge cases; K3 on endpoint tables
    of both index paths' shapes at B in {1, 3, 8} and L in {1, 130, 4096}
    and the dense path's L, with full and retired budgets and a hub that
-   every lane ends at. The plain version runs in float64 on the same
-   inputs; an output passes where
-   ``|out - want| <= RTOL * |want| + ATOL_FRAC * max|want|``, and the
-   printed ratio is the largest ``|out - want|`` over that limit. The
-   check must also refuse broken versions (folds that drop slices or
-   rows, a gather that ignores the budget or drops a lane per cell), and a
-   second launch must give the same bits. Then the lane streams drawn on
-   the card must equal those drawn on the CPU;
-2. the dense path: ``fora_fused`` on ``small_test_graph(n=2000)``;
+   every lane ends at; K4 over the JAX package's sweep shapes, the dense
+   path's table and the Pokec-order table of phase 8; K5 on ids outside
+   [0, V). The plain version runs in float64 on the same inputs; an output
+   passes where ``|out - want| <= RTOL * |want| + ATOL_FRAC * max|want|``,
+   and the printed ratio is the largest ``|out - want|`` over that limit.
+   The check must also refuse broken versions (folds that drop slices or
+   rows, a gather that ignores the budget or drops a lane per cell, an
+   SpMV that ignores the mask or drops each row's last cell), and a second
+   launch must give the same bits. Then the lane streams drawn on the card
+   must equal those drawn on the CPU;
+2. the dense path: ``fora_fused`` on ``small_test_graph(n=2000)``, against
+   exact PPR whose every step is one K4 launch a source;
 3. the paper path at real size: 256 FORA queries on the full-size
    Web-Stanford stand-in through ``ForaExecutor`` into ``dna_real``, with
-   FORA checked against power iteration on three sources;
+   FORA checked against power iteration on three sources (the sliced
+   table's COO loop: K4 launches no time);
 4. the index paths (FORA+): rows of each walk index rebuilt on the CPU
    must equal the card's; the dense path through
    ``ForaExecutor(index_budget=DENSE_INDEX_WIDTH)`` at coverage 1.0; the
@@ -59,7 +64,21 @@ drives the port's main path, in phases:
    history item and one that ignores the weights; factored must equal
    unfactored, and 256 candidates must equal ``score`` on the same pairs.
    Then K5's times beside its bound, the plain version's and
-   ``F.embedding_bag``'s, and a profile of each path.
+   ``F.embedding_bag``'s, and a profile of each path;
+8. the dense graph at Pokec's order (paper Table I: n = 1,632,803, m =
+   30,622,564; ``small_test_graph`` with uniform endpoints, so its
+   1,632,803 x 48 push table is dense): exact PPR for 4 sources through
+   K4 must equal the COO ``index_add_`` loop on the card and
+   ``ppr_single_pair`` the row's entry; 256 FORA queries through
+   ``ForaExecutor`` into ``dna_real`` (the quickstart's deadline rule),
+   FORA within eps of the K4 oracle and no row short of the walks its
+   guarantee asks for; then ``deadline_serving``'s loop on a second
+   D&A_REAL run, at a deadline set for 4 cores at d = 0.9: 64 devices,
+   8 of them lost and half the queries readmitted in half the deadline
+   (Lemma 1's core count), and the straggler re-issue over the measured
+   per-query times of the slot with the longest lane, one lane stalled by
+   20 t_hat: the lanes over t_hat (2 - d) must be re-issued and the slot
+   cut to its first finishers.
 
 The launch counts of each path are zeroed just before it and read just
 after. Any failed phase exits non-zero; without a card, or without the
@@ -128,21 +147,41 @@ BAG_SWEEP = [(100, 8, 16, 5), (1000, 18, 64, 100), (64, 32, 300, 7),
              (50_000, 16, 128, 64)]
 REPLACES = {"ell_spmm": "src/repro/kernels/ell_spmv.py:141",
             "ell_spmm_sliced": "src/repro/kernels/ell_spmv.py:234",
+            "ell_spmv": "src/repro/kernels/ell_spmv.py:71",
             "walk_endpoint_gather": "src/repro/kernels/walk_gather.py:57",
             "flash_attention": "src/repro/kernels/flash_attention.py:83",
             "embedding_bag": "src/repro/kernels/embedding_bag.py:40"}
 SOURCES = {"ell_spmm": "src/repro_torch/kernels/csrc/ell_spmm.cu",
            "ell_spmm_sliced": "src/repro_torch/kernels/csrc/ell_spmm.cu",
+           "ell_spmv": "src/repro_torch/kernels/csrc/ell_spmv.cu",
            "walk_endpoint_gather":
                "src/repro_torch/kernels/csrc/walk_gather.cu",
            "flash_attention":
                "src/repro_torch/kernels/csrc/flash_attention.cu",
            "embedding_bag": "src/repro_torch/kernels/csrc/embedding_bag.cu"}
-# the TPU kernel with no path in the JAX package yet, and so none here
-NOT_PORTED = [{"name": "ell_spmv",
-               "replaces": "src/repro/kernels/ell_spmv.py:71",
-               "status": "not ported",
-               "why": "no caller in src/repro: no path drives it yet"}]
+# every TPU kernel of the JAX package has its counterpart
+NOT_PORTED: list[dict] = []
+# phase 8: a dense graph at Pokec's order and size (paper Table I)
+POKEC_N = 1_632_803
+POKEC_M = 30_622_564
+POKEC_SOURCES = 4              # exact PPR through K4, and FORA's check
+POKEC_QUERIES = 256
+# FORA's push threshold at this size, of its default: at the default, the
+# walks FORA's guarantee asks for (omega * r_sum, omega = 2.29e8 at
+# n = 1.6M) are ~17 times the walk-lane cap (ForaParams.max_walks = 2^22)
+# and the error rose to 0.545 > eps (PERF.md, PR 16); pushing deeper
+# leaves less residual, so the guarantee's walks fit under the cap
+POKEC_RMAX_SCALE = 1 / 32
+# phase 8's deadline loop: D&A_REAL at a deadline set for LOOP_CORES
+# cores (the probe's t_avg with LOOP_SLACK) at the JAX example's d; one
+# lane of the slot stalled by STALL t_hat, as the example's 1 s lane
+LOOP_CORES = 4
+LOOP_SLACK = 0.25
+LOOP_D = 0.9
+STALL_LANE = 1
+STALL = 20
+# tests/test_kernels.py::test_ell_spmv_sweep's shapes (n, K)
+SPMV_SWEEP = [(64, 4), (100, 7), (512, 16), (300, 130), (1000, 33)]
 
 
 class SmokeFailure(RuntimeError):
@@ -273,17 +312,44 @@ def drop_last_lane(endpoints, budget, starts, weights):
     return torch.where(valid & (lane[None] == last[cell]), 0.0, weights)
 
 
-def profile_queries(graph, count: int, walk_index=None) -> None:
+def drop_last_cell(mask):
+    """The mask with each row's last live cell cleared: what an SpMV that
+    loses one cell per row would sum."""
+    import torch
+
+    K = mask.shape[1]
+    last = K - 1 - torch.flip(mask, dims=[1]).float().argmax(dim=1)
+    rows = torch.nonzero(mask.any(dim=1)).reshape(-1)
+    out = mask.clone()
+    out[rows, last[rows]] = False
+    return out
+
+
+def csr_of(nbr, msk, w, rm, n: int):
+    """The push table as an (n, n) CSR matrix for ``torch.sparse.mm``, the
+    library yardstick of K1, K2 and K4: row dst, column the neighbour."""
+    import torch
+
+    keep = msk.reshape(-1)
+    dst = (torch.arange(nbr.shape[0], device=nbr.device) if rm is None
+           else rm.long())[:, None].expand(nbr.shape).reshape(-1)
+    return torch.sparse_coo_tensor(
+        torch.stack([dst[keep], nbr.reshape(-1)[keep].long()]),
+        w.reshape(-1)[keep], (n, n)).coalesce().to_sparse_csr()
+
+
+def profile_queries(graph, count: int, walk_index=None, params=None) -> None:
     """Where a paper-path query's time goes: ``count`` measured queries
     under ``torch.profiler``, device time summed by kernel name, and the
-    share of the wall time the card was idle."""
+    share of the wall time the card was idle. ``params`` defaults to
+    ``ForaParams(epsilon=0.5)``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.ppr import ForaExecutor, ForaParams, PprWorkload
 
     ex = ForaExecutor(workload=PprWorkload(graph, count, seed=1),
-                      params=ForaParams(epsilon=0.5),
+                      params=params or ForaParams(epsilon=0.5),
                       walk_index=walk_index, device="cuda")
     ex.warmup()
     torch.cuda.synchronize()
@@ -914,6 +980,170 @@ def phase7_din(dev, gen, card: str) -> dict:
             "library_ms": lib_ms}
 
 
+def phase8_pokec(pokec, dg, dev, card: str) -> int:
+    """Exact PPR through K4, FORA into D&A_REAL and the deadline-serving
+    loop on the dense graph at Pokec's order. Returns K4's launches on this
+    path."""
+    import torch
+
+    from repro_torch import deadline_serving, quickstart
+    from repro_torch.core import DeviceAllocator, dna_real
+    from repro_torch.kernels import ell_spmv
+    from repro_torch.ppr import (ForaExecutor, ForaParams, PprWorkload,
+                                 fora_fused, ppr_power_iteration,
+                                 ppr_single_pair)
+    from repro_torch.ppr.power_iteration import (default_iters,
+                                                 power_iteration_coo)
+
+    print(f"phase 8: dense graph at Pokec's order, exact PPR through K4, "
+          f"FORA -> dna_real -> deadline_serving, card {card}")
+    print(f"  graph n={pokec.n} m={pokec.m} layout {dg.layout} table "
+          f"{tuple(dg.in_neighbors.shape)} {dg.ell_nbytes} bytes "
+          f"({dg.ell_nbytes / 1e6:.1f} MB)")
+    workload = PprWorkload(pokec, POKEC_QUERIES, seed=0)
+    srcs = workload.sources[:POKEC_SOURCES]
+    iters = default_iters()
+
+    # the main path: exact PPR through K4, then FORA into dna_real
+    ell_spmv.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    exact = ppr_power_iteration(pokec, srcs, device=dev)
+    t_k4 = time.perf_counter() - t0
+    k4_oracle = ell_spmv.LAUNCHES["ell_spmv"]
+    t0 = time.perf_counter()
+    coo = power_iteration_coo(pokec, srcs, 0.2, iters, dev).cpu().numpy()
+    t_coo = time.perf_counter() - t0
+    want = torch.from_numpy(coo.astype(np.float64))
+    err, ratio = err_ratio(torch.from_numpy(exact), want, RTOL)
+    print(f"  power iteration, {len(srcs)} sources x {iters} steps: K4 "
+          f"{t_k4:.3f}s ({k4_oracle} launches, want {iters * len(srcs)}), "
+          f"COO index_add_ {t_coo:.3f}s; K4 vs COO max_abs_err={err:.3e} "
+          f"max|want|={float(want.abs().max()):.3e} err/limit={ratio:.4f}")
+    check(k4_oracle == iters * len(srcs),
+          f"power iteration launched K4 {k4_oracle} times, not "
+          f"{iters * len(srcs)}")
+    check(np.isfinite(exact).all() and ratio <= 1.0,
+          f"power iteration through K4 differs from COO (ratio {ratio})")
+    row = exact[1].copy()
+    row[srcs[1]] = -1.0
+    target = int(row.argmax())                 # the largest entry but s
+    pair = ppr_single_pair(pokec, int(srcs[1]), target, device=dev)
+    print(f"  ppr_single_pair({int(srcs[1])}, {target}) = {pair!r}, row "
+          f"entry {float(exact[1, target])!r}")
+    check(pair == float(exact[1, target]),
+          "ppr_single_pair differs from the row's entry")
+    k4 = ell_spmv.LAUNCHES["ell_spmv"]
+
+    params = ForaParams(epsilon=0.5, rmax_scale=POKEC_RMAX_SCALE)
+    rp = params.resolve(pokec)
+    fleet = DeviceAllocator(devices=list(range(deadline_serving.FLEET)),
+                            spares_fraction=deadline_serving.SPARES_FRACTION)
+    executor = ForaExecutor(workload=workload, params=params, device=dev)
+    ell_spmv.reset_launches()
+    t0 = time.perf_counter()
+    T, res = quickstart.allocate(executor, POKEC_QUERIES,
+                                 max_cores=fleet.capacity)
+    t_dna = time.perf_counter() - t0
+    k1 = ell_spmv.LAUNCHES["ell_spmm"]
+    fres = fora_fused(executor.device_graph, srcs, params,
+                      num_walks=executor.current_walk_budget(), device=dev)
+    pi = fres.pi.cpu().numpy()
+    mask = exact >= 1.0 / pokec.n
+    rel = float((np.abs(pi - exact)[mask] / exact[mask]).max())
+    # the walks FORA's guarantee asks for, against the lanes each row ran
+    need = np.ceil(fres.residual_mass.cpu().numpy() * rp.omega)
+    ran = fres.walks_effective.cpu().numpy()
+    short = fres.walks_short.cpu().numpy()
+    times = np.concatenate([res.sample_stats.times,
+                            list(res.execution.per_query_times.values())])
+    print(f"  FORA (rmax {rp.rmax:.3e}, {POKEC_RMAX_SCALE:.4g} of the "
+          f"default; omega {rp.omega:.4e}): walk lanes "
+          f"{executor.current_walk_budget()}, walks the guarantee asks for "
+          f"{need.astype(np.int64).tolist()}, run {ran.tolist()}, short "
+          f"{short.tolist()}; max rel "
+          f"err {rel:.4f} against the K4 oracle over {len(srcs)} sources "
+          f"(eps 0.5); K1 launches {k1}")
+    print(f"  dna_real: X={POKEC_QUERIES} T={T:.3f}s cores={res.cores} "
+          f"lemma2={res.bounds.lemma2_cores} reduction="
+          f"{res.reduction_vs_lemma2_pct:.1f}% completion="
+          f"{res.completion_time:.3f}s accepted={res.accepted}; per query "
+          f"mean {times.mean() * 1e3:.3f} ms max {times.max() * 1e3:.3f} ms;"
+          f" {t_dna:.1f}s")
+    check(not short.any() and bool((need <= ran).all()),
+          "pokec: FORA ran fewer walks than its guarantee asks for")
+    check(rel < 0.5, f"pokec: FORA rel err {rel} >= eps")
+    check(res.accepted, "pokec: dna_real result not accepted")
+    check(k1 > 0, "pokec: FORA never launched K1")
+
+    # deadline_serving's loop needs several cores. The quickstart's rule
+    # cannot give them: with its probe of X/4 queries, T = 8 t_pre = 2 X
+    # t_avg, which one core meets. So the loop runs D&A_REAL again at
+    # LOOP_CORES cores' worth of the probe's t_avg (plus LOOP_SLACK) at
+    # d = LOOP_D, on the same executor: every time below is measured.
+    st = res.sample_stats
+    rest = POKEC_QUERIES - st.times.size
+    T_loop = (res.preprocess_time + (1 + LOOP_SLACK) * rest * st.t_avg
+              / LOOP_CORES) / LOOP_D
+    t0 = time.perf_counter()
+    res_loop = dna_real(POKEC_QUERIES, T_loop, executor,
+                        max_cores=fleet.capacity, sample_size=st.times.size,
+                        scaling_factor=LOOP_D)
+    t_loop = time.perf_counter() - t0
+    print(f"  dna_real for the loop: T={T_loop:.3f}s d={LOOP_D} cores="
+          f"{res_loop.cores} lemma2={res_loop.bounds.lemma2_cores} "
+          f"completion={res_loop.completion_time:.3f}s accepted="
+          f"{res_loop.accepted}; {t_loop:.1f}s")
+    check(res_loop.accepted and res_loop.cores >= 2,
+          f"deadline loop: {res_loop.cores} cores, accepted "
+          f"{res_loop.accepted}; the loop needs 2 or more")
+    # the straggler monitor's unit is one query: the lanes are the measured
+    # per-query times of the slot with the longest lane, one lane stalled
+    # by STALL t_hat as the JAX example's pathological lane; a re-issued
+    # lane runs its query again, measured
+    qids, lanes = deadline_serving.slot_lanes(res_loop.execution)
+    stalled = lanes.copy()
+    stalled[STALL_LANE] += STALL * res_loop.sample_stats.t_hat()
+    again = executor(qids).times
+    out = deadline_serving.survive(
+        fleet, res_loop, POKEC_QUERIES, T_loop, LOOP_D, stalled, again,
+        log=lambda s: print(f"  {s}"))
+    print(f"  slot {qids}: lanes {np.round(lanes * 1e3, 3).tolist()} ms, "
+          f"lane {STALL_LANE} stalled, re-run "
+          f"{np.round(again * 1e3, 3).tolist()} ms")
+    print(f"  deadline loop: {json.dumps(out)}")
+    check(out["allocated"] == res_loop.cores and out["healthy"]
+          == deadline_serving.FLEET - deadline_serving.FAILED,
+          "deadline loop: wrong allocation")
+    # Lemma 1 on what is left: the fewest cores that run X/2 queries of
+    # t_max each by T/2, at the deadline asked, while the fleet holds them
+    work = (POKEC_QUERIES // 2) * res_loop.sample_stats.t_max
+    fits = out["readmit_cores"] * T_loop / 2 >= work * (1 - 1e-12)
+    fewest = (out["readmit_cores"] - 1) * T_loop / 2 < work
+    check(not out["extended"] and out["feasible"] and fits and fewest,
+          f"deadline loop: readmission of {out['readmit_cores']} cores is "
+          f"not Lemma 1's count")
+    thr = out["straggler_threshold"]
+    over = sorted(((t, i) for i, t in enumerate(stalled) if t > thr),
+                  reverse=True)
+    want = [i for _, i in over][:fleet.spares]
+    after = stalled.copy()
+    after[want] = np.minimum(stalled[want], thr + again[want])
+    print(f"  straggler: threshold {thr * 1e3:.3f} ms, lanes over it "
+          f"{want}, spares {fleet.spares}")
+    check(out["reissued"] == want and STALL_LANE in want,
+          f"deadline loop: re-issued {out['reissued']}, not the lanes over "
+          f"the threshold {want}")
+    check(out["makespan_after"] == float(after.max())
+          and out["makespan_after"] < out["makespan_before"],
+          "deadline loop: the re-issue did not cut the slot to its "
+          "first finishers")
+    profile_calls(f"power iteration through K4, 1 source x {iters} steps",
+                  lambda: ppr_power_iteration(pokec, srcs[:1], device=dev))
+    profile_queries(pokec, 8, params=params)
+    return k4
+
+
 def main() -> int:
     # the port must not need JAX or the JAX package
     sys.modules["jax"] = None
@@ -930,13 +1160,15 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
 
     from repro_torch.index import WalkIndex, walk_rows
-    from repro_torch.kernels import _build, ell_spmv, ref, walk_gather
+    from repro_torch.kernels import (_build, ell_spmv, embedding_bag, ref,
+                                     walk_gather)
     from repro_torch.ppr import (ForaExecutor, ForaParams, LaneStreams,
                                  PprWorkload, forward_push, fora_fused, load,
                                  ppr_power_iteration, sample_walk_starts,
                                  small_test_graph)
     from repro_torch.ppr.forward_push import one_hot_seeds
     from repro_torch.ppr.graph import Graph, _resolve_push_layout
+    from repro_torch.ppr.power_iteration import default_iters
     from repro_torch.ppr.random_walk import lane_weights, walk_length_for_tail
     from repro_torch import quickstart
 
@@ -957,19 +1189,36 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     # phases 1-5's kernels; phases 6 and 7 keep their own
     stats = {k: {"max_abs_err": 0.0, "ratio": 0.0}
-             for k in ("ell_spmm", "ell_spmm_sliced", "walk_endpoint_gather")}
+             for k in ("ell_spmm", "ell_spmm_sliced", "walk_endpoint_gather",
+                       "ell_spmv")}
     small = small_test_graph(n=2000)
     web = load("web-stanford", scale=1)
     print(f"graphs: {small.summary()} | {web.summary()} "
           f"max_in_degree={web.max_in_degree}")
+    # phase 8's graph, built once: phases 1 and 5 hold K4 on its table
+    t0 = time.perf_counter()
+    pokec = small_test_graph(n=POKEC_N, avg_deg=POKEC_M / POKEC_N, seed=0)
+    pokec_graph_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pokec_dg = pokec.device(dev)
+    torch.cuda.synchronize()
+    pokec_table_s = time.perf_counter() - t0
+    pokec_t = (pokec_dg.in_neighbors, pokec_dg.in_mask, pokec_dg.in_weights)
+    print(f"  pokec-order graph: n={pokec.n} m={pokec.m} max_in_degree="
+          f"{pokec.max_in_degree}, layout {pokec_dg.layout}, push table "
+          f"{tuple(pokec_t[0].shape)} {pokec_dg.ell_nbytes} bytes; host "
+          f"build {pokec_graph_s:.2f}s graph + {pokec_table_s:.2f}s table "
+          f"and upload")
+    check(pokec.n == POKEC_N and pokec_dg.layout == "dense",
+          "the Pokec-order graph must take the dense table")
     # the batch widths the paths launch each kernel with: K1 at the dense
     # path's sources, K2 at the executor's block and the FORA check's batch
     path_B = {"ell_spmm": {len(DENSE_SOURCES)},
               "ell_spmm_sliced": {ForaExecutor.block_size, CHECK_SOURCES}}
 
-    def thr_of(graph):
+    def thr_of(graph, params=ForaParams(epsilon=0.5)):
         return torch.from_numpy(
-            (ForaParams(epsilon=0.5).resolve(graph).rmax
+            (params.resolve(graph).rmax
              * np.maximum(graph.out_degree, 1)).astype(np.float32)).to(dev)
 
     def table(graph, layout):
@@ -1052,6 +1301,23 @@ def main() -> int:
     short[:, 0] = False
     must_refuse("ell_spmm", dense_t, None, short, no_rows,
                 "first cell of each row dropped")
+    # K1 at the shapes phase 8 gives it: the Pokec-order table at the
+    # executor's block and the FORA check's batch, phase 8's threshold
+    pokec_thr = thr_of(pokec, ForaParams(epsilon=0.5,
+                                         rmax_scale=POKEC_RMAX_SCALE))
+    for B in sorted({ForaExecutor.block_size, POKEC_SOURCES}):
+        for fused in (False, True):
+            x = mass_rows(gen, B, pokec.n, dev)
+            thr = pokec_thr if fused else None
+            compare("ell_spmm",
+                    lambda: ell_spmv.ell_spmm_cuda(*pokec_t, x, thr),
+                    pokec_t, None, x, thr, f"pokec B={B} thr={fused}")
+    short = pokec_t[1].clone()
+    short[:, 0] = False
+    must_refuse("ell_spmm", pokec_t, None, short,
+                torch.zeros(pokec.n, dtype=torch.bool, device=dev),
+                "pokec: first cell of each row dropped")
+    del short
     for B in sorted(path_B["ell_spmm_sliced"] | {1, 8, 64}):
         for fused in (False, True):
             x = mass_rows(gen, B, web.n, dev)
@@ -1173,6 +1439,78 @@ def main() -> int:
             gather_check(f"{pname} hub W={W_k} B=1 L={L}",
                          (etab, full, starts, w))
         del etab
+    # K4 over the sweep's shapes and the dense tables of phases 2 and 8
+    def spmv_check(label, tables, x, broken=()):
+        """Hold one K4 launch against the float64 plain version, repeat it
+        bitwise, and require the limit to refuse each (name, mask) broken
+        version in ``broken``."""
+        nbr, msk, w = tables
+        st = stats["ell_spmv"]
+        torch.cuda.synchronize()
+        out = ell_spmv.ell_spmv_cuda(nbr, msk, w, x)
+        torch.cuda.synchronize()
+        want = ref.ell_spmv_ref(nbr, msk, x.double(), w.double())
+        check(out.shape == want.shape and bool(torch.isfinite(out).all()),
+              f"ell_spmv {label}: bad output")
+        err, ratio = err_ratio(out, want, RTOL)
+        st["max_abs_err"] = max(st["max_abs_err"], err)
+        st["ratio"] = max(st["ratio"], ratio)
+        check(bool(torch.equal(out, ell_spmv.ell_spmv_cuda(nbr, msk, w, x))),
+              f"ell_spmv {label}: a second launch gave other bits")
+        print(f"  {'ell_spmv':16s} {label:34s} max_abs_err={err:.3e} "
+              f"max|want|={float(want.abs().max()):.3e} "
+              f"err/limit={ratio:.4f} {'ok' if ratio <= 1 else 'FAIL'}")
+        check(ratio <= 1.0, f"ell_spmv {label}: error {err} above the limit "
+              f"(ratio {ratio})")
+        for bad, bmask in broken:
+            _, r = err_ratio(ref.ell_spmv_ref(nbr, bmask, x.double(),
+                                              w.double()), want, RTOL)
+            print(f"  {'ell_spmv':16s} {'broken: ' + bad:34s} err/limit="
+                  f"{r:.4g} {'refused' if r > 1 else 'PASSED'}")
+            check(r > 1.0, f"ell_spmv: the check passes a broken kernel "
+                  f"({bad}, {label})")
+
+    for n_s, K_s in SPMV_SWEEP:
+        # nonnegative weights, non-zero under a false mask too
+        nbr = torch.randint(0, n_s, (n_s, K_s), generator=gen, device=dev,
+                            dtype=torch.int32)
+        msk = torch.rand((n_s, K_s), generator=gen, device=dev) < 0.7
+        msk[0] = False                         # a row with no live cell
+        w = torch.rand((n_s, K_s), generator=gen, device=dev)
+        x = torch.rand(n_s, generator=gen, device=dev)
+        spmv_check(f"sweep n={n_s} K={K_s}", (nbr, msk, w), x,
+                   broken=[("mask ignored", torch.ones_like(msk)),
+                           ("last cell of each row dropped",
+                            drop_last_cell(msk))])
+        check(float(ell_spmv.ell_spmv_cuda(nbr, msk, w, x)[0]) == 0.0,
+              "ell_spmv: a row with no live cell is not 0")
+    for label, tables in (
+            (f"dense path n={small.n} K={dense_t[0].shape[1]}", dense_t),
+            (f"pokec n={pokec.n} K={pokec_t[0].shape[1]}", pokec_t)):
+        spmv_check(label, tables, mass_rows(gen, 1, tables[0].shape[0],
+                                            dev)[0],
+                   broken=[("last cell of each row dropped",
+                            drop_last_cell(tables[1]))])
+
+    # K5 on ids outside [0, V), against the plain version (NaN equal NaN)
+    tab = torch.randn((4, 3), generator=gen, device=dev)
+    for ids_l in ([[0, -1]], [[0, 5]]):
+        ids = torch.tensor(ids_l, dtype=torch.int32, device=dev)
+        w = torch.rand(ids.shape, generator=gen, device=dev)
+        out = embedding_bag.embedding_bag_cuda(tab, ids, w)
+        want = ref.embedding_bag_ref(tab.double(), ids, w.double())
+        nan_ok = bool(torch.equal(torch.isnan(out), torch.isnan(want)))
+        fin = ~torch.isnan(want)
+        err = float((out.double() - want)[fin].abs().max()) \
+            if bool(fin.any()) else 0.0
+        limit = RTOL * float(want[fin].abs().max()) if bool(fin.any()) \
+            else 0.0
+        print(f"  {'embedding_bag':16s} ids {str(ids_l):30s} out="
+              f"{out.cpu().numpy().round(6).tolist()} want="
+              f"{want.cpu().numpy().round(6).tolist()} "
+              f"{'ok' if nan_ok and err <= limit else 'FAIL'}")
+        check(nan_ok and err <= limit,
+              f"embedding_bag ids {ids_l}: {out} against {want}")
     for name, st in stats.items():
         print(f"  {name}: max_abs_err {st['max_abs_err']:.3e}, largest "
               f"err/limit {st['ratio']:.4f}")
@@ -1194,7 +1532,13 @@ def main() -> int:
     dg = small.device("cuda")
     check(dg.layout == "dense", f"expected dense, got {dg.layout}")
     srcs = np.array(DENSE_SOURCES)
+    ell_spmv.reset_launches()
     exact = ppr_power_iteration(small, srcs, device="cuda")
+    oracle_k4 = ell_spmv.LAUNCHES["ell_spmv"]
+    print(f"  exact PPR through K4: {oracle_k4} launches (want "
+          f"{default_iters()} steps x {len(srcs)} sources)")
+    check(oracle_k4 == default_iters() * len(srcs),
+          f"the dense path's oracle launched K4 {oracle_k4} times")
     ell_spmv.reset_launches()
     res = fora_fused(dg, srcs, ForaParams(epsilon=0.5), seed=0)
     pi = res.pi.cpu().numpy()
@@ -1230,6 +1574,10 @@ def main() -> int:
     check(out["fora_max_rel_err"] < 0.5,
           f"FORA rel err {out['fora_max_rel_err']} >= eps")
     check(launches["ell_spmm_sliced"] > 0, "paper path never launched K2")
+    print(f"  exact PPR on the sliced table (COO loop): K4 launches "
+          f"{ell_spmv.LAUNCHES['ell_spmv']}")
+    check(ell_spmv.LAUNCHES["ell_spmv"] == 0,
+          "the sliced table's oracle launched K4")
     profile_queries(web, 8)
 
     print("phase 4: index paths (FORA+), K3 on the walk index")
@@ -1368,12 +1716,7 @@ def main() -> int:
         else:
             kern = lambda: ell_spmv.ell_spmm_cuda(  # noqa: E731
                 nbr, msk, w, x, thr)
-        keep = msk.reshape(-1)
-        dst = (torch.arange(nbr.shape[0], device=dev) if rm is None
-               else rm.long())[:, None].expand(nbr.shape).reshape(-1)
-        a = torch.sparse_coo_tensor(
-            torch.stack([dst[keep], nbr.reshape(-1)[keep].long()]),
-            w.reshape(-1)[keep], (n, n)).coalesce().to_sparse_csr()
+        a = csr_of(nbr, msk, w, rm, n)
         xT = x.t().contiguous()
         lib = lambda: torch.sparse.mm(a, xT)  # noqa: E731
         _, lib_ratio = err_ratio(lib().t(), plain(nbr, msk, *f64(w), rm,
@@ -1430,6 +1773,40 @@ def main() -> int:
         timed("ell_spmm", *uni_t, None, uni_thr,
               mass_rows(gen, B, uni.n, dev),
               f"uniform n={uni.n} K={uni_t[0].shape[1]} B={B}", reps=50)
+
+    def timed_spmv(tables, label, reps=200):
+        """K4 on a dense table at B = 1, as the power iteration runs it:
+        beside spmm_cost's bound at B = 1, the float32 plain version and
+        ``torch.sparse.mm`` of the same table on an (n, 1) column."""
+        nbr, msk, w = tables
+        n = nbr.shape[0]
+        x = mass_rows(gen, 1, n, dev)[0]
+        kern = lambda: ell_spmv.ell_spmv_cuda(nbr, msk, w, x)  # noqa: E731
+        plain_f = lambda: ref.ell_spmv_ref(nbr, msk, x, w)  # noqa: E731
+        a = csr_of(nbr, msk, w, None, n)
+        xc = x[:, None].contiguous()
+        lib = lambda: torch.sparse.mm(a, xc)  # noqa: E731
+        _, lib_ratio = err_ratio(lib()[:, 0], ref.ell_spmv_ref(
+            nbr, msk, x.double(), w.double()), LIBRARY_RTOL)
+        check(lib_ratio <= 1.0, "library yardstick disagrees for K4")
+        ms = device_ms(kern, reps)
+        plain_ms = device_ms(plain_f, max(5, reps // 20))
+        lib_ms = device_ms(lib, reps)
+        ev_ms = events_ms(kern, reps)
+        bound, by = spmm_cost(int(msk.sum()), n, 1, n, False, False)
+        print(f"  {'ell_spmv':16s} {label:38s} kernel {ms * 1e3:9.2f} us "
+              f"(events {ev_ms * 1e3:9.2f} us)  bound "
+              f"{bound * 1e3:8.2f} us ({by}; whole table "
+              f"{(nbr.numel() * 9 + 8 * n) / HBM_BYTES_PER_S * 1e6:.2f} us)"
+              f"  plain {plain_ms * 1e3:10.2f} us  torch.sparse.mm "
+              f"{lib_ms * 1e3:9.2f} us  [{card}]")
+        del a
+        return ms, plain_ms, bound, by, lib_ms
+
+    k4 = timed_spmv(pokec_t, f"pokec n={pokec.n} K={pokec_t[0].shape[1]} "
+                             f"B=1")
+    timed_spmv(dense_t, f"dense path n={small.n} K={dense_t[0].shape[1]} "
+                        f"B=1")
 
     def timed_gather(idx, budget, graph, dgraph, L, label, reps=200):
         """K3 at a path's shape: the index's table, and starts and weights
@@ -1489,11 +1866,17 @@ def main() -> int:
     t0 = time.perf_counter()
     k5 = phase7_din(dev, gen, card)
     print(f"  phase 7 wall {time.perf_counter() - t0:.1f}s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    launches["ell_spmv"] = phase8_pokec(pokec, pokec_dg, dev, card)
+    print(f"  phase 8 wall {time.perf_counter() - t0:.1f}s (graph and "
+          f"table built before phase 1 in {pokec_graph_s + pokec_table_s:.1f}"
+          f"s)")
 
     summary = []
     for name, (ms, plain_ms, bound, by, lib_ms) in (
             ("ell_spmm", k1), ("ell_spmm_sliced", k2),
-            ("walk_endpoint_gather", k3)):
+            ("walk_endpoint_gather", k3), ("ell_spmv", k4)):
         summary.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],

@@ -5,10 +5,13 @@
 // table (V, d) float32, contiguous; ids (B, L) int32 and w (B, L) float32,
 // each row contiguous, with row strides given (a stride of 0 lets every bag
 // read one shared history, as retrieval does, without a copy). out (B, d)
-// float32, contiguous. An id outside [0, V) contributes nothing. Built with
-// nvcc into a shared library with a plain C interface and called through
-// ctypes from repro_torch/kernels/embedding_bag.py, which checks every
-// argument first.
+// float32, contiguous. Ids are read as the JAX package's jnp.take reads
+// them: an id in [-V, 0) is row id + V, and a bag holding any id outside
+// [-V, V) comes out NaN in every column. The ids are not checked on the
+// host, which would cost a synchronisation a call. Built with nvcc into a
+// shared library with a plain C interface and called through ctypes from
+// repro_torch/kernels/embedding_bag.py, which checks every other argument
+// first.
 //
 // The TPU kernel (repro/kernels/embedding_bag.py, _bag_kernel) keeps the
 // whole table resident in VMEM and gathers (block_b, d) rows per step of a
@@ -62,8 +65,13 @@ bag_sum(const float* __restrict__ table, const int32_t* __restrict__ ids,
       for (int t = 0; t < n; ++t) {
         const int id = __shfl_sync(kFull, my_id, t);
         const float wt = __shfl_sync(kFull, my_w, t);
-        if (col < d && id >= 0 && id < V)
-          acc = fmaf(wt, table[static_cast<long long>(id) * d + col], acc);
+        if (col >= d) continue;
+        if (id < -V || id >= V) {
+          acc = __int_as_float(0x7fc00000);      // NaN, kept by every fmaf
+        } else {
+          const long long row = id < 0 ? id + V : id;
+          acc = fmaf(wt, table[row * d + col], acc);
+        }
       }
     }
     if (col < d) out[b * d + col] = acc;

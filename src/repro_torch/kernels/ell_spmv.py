@@ -1,9 +1,13 @@
-"""CUDA wrappers for the pull-form ELL SpMM of FORA's push sweep.
+"""CUDA wrappers for the pull-form ELL products: FORA's push sweep and the
+power iteration's step.
 
 ``ell_spmm_cuda`` (K1) replaces ``repro/kernels/ell_spmv.py::ell_spmm_pallas``
 (body ``_spmm_partials``, run through ``_spmm_virtual_rows``) and
 ``ell_spmm_sliced_cuda`` (K2) replaces ``ell_spmm_sliced_pallas`` (body
 ``_ell_spmm_fold_kernel``). Both launch ``csrc/ell_spmm.cu``.
+``ell_spmv_cuda`` (K4) replaces ``ell_spmv_pallas`` (body ``_ell_kernel``),
+the one-vector product ``P^T x`` of exact power iteration, and launches
+``csrc/ell_spmv.cu`` (its header says how its lanes are laid out).
 
 What bounds them on the H100: bytes. Per call a sweep reads each table
 cell once (int32 neighbour + bool mask + f32 weight, 9 bytes), gathers B
@@ -40,7 +44,8 @@ from . import _build
 
 # launches of each wrapper since the last reset_launches(); a K2 call counts
 # once although it runs four CUDA kernels (rows, two fold levels, root)
-LAUNCHES: dict[str, int] = {"ell_spmm": 0, "ell_spmm_sliced": 0}
+LAUNCHES: dict[str, int] = {"ell_spmm": 0, "ell_spmm_sliced": 0,
+                            "ell_spmv": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -49,6 +54,10 @@ _SIGNATURES = {
     "ell_spmm_sliced_launch": ([_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I, _P], _I),
     "ell_spmm_error_string": ([_I], ctypes.c_char_p),
+}
+_SPMV_SIGNATURES = {
+    "ell_spmv_launch": ([_P, _P, _P, _P, _P, _I, _I, _P], _I),
+    "ell_spmv_error_string": ([_I], ctypes.c_char_p),
 }
 _INT32_MAX = 2**31 - 1
 
@@ -109,6 +118,10 @@ def _raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
 
 
+def _spmv_lib() -> ctypes.CDLL:
+    return _build.load("ell_spmv", _SPMV_SIGNATURES)
+
+
 def _ptr(t: torch.Tensor | None) -> int | None:
     return None if t is None else t.data_ptr()
 
@@ -164,3 +177,32 @@ def ell_spmm_sliced_cuda(neighbors: torch.Tensor, mask: torch.Tensor,
     _raise_on(lib, err, "ell_spmm_sliced")
     LAUNCHES["ell_spmm_sliced"] += 1
     return yT.t()
+
+
+def ell_spmv_cuda(neighbors: torch.Tensor, mask: torch.Tensor,
+                  weights: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """K4: ``y[i] = sum_j mask[i,j] * w[i,j] * x[neighbors[i,j]]`` on the
+    card. neighbors (n, K) int32 and mask (n, K) bool, contiguous; weights
+    (n, K) and x (n,) are cast to float32 as the JAX package casts them (a
+    copy only when they are not float32 already). Returns (n,) float32."""
+    if x.device.type != "cuda":
+        raise ValueError(f"x must be a CUDA tensor, got {x.device}")
+    if x.dim() != 1:
+        raise ValueError(f"x must be (n,), got {tuple(x.shape)}")
+    x = x.to(torch.float32).contiguous()
+    weights = weights.to(torch.float32)
+    rows, width = _check_table(neighbors, mask, weights, x.device)
+    if rows != x.shape[0]:
+        raise ValueError(f"dense table has {rows} rows for x of "
+                         f"{x.shape[0]}")
+    y = torch.empty((rows,), dtype=torch.float32, device=x.device)
+    lib = _spmv_lib()
+    stream = torch.cuda.current_stream(x.device.index).cuda_stream
+    err = lib.ell_spmv_launch(_ptr(neighbors), _ptr(mask), _ptr(weights),
+                              _ptr(x), _ptr(y), rows, width, stream)
+    if err != 0:
+        msg = lib.ell_spmv_error_string(err).decode()
+        raise RuntimeError(f"ell_spmv launch failed: CUDA error {err} "
+                           f"({msg})")
+    LAUNCHES["ell_spmv"] += 1
+    return y

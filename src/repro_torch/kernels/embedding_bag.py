@@ -59,9 +59,11 @@ def embedding_bag_cuda(table: torch.Tensor, ids: torch.Tensor,
 
     table (V, d) float32 contiguous, ids (B, L) int32 and weights (B, L)
     float32 with contiguous rows (any row stride, 0 included), all on one
-    CUDA device. Returns (B, d) float32. Ids are not checked against V on
-    the host: an id outside [0, V) adds nothing on the card, where the
-    plain version raises."""
+    CUDA device. Returns (B, d) float32. Ids are read as the JAX
+    package's ``embedding_bag_ref`` reads them, on the card as in the plain
+    version: an id in [-V, 0) is row id + V, and a bag holding an id
+    outside [-V, V) comes out NaN in every column. They are not checked on
+    the host, which would cost a synchronisation a call."""
     dev = table.device
     if dev.type != "cuda":
         raise ValueError(f"table must be a CUDA tensor, got {dev}")

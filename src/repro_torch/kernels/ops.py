@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 
 from . import ref
-from .ell_spmv import ell_spmm_cuda, ell_spmm_sliced_cuda
+from .ell_spmv import ell_spmm_cuda, ell_spmm_sliced_cuda, ell_spmv_cuda
 from .embedding_bag import embedding_bag_cuda
 from .flash_attention import flash_attention_cuda
 from .walk_gather import walk_endpoint_gather_cuda
@@ -22,6 +22,16 @@ def _on_cuda(x: torch.Tensor) -> bool:
     if x.device.type == "cpu":
         return False
     raise ValueError(f"no kernel for device {x.device}")
+
+
+def ell_spmv(neighbors: torch.Tensor, mask: torch.Tensor,
+             weights: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """One-vector (n,) pull-form SpMV over the dense (n, K) table: with the
+    in-neighbour table and w = 1/deg_out(src), ``P^T x``."""
+    if _on_cuda(x):
+        return ell_spmv_cuda(neighbors, mask, weights, x)
+    return ref.ell_spmv_ref(neighbors, mask, x.to(torch.float32),
+                            weights.to(torch.float32))
 
 
 def ell_spmm(neighbors: torch.Tensor, mask: torch.Tensor,

@@ -13,6 +13,19 @@ import math
 import torch
 
 
+def ell_spmv_ref(neighbors: torch.Tensor, mask: torch.Tensor, x: torch.Tensor,
+                 weights: torch.Tensor | None = None) -> torch.Tensor:
+    """Pull-form ELL SpMV: ``y[i] = sum_j mask[i,j] * w[i,j] *
+    x[neighbors[i,j]]``. neighbors/mask/weights are (n, K), x is (n,);
+    returns (n,) in x's dtype. Over the in-neighbour table with w =
+    1/deg_out(src) this is P^T x, one step of exact power iteration."""
+    gathered = x[neighbors.long()]                # (n, K)
+    w = mask.to(x.dtype)
+    if weights is not None:
+        w = w * weights.to(x.dtype)
+    return (w * gathered).sum(dim=1)
+
+
 def ell_spmm_ref(neighbors: torch.Tensor, mask: torch.Tensor, x: torch.Tensor,
                  weights: torch.Tensor | None = None,
                  threshold: torch.Tensor | None = None) -> torch.Tensor:
@@ -115,8 +128,16 @@ def embedding_bag_ref(table: torch.Tensor, ids: torch.Tensor,
                       weights: torch.Tensor | None = None) -> torch.Tensor:
     """EmbeddingBag(sum): ``out[b] = sum_l w[b,l] * table[ids[b,l]]``.
     table (V, d), ids (B, L) int32, weights (B, L) or None (all ones).
-    Returns (B, d) in the table's dtype: DIN's weighted history pooling."""
-    rows = table[ids.long()]                       # (B, L, d)
+    Returns (B, d) in the table's dtype: DIN's weighted history pooling.
+    Ids are read as the JAX package's ``jnp.take`` reads them: an id in
+    [-V, 0) is row id + V, and a bag holding an id outside [-V, V) comes
+    out NaN in every column."""
+    V = table.shape[0]
+    idx = ids.long()
+    bad = ((idx < -V) | (idx >= V)).any(dim=1, keepdim=True)     # (B, 1)
+    rows = table[idx.clamp(-V, V - 1)]             # (B, L, d); -V.. wraps
     if weights is None:
-        return rows.sum(dim=1)
-    return torch.einsum("bl,bld->bd", weights.to(table.dtype), rows)
+        out = rows.sum(dim=1)
+    else:
+        out = torch.einsum("bl,bld->bd", weights.to(table.dtype), rows)
+    return out.masked_fill(bad, float("nan"))

@@ -17,6 +17,12 @@ it runs in. With ``index_budget > 0`` a :class:`~repro_torch.index.WalkIndex`
 of that many lanes per node is built once, at warmup, and every block
 serves its covered walk lanes from it (the FORA+ mode); ``walk_index``
 hands the executor one already built instead.
+
+The parts a continuous-batching engine calls are here too: ``run_chunk``
+(one chunk as one device call), ``answer_chunk`` (a chunk's PPR rows, the
+reference engine answers are held to) and the opt-in adaptive walk budget
+(``adaptive_budget``: an EWMA of each block's observed worst residual mass
+sets the next block's lane count).
 """
 
 from __future__ import annotations
@@ -81,12 +87,16 @@ class ForaExecutor:
     # a prebuilt index of the workload's graph to serve from; its width
     # stands for index_budget and warmup builds none
     walk_index: "WalkIndex | None" = field(default=None, repr=False)
+    adaptive_budget: bool = False  # recalibrate the walk budget per block
+    #                                from observed residual mass (EWMA)
+    budget_ewma: float = 0.5       # weight of the newest observed r_max
     calls: int = field(default=0, init=False)
     _dev: torch.device = field(init=False, repr=False)
     _warmed: bool = field(default=False, init=False)
     _device_graph: DeviceGraph | None = field(default=None, init=False,
                                               repr=False)
     _num_walks: int | None = field(default=None, init=False)
+    _obs_rmax: float | None = field(default=None, init=False)
 
     def __post_init__(self) -> None:
         if self.block_size < 1:
@@ -109,17 +119,20 @@ class ForaExecutor:
         return np.array([self.workload.source_of(q) for q in qids],
                         dtype=np.int64)
 
-    def _run_block(self, qids: Sequence[int]) -> FusedForaResult:
+    def _run_block(self, qids: Sequence[int],
+                   seed: int | None = None) -> FusedForaResult:
         return fora_fused(self._device_graph, self._block_sources(qids),
-                          self.params, self.workload.seed,
+                          self.params,
+                          self.workload.seed if seed is None else seed,
                           num_walks=self._num_walks, query_ids=qids,
                           index=self.walk_index, device=self._dev)
 
-    def _timed_block(self, qids: Sequence[int]) -> float:
+    def _timed_block(self, qids: Sequence[int], seed: int | None = None
+                     ) -> tuple[float, FusedForaResult]:
         t0 = time.perf_counter()
-        self._run_block(qids)
+        res = self._run_block(qids, seed)
         synchronize(self._dev)          # the block's readout
-        return time.perf_counter() - t0
+        return time.perf_counter() - t0, res
 
     def _calibration_qids(self, size: int = 8) -> list[int]:
         """Seeded random probe block without replacement, on a stream
@@ -173,16 +186,62 @@ class ForaExecutor:
         synchronize(self._dev)
         self._warmed = True
 
-    def run_chunk(self, query_ids: Sequence[int]) -> RuntimeStats:
+    def run_chunk(self, query_ids: Sequence[int], *,
+                  seed: int | None = None) -> RuntimeStats:
         """One chunk of queries as a single batched device call; its time
-        is shared evenly among the chunk's queries."""
+        is shared evenly among the chunk's queries. ``seed`` is the base of
+        the chunk's per-query walk generators (default: the workload's), so
+        a query's answer depends on (seed, query id) alone. With
+        ``adaptive_budget`` the chunk first takes the walk budget of the
+        residual-mass EWMA, and after the timed region its own worst
+        residual mass is read back and folded in."""
         ids = list(query_ids)
         if not ids:
             raise ValueError("empty query chunk")
         self.warmup()
-        dt = self._timed_block(ids)
+        self._recalibrate_block()
+        dt, res = self._timed_block(ids, seed)
+        if self.adaptive_budget:
+            self.observe_residual_mass(float(res.residual_mass.max()))
         self.calls += 1
         return RuntimeStats(np.full(len(ids), dt / len(ids)))
+
+    def observe_residual_mass(self, r_max: float) -> None:
+        """Fold one block's observed worst residual mass into the EWMA
+        that the next block's walk budget is recalibrated against."""
+        if self._obs_rmax is None:
+            self._obs_rmax = float(r_max)
+        else:
+            b = self.budget_ewma
+            self._obs_rmax = (1.0 - b) * self._obs_rmax + b * float(r_max)
+
+    def _recalibrate_block(self) -> None:
+        """Adaptive walk budget (opt-in): the lane count becomes
+        pow2(ceil(ewma_rmax * omega)), capped by the worst-case default,
+        the same host integer the JAX package picks for the same sequence
+        of observations."""
+        if (not self.adaptive_budget or self._obs_rmax is None
+                or self._num_walks is None):
+            return
+        rp = self.params.resolve(self.workload.graph)
+        need = max(1, math.ceil(self._obs_rmax * rp.omega))
+        self._num_walks = min(_pow2_ceil_host(need), default_walk_budget(rp))
+
+    def answer_chunk(self, query_ids: Sequence[int]) -> np.ndarray:
+        """PPR rows (len(query_ids), n) for one chunk through the fused
+        query: the reference a continuous-batching engine's answers are
+        held to. Each query draws from its own generator, so on the CPU a
+        query's row has the same bits in any chunk (the JAX package pads
+        its batch to a multiple of 8 for that; the port's CPU products need
+        no padding). On the card K1's lane layout follows the batch width
+        and the live endpoint fold uses atomics, so rows there agree to
+        rounding only."""
+        ids = list(query_ids)
+        if not ids:
+            raise ValueError("empty query chunk")
+        self.warmup()
+        self._recalibrate_block()
+        return self._run_block(ids).pi.cpu().numpy()
 
     def current_walk_budget(self) -> int | None:
         """The calibrated walk lane count (after warmup)."""
@@ -219,6 +278,7 @@ class ForaExecutor:
         times = np.empty(len(ids), dtype=np.float64)
         for lo in range(0, len(ids), self.block_size):
             chunk = ids[lo: lo + self.block_size]
-            times[lo: lo + len(chunk)] = self._timed_block(chunk) / len(chunk)
+            times[lo: lo + len(chunk)] = \
+                self._timed_block(chunk)[0] / len(chunk)
             self.calls += 1
         return RuntimeStats(times)

@@ -82,6 +82,7 @@ class ForaResult(NamedTuple):
     push_iters: int
     walks_used: int
     residual_mass: np.ndarray  # (B,) r_sum after push (drives walk count)
+    walks_short: np.ndarray    # (B,) bool: max_walks cut ceil(r_sum * omega)
 
 
 class FusedForaResult(NamedTuple):
@@ -92,6 +93,10 @@ class FusedForaResult(NamedTuple):
     push_iters: torch.Tensor      # () int32
     walks_effective: torch.Tensor  # (B,) int32 power-of-two budgets
     walks_budget: int             # lane count W of the walk phase
+    # (B,) bool: rows whose lane count W fell below the ceil(r_sum * omega)
+    # walks FORA's guarantee asks for. Such a row stays unbiased but is
+    # noisier, and its eps guarantee does not hold.
+    walks_short: torch.Tensor
 
 
 def _pow2_ceil_host(v: int) -> int:
@@ -164,9 +169,10 @@ def fora_fused(dg: DeviceGraph, sources, params: ForaParams = ForaParams(),
 
     ``num_walks`` is the walk lane count (a workload-calibrated budget from
     :class:`~repro_torch.ppr.executor.ForaExecutor`; by default the worst
-    case r_sum = 1), rounded up to a power of two. Each row's effective
-    budget is pow2(ceil(r_sum * omega)) clipped to it, computed on the
-    device. The walks draw from ``draws`` when given (the tests replay the
+    case r_sum = 1, itself capped at ``max_walks``), rounded up to a power
+    of two. Each row's effective budget is pow2(ceil(r_sum * omega))
+    clipped to it, computed on the device; ``walks_short`` marks the rows
+    that the clip left with fewer walks than ceil(r_sum * omega). The walks draw from ``draws`` when given (the tests replay the
     JAX package's draws), else from one generator per query seeded from
     (``seed``, query id); ``query_ids`` default to the row positions.
 
@@ -210,7 +216,8 @@ def fora_fused(dg: DeviceGraph, sources, params: ForaParams = ForaParams(),
                                   active_walks=w_eff)
     return FusedForaResult(pi=push.pi + endpoint, residual_mass=r_sum,
                            push_iters=push.iters, walks_effective=w_eff,
-                           walks_budget=num_walks)
+                           walks_budget=num_walks,
+                           walks_short=need > w_eff)
 
 
 def fora(graph: Graph, sources, params: ForaParams = ForaParams(),
@@ -235,4 +242,5 @@ def fora(graph: Graph, sources, params: ForaParams = ForaParams(),
                                                              rp.walk_tail))
     pi = (push.pi + endpoint).cpu().numpy()
     return ForaResult(pi=pi, push_iters=int(push.iters), walks_used=walks,
-                      residual_mass=r_sum)
+                      residual_mass=r_sum,
+                      walks_short=np.ceil(r_sum * rp.omega) > walks)

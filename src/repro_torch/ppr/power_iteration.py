@@ -6,7 +6,14 @@ out-neighbour. pi(s, t) = P[walk from s stops at t]. Fixed point:
 
     pi = alpha * e_s + (1 - alpha) * P^T pi,   P = D_out^{-1} A
 
-computed over the COO edge list with ``index_add_``, batched over sources.
+Each step's ``P^T pi`` takes the route of the graph's resident push table
+(``graph.device(dev)``). With the dense (n, K) in-neighbour table, whose
+weights are 1/deg_out(src), it is one ``ops.ell_spmv`` (K4 on the card) a
+source and step, the sources run one after another as the JAX package
+vmaps over them. A graph whose in-degrees put it on the sliced table (every
+dataset stand-in: their Zipf targets make hubs) has no dense table to run
+K4 over, so its steps are a ``index_add_`` over the COO edge list, batched
+over sources: that is the layout's route, not a fallback.
 """
 
 from __future__ import annotations
@@ -15,31 +22,75 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..kernels import ops
 from .graph import Graph
+
+
+def default_iters(alpha: float = 0.2, tol: float = 1e-9) -> int:
+    """The step count of :func:`ppr_power_iteration` when none is given:
+    the least with (1 - alpha)^iters < tol, plus one."""
+    if not 0.0 < alpha < 1.0:
+        raise ValueError("alpha in (0,1)")
+    return int(np.ceil(np.log(tol) / np.log(1.0 - alpha))) + 1
+
+
+def _seeds(sources: np.ndarray, n: int, dev: torch.device) -> torch.Tensor:
+    seeds = torch.zeros((sources.size, n), dtype=torch.float32, device=dev)
+    seeds[torch.arange(sources.size, device=dev),
+          torch.as_tensor(sources, device=dev)] = 1.0
+    return seeds
+
+
+def power_iteration_coo(graph: Graph, sources: np.ndarray, alpha: float,
+                        iters: int, device: torch.device) -> torch.Tensor:
+    """(B, n) PPR rows on ``device`` by ``iters`` steps over the COO edge
+    list with ``index_add_``, all sources at once."""
+    sources = np.asarray(sources, dtype=np.int64).reshape(-1)
+    inv_deg = torch.as_tensor(
+        (1.0 / np.maximum(graph.out_degree, 1)).astype(np.float32),
+        device=device)
+    edge_src = torch.as_tensor(graph.edge_src.astype(np.int64), device=device)
+    edge_dst = torch.as_tensor(graph.edge_dst.astype(np.int64), device=device)
+    seeds = _seeds(sources, graph.n, device)
+    pi = seeds
+    for _ in range(iters):
+        contrib = (pi * inv_deg)[:, edge_src]                 # (B, m)
+        moved = torch.zeros_like(pi).index_add_(1, edge_dst, contrib)
+        pi = alpha * seeds + (1.0 - alpha) * moved
+    return pi
 
 
 def ppr_power_iteration(graph: Graph, sources: np.ndarray, alpha: float = 0.2,
                         iters: int | None = None, tol: float = 1e-9, *,
                         device: str | torch.device = "cuda") -> np.ndarray:
     """Dense PPR rows for each source, shape (len(sources), n), float32,
-    with iters chosen so that (1-alpha)^iters < tol."""
+    with iters chosen so that (1-alpha)^iters < tol. On a dense push table
+    every step is one ``ops.ell_spmv`` per source; the loop never waits for
+    the device, and the rows are read back once at the end."""
     if not 0.0 < alpha < 1.0:
         raise ValueError("alpha in (0,1)")
-    dev = resolve_device(device)
     if iters is None:
-        iters = int(np.ceil(np.log(tol) / np.log(1.0 - alpha))) + 1
-    n = graph.n
+        iters = default_iters(alpha, tol)
+    dev = resolve_device(device)
     sources = np.asarray(sources, dtype=np.int64).reshape(-1)
-    inv_deg = torch.as_tensor(
-        (1.0 / np.maximum(graph.out_degree, 1)).astype(np.float32), device=dev)
-    edge_src = torch.as_tensor(graph.edge_src.astype(np.int64), device=dev)
-    edge_dst = torch.as_tensor(graph.edge_dst.astype(np.int64), device=dev)
-    seeds = torch.zeros((sources.size, n), dtype=torch.float32, device=dev)
-    seeds[torch.arange(sources.size, device=dev),
-          torch.as_tensor(sources, device=dev)] = 1.0
-    pi = seeds
-    for _ in range(iters):
-        contrib = (pi * inv_deg)[:, edge_src]                 # (B, m)
-        moved = torch.zeros_like(pi).index_add_(1, edge_dst, contrib)
-        pi = alpha * seeds + (1.0 - alpha) * moved
-    return pi.cpu().numpy()
+    dg = graph.device(dev)
+    if dg.layout != "dense":
+        return power_iteration_coo(graph, sources, alpha, iters,
+                                   dev).cpu().numpy()
+    rows = []
+    for seed in _seeds(sources, graph.n, dev):
+        pi = seed
+        for _ in range(iters):
+            moved = ops.ell_spmv(dg.in_neighbors, dg.in_mask, dg.in_weights,
+                                 pi)
+            pi = alpha * seed + (1.0 - alpha) * moved
+        rows.append(pi)
+    out = torch.stack(rows) if rows else _seeds(sources, graph.n, dev)
+    return out.cpu().numpy()
+
+
+def ppr_single_pair(graph: Graph, s: int, t: int, alpha: float = 0.2, *,
+                    device: str | torch.device = "cuda") -> float:
+    """pi(s, t), the paper's Problem-1 query unit."""
+    return float(ppr_power_iteration(graph, np.array([s]), alpha,
+                                     device=device)[0, t])

@@ -23,12 +23,33 @@ import numpy as np
 import torch
 
 from ._device import resolve_device
-from .core import InfeasibleDeadline, dna_real, fraction_sample_size
+from .core import (DnaResult, InfeasibleDeadline, dna_real,
+                   fraction_sample_size)
 from .index import WalkIndex
 from .ppr import (ForaExecutor, ForaParams, PprWorkload, fora, fora_fused,
                   load, ppr_power_iteration)
 
 EPSILON = 0.5
+
+
+def allocate(executor: ForaExecutor, num_queries: int, *,
+             max_cores: int = 64) -> tuple[float, DnaResult]:
+    """D&A_REAL over ``executor``'s first ``num_queries`` queries, one per
+    call, with the quickstart's deadline rule: after a steady-state warmup
+    over a probe of s = 25% of X queries, T = max(X t_avg / 4, 6 t_max,
+    8 t_pre) of that probe, doubled while infeasible (paper §III-A), at
+    most three tries. Returns (T, the D&A_REAL result)."""
+    s = fraction_sample_size(num_queries, 0.25)
+    executor(list(range(s)))                     # steady-state warmup
+    probe = executor(list(range(s)))
+    T = max(num_queries * probe.t_avg / 4, probe.t_max * 6, probe.t_pre * 8)
+    for _ in range(3):
+        try:
+            return T, dna_real(num_queries, T, executor, max_cores=max_cores,
+                               sample_size=s, scaling_factor=1.0)
+        except InfeasibleDeadline:
+            T *= 2.0
+    raise RuntimeError("D&A_REAL found no feasible deadline in 3 tries")
 
 
 def run(*, scale: int = 512, num_queries: int = 64, check_sources: int = 1,
@@ -63,20 +84,7 @@ def run(*, scale: int = 512, num_queries: int = 64, check_sources: int = 1,
         f"(guarantee eps={EPSILON})")
 
     # D&A_REAL: minimum cores to finish X queries in T seconds
-    s = fraction_sample_size(num_queries, 0.25)
-    executor(list(range(s)))                     # steady-state warmup
-    probe = executor(list(range(s)))
-    T = max(num_queries * probe.t_avg / 4, probe.t_max * 6, probe.t_pre * 8)
-    result = None
-    for _ in range(3):
-        try:
-            result = dna_real(num_queries, T, executor, max_cores=64,
-                              sample_size=s, scaling_factor=1.0)
-            break
-        except InfeasibleDeadline:
-            T *= 2.0
-    if result is None:
-        raise RuntimeError("D&A_REAL found no feasible deadline in 3 tries")
+    T, result = allocate(executor, num_queries)
     times = np.concatenate([result.sample_stats.times,
                             list(result.execution.per_query_times.values())])
     out = {

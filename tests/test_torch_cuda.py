@@ -1,7 +1,8 @@
 """The port's CUDA kernels on a card: each against its plain version, the
 fused query on the card against the same query on the CPU, with and
-without the walk index, and the model serving paths (K5, K6) on the card
-against the same paths on the CPU. Every test
+without the walk index, exact PPR through K4 against the COO loop, and the
+model serving paths (K5, K6) on the card against the same paths on the
+CPU. Every test
 here needs an NVIDIA card and ``nvcc`` and skips without them; this file
 imports neither JAX nor ``repro``, so it runs where only torch is
 installed:
@@ -21,7 +22,10 @@ from repro_torch.kernels import (embedding_bag, ell_spmv, flash_attention,
                                  ops, ref, walk_gather)
 from repro_torch.ppr import (ForaExecutor, ForaParams, LaneStreams,
                              PprWorkload, TableDraws, fora_fused, load,
+                             ppr_power_iteration, ppr_single_pair,
                              small_test_graph, walk_length_for_tail)
+from repro_torch.ppr.power_iteration import (default_iters,
+                                             power_iteration_coo)
 
 pytestmark = pytest.mark.cuda
 
@@ -271,14 +275,80 @@ def test_embedding_bag_matches_plain_and_repeats_bitwise(card, V, d, B, L):
             table, bag_ids, w))
 
 
+@pytest.mark.parametrize("n,K", [(64, 4), (100, 7), (512, 16), (300, 130),
+                                 (1000, 33), ("graph", 0)])
+def test_ell_spmv_matches_plain_and_repeats_bitwise(card, n, K):
+    """K4 over test_kernels.py's sweep shapes (nonnegative weights, also
+    under a false mask, so no sum cancels) and over a graph's dense push
+    table, against the float64 plain version at rtol 1e-5 + 1e-6 max."""
+    if n == "graph":
+        tables = [torch.from_numpy(a).to(card)
+                  for a in small_test_graph(n=2000).ell_in()]
+        n = tables[0].shape[0]
+    else:
+        g = torch.Generator(device=card).manual_seed(n + K)
+        tables = [torch.randint(0, n, (n, K), generator=g, device=card,
+                                dtype=torch.int32),
+                  torch.rand((n, K), generator=g, device=card) < 0.7,
+                  torch.rand((n, K), generator=g, device=card)]
+        tables[1][0] = False                 # a row with no live cell
+    x = _x(n, 1, seed=n, device=card)[0]
+    got = ell_spmv.ell_spmv_cuda(*tables, x)
+    want = ref.ell_spmv_ref(tables[0], tables[1], x.double(),
+                            tables[2].double())
+    assert got.shape == (n,) and got.dtype == torch.float32
+    torch.testing.assert_close(got.double(), want, rtol=1e-5,
+                               atol=1e-6 * float(want.abs().max()))
+    assert torch.equal(got, ell_spmv.ell_spmv_cuda(*tables, x))
+    if not bool(tables[1][0].any()):
+        assert float(got[0]) == 0.0
+
+
+@pytest.mark.parametrize("ids", [[[0, -1]], [[0, 5]], [[-4, 3], [1, -5]]])
+def test_embedding_bag_reads_ids_as_the_plain_version(card, ids):
+    """K5 on ids outside [0, V): [-V, 0) wraps to id + V, a bag with an id
+    outside [-V, V) is NaN in every column, as in the plain version."""
+    table = torch.randn((4, 3), generator=torch.Generator(
+        device=card).manual_seed(1), device=card)
+    ids = torch.tensor(ids, dtype=torch.int32, device=card)
+    w = torch.rand(ids.shape, device=card)
+    got = embedding_bag.embedding_bag_cuda(table, ids, w)
+    want = ref.embedding_bag_ref(table.double(), ids, w.double())
+    torch.testing.assert_close(got.double(), want, rtol=1e-6, atol=1e-7,
+                               equal_nan=True)
+    bad = ((ids < -4) | (ids >= 4)).any(dim=1)
+    assert torch.equal(torch.isnan(got).all(dim=1), bad)
+
+
+def test_power_iteration_through_k4_equals_coo(card):
+    g = small_test_graph(n=2000)
+    assert g.device(card).layout == "dense"
+    sources = np.array([0, 7, 42])
+    ell_spmv.reset_launches()
+    got = ppr_power_iteration(g, sources, device=card)
+    iters = default_iters(0.2)
+    assert ell_spmv.LAUNCHES["ell_spmv"] == iters * sources.size
+    want = power_iteration_coo(g, sources, 0.2, iters, card).cpu().numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5,
+                               atol=1e-6 * float(np.abs(want).max()))
+    assert ppr_single_pair(g, 7, 42, device=card) == pytest.approx(
+        float(got[1, 42]), rel=1e-6)
+
+
 def test_cuda_tensors_reach_the_kernels(card, monkeypatch):
     def no_plain(*args, **kwargs):
         raise AssertionError("a CUDA tensor reached the plain version")
 
     monkeypatch.setattr(ref, "flash_attention_ref", no_plain)
     monkeypatch.setattr(ref, "embedding_bag_ref", no_plain)
+    monkeypatch.setattr(ref, "ell_spmv_ref", no_plain)
     flash_attention.reset_launches()
     embedding_bag.reset_launches()
+    ell_spmv.reset_launches()
+    nbr = torch.zeros((5, 3), dtype=torch.int32, device=card)
+    ops.ell_spmv(nbr, nbr > -1, torch.ones((5, 3), device=card),
+                 torch.ones(5, device=card))
+    assert ell_spmv.LAUNCHES["ell_spmv"] == 1
     q = torch.randn((1, 4, 2, 16), device=card)
     ops.flash_attention(q, q, q)
     ops.embedding_bag(torch.randn((10, 4), device=card),

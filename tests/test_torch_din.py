@@ -121,3 +121,34 @@ def test_din_candidates_equal_pointwise_scores():
     np.testing.assert_allclose(cand.numpy(),
                                tdin.score(tp, tcfg, pairs).numpy(),
                                rtol=1e-5, atol=1e-6)
+
+
+# K5's ids outside [0, V) (V = 4): [-V, 0) wraps to id + V, and a bag with
+# an id outside [-V, V) is NaN in every column, as jnp.take reads them
+BAG_IDS = [[[0, -1]], [[0, 5]], [[-4, 3]], [[-5, 0]], [[2, 4], [1, -2]],
+           [[0, 1], [3, -3]]]
+
+
+@pytest.mark.parametrize("ids", BAG_IDS)
+@pytest.mark.parametrize("weighted", [True, False])
+def test_embedding_bag_reads_ids_as_jax(ids, weighted):
+    from repro.kernels import ref as jref
+    from repro_torch.kernels import ops, ref as tref
+
+    rng = np.random.default_rng(len(ids))
+    table = rng.standard_normal((4, 3)).astype(np.float32)
+    ids = np.asarray(ids, np.int32)
+    w = rng.random(ids.shape).astype(np.float32) if weighted else None
+    want = np.asarray(jref.embedding_bag_ref(
+        jnp.asarray(table), jnp.asarray(ids),
+        None if w is None else jnp.asarray(w)))
+    got = tref.embedding_bag_ref(torch.from_numpy(table),
+                                 torch.from_numpy(ids),
+                                 None if w is None else torch.from_numpy(w))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-7,
+                               equal_nan=True)
+    assert np.isnan(want).any() == bool(((ids < -4) | (ids >= 4)).any())
+    if weighted:
+        np.testing.assert_array_equal(
+            ops.embedding_bag(torch.from_numpy(table), torch.from_numpy(ids),
+                              torch.from_numpy(w)).numpy(), got.numpy())

@@ -227,6 +227,24 @@ def test_fora_fused_matches_fora(graphs, exact):
     assert int(fres.walks_effective.max()) == res.walks_used
 
 
+@pytest.mark.parametrize("num_walks", [None, 64])
+def test_walks_short_marks_rows_the_lane_count_cut(graphs, num_walks):
+    tg = graphs[1]
+    params = tppr.ForaParams(alpha=0.2, epsilon=0.5)
+    fres = tppr.fora_fused(tg.device("cpu"), SOURCES, params, seed=0,
+                           num_walks=num_walks, device="cpu")
+    need = np.ceil(fres.residual_mass.numpy() * params.resolve(tg).omega)
+    want = need > fres.walks_effective.numpy()
+    np.testing.assert_array_equal(fres.walks_short.numpy(), want)
+    # the default lane count covers every row here; 64 lanes cover none
+    assert want.all() == (num_walks == 64) and want.any() == want.all()
+    # the legacy query's cap is max_walks
+    capped = tppr.ForaParams(alpha=0.2, epsilon=0.5,
+                             max_walks=num_walks or 1 << 22)
+    legacy = tppr.fora(tg, SOURCES, capped, seed=0, device="cpu")
+    np.testing.assert_array_equal(legacy.walks_short, want)
+
+
 def test_query_answer_does_not_depend_on_its_batch(powerlaw):
     tg = powerlaw[1]
     dg = tg.device("cpu")

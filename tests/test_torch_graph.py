@@ -159,6 +159,10 @@ def test_import_without_jax_loads_no_repro():
             "import repro_torch.models, repro_torch.configs\n"
             "import repro_torch.kernels.flash_attention\n"
             "import repro_torch.kernels.embedding_bag\n"
+            "import repro_torch.core.allocator, repro_torch.ft.elastic\n"
+            "import repro_torch.deadline_serving\n"
+            "from repro_torch.kernels.ell_spmv import ell_spmv_cuda\n"
+            "from repro_torch.ppr import ppr_single_pair\n"
             "bad = [m for m, v in sys.modules.items() if v is not None "
             "and (m == 'repro' or m.startswith(('repro.', 'jax')))]\n"
             "assert not bad, bad\n"

@@ -113,9 +113,13 @@ def test_dispatch_routes_by_device():
     with pytest.raises(ValueError, match="CUDA tensor"):
         ell_spmv.ell_spmm_sliced_cuda(*_t(sl.neighbors, sl.mask, sl.weights,
                                           sl.row_map), x)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ell_spmv.ell_spmv_cuda(nbr, mask, w, x[0])
     ell_spmv.reset_launches()
     ops.ell_spmm(nbr, mask, w, x)
-    assert ell_spmv.LAUNCHES == {"ell_spmm": 0, "ell_spmm_sliced": 0}
+    ops.ell_spmv(nbr, mask, w, x[0])
+    assert ell_spmv.LAUNCHES == {"ell_spmm": 0, "ell_spmm_sliced": 0,
+                                 "ell_spmv": 0}
 
 
 def test_build_names_follow_source_and_flags(monkeypatch):
