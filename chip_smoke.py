@@ -41,20 +41,26 @@ drives the port's main path, in phases:
    version's time and one PyTorch library call's. Each time is device
    time: the card's kernel durations under ``torch.profiler``, summed and
    divided by the calls. The host's pace (CUDA events around back-to-back
-   calls) is printed beside it;
+   calls) is printed beside it. K1 is timed at the dense path's shape, on
+   a uniform table and on phase 8's Pokec-order table at B = 1;
 6. gemma-2b serving at full width and depth (18 layers, d 2048, 8 query
    heads on 1 KV head, Dh 256, vocab 256,000, bf16, 2,506,172,416 random
    parameters from a seed), cut in batch and sequence only: 4 prompts of
    4,096 tokens prefilled into a cache of 4,128, then 32 greedy decode
-   steps, all attention through K6. K6 is held against its float64 plain
-   version at layer 0's prefill q/k/v, at a decode step's q against a view
-   of the cache, at GQA and MHA shapes and over the JAX package's sweep
-   (float32 and bfloat16); the limit must refuse a kernel that ignores
-   q_offset and one that maps query head h to KV head h % Hkv. Decode's
-   logits at position S must equal a prefill's over S + 1 tokens. Then
-   K6's times at the prefill and decode shapes beside its bound, the
-   float32 plain version's and ``F.scaled_dot_product_attention``'s, and a
-   profile of each path;
+   steps, all attention through K6: the 18 prefill calls through its
+   tensor-core route (A), the 576 decode calls through its CUDA-core route
+   split over keys (B), each route's launches counted. K6 is held against
+   its float64 plain version at layer 0's prefill q/k/v, at a decode
+   step's q against a view of the cache, at GQA and MHA shapes and over
+   the JAX package's sweep (float32 and bfloat16), each check printing its
+   route; the limit must refuse a kernel that ignores q_offset, one that
+   maps query head h to KV head h % Hkv, a route A that leaves its
+   diagonal tile unmasked and a route B whose merge drops the last split.
+   Decode's logits at position S must equal a prefill's over S + 1
+   tokens. Then K6's times at the prefill and decode shapes (each call the
+   sum of every kernel it launches) beside its bound, the float32 plain
+   version's and ``F.scaled_dot_product_attention``'s, and a profile of
+   each path;
 7. DIN serving with its full-size tables (10M x 18 items, 100k x 18
    categories): serve_p99 (B = 512, L = 100) through ``score`` and
    1,000,000 candidates in blocks of 8,192 through ``score_candidates``,
@@ -133,6 +139,12 @@ ATTN_SWEEP = [(1, 128, 128, 2, 2, 64, True, 0),
               (1, 1, 256, 4, 1, 64, True, 255),
               (2, 64, 192, 8, 8, 128, False, 0),
               (1, 37, 53, 2, 1, 16, True, 16)]
+# K6's kernels, whose device times sum to a call's: route A's, route B's
+# and route B's merge of its key splits
+K6_KERNELS = ("flash_mma", "flash_fwd", "flash_merge")
+# route A's keys a tile at Dh 256 (TileA<256>::kKeys in the source): the
+# broken version that leaves the diagonal tile unmasked sees its whole tile
+MMA_KEY_TILE = 32
 FLUSH_BYTES = 64 << 20         # overwritten between timed calls: > 50 MB L2
 FLUSH_KERNEL = "FillFunctor<unsigned char>"   # the kernel of its zero_()
 PROFILE_TRIES = 5
@@ -502,6 +514,38 @@ def kernel_launch_ms(fn, reps: int, kernel: str) -> tuple[float, int]:
     return sum(ts) / len(ts) / 1e3, len(ts)
 
 
+def k6_call_ms(fn, reps: int, per_call: int) -> tuple[float, int]:
+    """(mean device ms of one K6 call, launches recorded) over ``reps``
+    calls of ``fn``: every K6 kernel a call launches (route A's, or route
+    B's split pass and its merge, each once a call) by the mean of its
+    recorded launches, summed; the L2 flush left out. A window counts when
+    it recorded ``per_call`` distinct K6 kernels: a window can lose some of
+    its device events, which a mean over those recorded survives."""
+    def k6(by_name):
+        return {name: ts for name, ts in by_name.items()
+                if any(k in name for k in K6_KERNELS)}
+
+    got = k6(profile_window(fn, reps, lambda b: len(k6(b)) == per_call))
+    return (sum(sum(ts) / len(ts) for ts in got.values()) / 1e3,
+            sum(len(ts) for ts in got.values()))
+
+
+def attention_key_end(q, k, v, key_end):
+    """Plain attention (float32, GQA folding as K6) in which query row i
+    sees the keys j < key_end[i]: the broken versions' stand-in."""
+    import torch
+
+    B, Sq, Hq, Dh = q.shape
+    group = Hq // k.shape[2]
+    kr = k.float().repeat_interleave(group, dim=2)
+    vr = v.float().repeat_interleave(group, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr) / Dh ** 0.5
+    ki = torch.arange(k.shape[1], device=q.device)
+    s = s.masked_fill(ki[None, :] >= key_end[:, None], -1e30)
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1),
+                        vr).to(q.dtype)
+
+
 def call_ms(fn, reps: int) -> float:
     """Mean device ms per call of ``fn``, built with :func:`flushing`: the
     sum of every kernel it runs but the flush over ``reps`` calls, divided
@@ -602,13 +646,24 @@ def phase6_lm(dev, gen, card: str) -> dict:
             first_logits = lg
         token = lg.argmax(-1, keepdim=True).to(torch.int32)
     launches = flash_attention.LAUNCHES["flash_attention"]
+    routes = {way: flash_attention.LAUNCHES[f"flash_attention_{way}"]
+              for way in ("mma", "split")}
     want_launches = cfg.n_layers * (1 + steps)
+    want_routes = {"mma": cfg.n_layers, "split": cfg.n_layers * steps}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    group = cfg.n_heads // cfg.n_kv_heads
+    step_splits = [flash_attention.split_plan(B, cfg.n_kv_heads, group,
+                                              S + t + 1, sms)
+                   for t in range(steps)]
     print(f"  prefill B={B} S={S}: {t_prefill:.3f}s, "
           f"{B * S / t_prefill:.0f} tokens/s; decode {steps} steps: "
           f"{np.mean(step_ms):.3f} ms a step mean, "
           f"{np.median(step_ms):.3f} median, {max(step_ms):.3f} max "
           f"({B / np.mean(step_ms) * 1e3:.0f} tokens/s); K6 launches "
-          f"{launches} (want {want_launches})")
+          f"{launches} (want {want_launches}): route A (mma) "
+          f"{routes['mma']} (want {want_routes['mma']}), route B (split) "
+          f"{routes['split']} (want {want_routes['split']}), decode's key "
+          f"splits {min(step_splits)}..{max(step_splits)} on {sms} SMs")
     for kind, sid, seconds in (("prefill", "prefill_32k", t_prefill),
                                ("decode step", "decode_32k",
                                 np.median(step_ms) / 1e3)):
@@ -623,6 +678,10 @@ def phase6_lm(dev, gen, card: str) -> dict:
           "gemma-2b: non-finite logits")
     check(launches == want_launches,
           f"gemma-2b path launched K6 {launches} times, not {want_launches}")
+    check(routes == want_routes, f"gemma-2b's K6 routes {routes}, not "
+          f"{want_routes}")
+    check(min(step_splits) > 1, f"decode runs route B in one split: "
+          f"{step_splits}")
 
     # layer 0's prefill q, k, v and a decode step's q against the cache
     p0 = transformer.layer_params(params, 0)
@@ -646,9 +705,24 @@ def phase6_lm(dev, gen, card: str) -> dict:
 
     def attn_check(label, q, k, v, causal, off, broken=()):
         torch.cuda.synchronize()
+        before = dict(flash_attention.LAUNCHES)
         out = flash_attention.flash_attention_cuda(q, k, v, causal=causal,
                                                    q_offset=off)
         torch.cuda.synchronize()
+        way = [name[len("flash_attention_"):] for name, n
+               in flash_attention.LAUNCHES.items()
+               if n != before[name] and name != "flash_attention"]
+        want_way = flash_attention.route(q.dtype, q.shape[1], q.shape[2],
+                                         k.shape[2], q.shape[3])
+        check(way == [want_way], f"K6 {label}: went through {way}, the rule "
+              f"says {want_way}")
+        if want_way == "split":
+            way_label = "B, {} split(s)".format(flash_attention.split_plan(
+                q.shape[0], k.shape[2], q.shape[1] * q.shape[2] // k.shape[2],
+                flash_attention.visible_keys(q.shape[1], k.shape[1], causal,
+                                             off), sms))
+        else:
+            way_label = "A"
         want = ref.flash_attention_ref(q.double(), k.double(), v.double(),
                                        causal=causal, q_offset=off)
         limit, _ = attention_limit(q, k, v, want, causal, off)
@@ -656,9 +730,10 @@ def phase6_lm(dev, gen, card: str) -> dict:
         stats["max_abs_err"] = max(stats["max_abs_err"], err)
         again = flash_attention.flash_attention_cuda(q, k, v, causal=causal,
                                                      q_offset=off)
-        print(f"  flash_attention {label:44s} max_abs_err={err:.3e} "
-              f"max|want|={float(want.abs().max()):.3e} err/limit="
-              f"{ratio:.4f} {'ok' if ratio <= 1 else 'FAIL'}")
+        print(f"  flash_attention {label:44s} route {way_label:14s} "
+              f"max_abs_err={err:.3e} max|want|="
+              f"{float(want.abs().max()):.3e} err/limit={ratio:.4f} "
+              f"{'ok' if ratio <= 1 else 'FAIL'}")
         check(out.shape == want.shape and out.dtype == q.dtype,
               f"K6 {label}: shape or dtype")
         check(ratio <= 1.0, f"K6 {label}: error {err} above the limit "
@@ -673,16 +748,29 @@ def phase6_lm(dev, gen, card: str) -> dict:
 
     print("  K6 against its float64 plain version (rtol 2^-20 float32, 2^-7 "
           "bfloat16; atol (Skv + Dh + 8) * 2^-24 * sum_j p_j |v_j|)")
+    # route A without the mask on its diagonal tile: a row sees every key
+    # of the tile that holds its own position
+    tile_end = torch.clamp((torch.arange(S, device=dev) // MMA_KEY_TILE + 1)
+                           * MMA_KEY_TILE, max=S)
     attn_check(f"gemma prefill layer 0 B={B} S={S} bf16", q0, k0, v0, True,
-               0)
+               0, broken=[("route A's diagonal tile unmasked",
+                           attention_key_end(q0, k0, v0, tile_end))])
     ck, cv = cache[0, 0], cache[0, 1]
     check(ck.untyped_storage().data_ptr() == cache.untyped_storage()
           .data_ptr(), "the decode check must read a view of the cache")
+    # route B's merge without its last split: keys [0, lo_last) alone
+    dec_splits = flash_attention.split_plan(B, cfg.n_kv_heads, group, mid + 1,
+                                            sms)
+    lo_last = flash_attention.split_bounds(mid + 1, dec_splits)[-1][0]
     attn_check(f"gemma decode q_offset={mid} cache {Smax} (a view)", qd,
                ck, cv, True, mid,
                broken=[("q_offset ignored",
                         ref.flash_attention_ref(qd, ck, cv, causal=True,
-                                                q_offset=0))])
+                                                q_offset=0)),
+                       (f"merge drops the last split (keys {lo_last}..)",
+                        ref.flash_attention_ref(qd, ck[:, :lo_last],
+                                                cv[:, :lo_last], causal=True,
+                                                q_offset=mid))])
     # a GQA shape, where h % Hkv differs from h // group, and an MHA one
     for Hq, Hkv in ((8, 2), (8, 8)):
         rng = torch.Generator(device=dev).manual_seed(Hq * 10 + Hkv)
@@ -746,8 +834,10 @@ def phase6_lm(dev, gen, card: str) -> dict:
                                    * want.abs() + 2.0**-7 * mag)
         check(lib_ratio <= 1.0, f"the SDPA yardstick disagrees at {label}")
         del want, mag
-        ms, seen = kernel_launch_ms(flushing(kern, flush), reps, "flash_fwd")
-        warm, _ = kernel_launch_ms(kern, reps, "flash_fwd")
+        splits = 1 if label == "prefill" else dec_splits
+        per_call = 2 if splits > 1 else 1      # route B's split and merge
+        ms, seen = k6_call_ms(flushing(kern, flush), reps, per_call)
+        warm, _ = k6_call_ms(kern, reps, per_call)
         plain_ms = call_ms(flushing(plain, flush), max(2, reps // 10))
         lib_ms = call_ms(flushing(lib, flush), reps)
         bound, by = attention_cost(B, q.shape[1], cfg.n_heads,
@@ -755,7 +845,8 @@ def phase6_lm(dev, gen, card: str) -> dict:
                                    True, off, 2)
         print(f"  flash_attention {label} B={B} Sq={q.shape[1]} "
               f"Skv={k.shape[1]} q_offset={off}: kernel {ms * 1e3:10.2f} us "
-              f"({seen} launches; L2 warm {warm * 1e3:10.2f} us)  bound "
+              f"({seen} launches in {reps} calls, {splits} split(s); L2 warm "
+              f"{warm * 1e3:10.2f} us)  bound "
               f"{bound * 1e3:8.2f} us ({by})  plain f32 "
               f"{plain_ms * 1e3:10.2f} us  sdpa {lib_ms * 1e3:9.2f} us  "
               f"[{card}]")
@@ -1767,6 +1858,11 @@ def main() -> int:
     for B in (CHECK_SOURCES, 8, 64):
         timed("ell_spmm_sliced", *web_t, web_rm, web_thr,
               mass_rows(gen, B, web.n, dev), f"web-stanford B={B}", reps=50)
+    # K1 where phase 8 launches it: the Pokec-order table at B = 1 (a FORA
+    # query's push), phase 8's threshold
+    timed("ell_spmm", *pokec_t, None, pokec_thr,
+          mass_rows(gen, 1, pokec.n, dev),
+          f"pokec n={pokec.n} K={pokec_t[0].shape[1]} B=1 thr", reps=50)
     uni = small_test_graph(n=web.n, avg_deg=web.m / web.n, seed=1)
     uni_t, _, uni_thr = table(uni, "dense")
     for B in (1, 64):

@@ -8,7 +8,9 @@ shapes and dtypes of ``tests/test_kernels.py::test_flash_attention_sweep``
 at that test's tolerance (3e-5 in float32, 2e-2 in bfloat16); K5's against
 ``embedding_bag_pallas`` over the shapes of ``test_embedding_bag_sweep`` at
 1e-4. The CUDA kernels themselves are held against these plain versions
-on a card by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
+on a card by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``. K6's
+route rule and its split of the visible keys over blocks (route B) are
+plain Python, tested here.
 """
 
 from __future__ import annotations
@@ -122,5 +124,60 @@ def test_dispatch_routes_by_device_and_wrappers_refuse_cpu():
     embedding_bag.reset_launches()
     ops.flash_attention(q, k, v)
     ops.embedding_bag(table, ids, w)
-    assert flash_attention.LAUNCHES == {"flash_attention": 0}
+    assert flash_attention.LAUNCHES == {"flash_attention": 0,
+                                        "flash_attention_mma": 0,
+                                        "flash_attention_split": 0}
     assert embedding_bag.LAUNCHES == {"embedding_bag": 0}
+
+
+# (B, Hkv, rows = Sq * Hq / Hkv, kv_end, SMs): gemma-2b's decode on an H100
+# at the first and last step of the smoke run, a GQA decode, a short cache,
+# a cache shorter than one split, and a grid that already fills the card
+SPLIT_CASES = [(4, 1, 8, 4113, 132), (4, 1, 8, 4128, 132),
+               (2, 2, 2, 71, 132), (1, 1, 4, 256, 132), (3, 1, 8, 20, 132),
+               (1, 4, 74, 53, 132), (64, 8, 8, 1000, 132)]
+
+
+@pytest.mark.parametrize("B,Hkv,rows,kv_end,sms", SPLIT_CASES)
+def test_split_plan_covers_every_visible_key_once(B, Hkv, rows, kv_end,
+                                                  sms):
+    splits = flash_attention.split_plan(B, Hkv, rows, kv_end, sms)
+    bounds = flash_attention.split_bounds(kv_end, splits)
+    assert len(bounds) == splits >= 1
+    covered = np.zeros(kv_end, dtype=int)
+    for lo, hi in bounds:
+        assert hi > lo                               # no split is empty
+        covered[lo:hi] += 1
+    assert (covered == 1).all()                      # each key exactly once
+    blocks = -(-rows // flash_attention.SPLIT_ROW_TILE) * Hkv * B
+    if blocks >= 2 * sms:
+        assert splits == 1                           # no merge pass
+    else:                                            # fill the card, or
+        assert (blocks * splits >= 2 * sms           # split to the least
+                or min(hi - lo for lo, hi in bounds)  # keys a split allows
+                < 2 * flash_attention.MIN_SPLIT_KEYS)
+
+
+def test_split_plan_fills_the_card_at_gemma_decode_only():
+    """gemma-2b (8 query heads on 1 KV head) at B 4 on 132 SMs: a decode
+    step over 4,113 visible keys gets at least 2 x 132 blocks; the
+    4 x 4,096 prefill's grid already fills the card, so one split."""
+    decode = flash_attention.split_plan(4, 1, 8, 4113, 132)
+    assert decode > 1
+    assert decode * -(-8 // flash_attention.SPLIT_ROW_TILE) * 4 >= 264
+    assert flash_attention.split_plan(4, 1, 4096 * 8, 4096, 132) == 1
+
+
+@pytest.mark.parametrize("dtype,Sq,Hq,Hkv,Dh,want", [
+    (torch.bfloat16, 4096, 8, 1, 256, "mma"),      # gemma-2b prefill
+    (torch.bfloat16, 8, 8, 1, 256, "mma"),         # 64 folded rows
+    (torch.bfloat16, 32, 2, 1, 16, "mma"),
+    (torch.bfloat16, 64, 4, 4, 128, "mma"),        # MHA
+    (torch.bfloat16, 1, 8, 1, 256, "split"),       # gemma-2b decode
+    (torch.bfloat16, 7, 8, 1, 256, "split"),       # 56 folded rows
+    (torch.bfloat16, 33, 8, 8, 8, "split"),        # Dh 8
+    (torch.float32, 4096, 8, 1, 256, "split"),     # float32: no TF32
+    (torch.float32, 128, 2, 2, 64, "split"),
+])
+def test_route_rule(dtype, Sq, Hq, Hkv, Dh, want):
+    assert flash_attention.route(dtype, Sq, Hq, Hkv, Dh) == want

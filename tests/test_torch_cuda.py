@@ -189,15 +189,26 @@ def test_executor_with_walk_index_on_card(card):
     assert walk_gather.LAUNCHES["walk_endpoint_gather"] >= 8
 
 
-# K6: tests/test_kernels.py's sweep, gemma-2b's MQA at Dh 256, and Dh 8
-ATTN_SHAPES = [(1, 128, 128, 2, 2, 64, True, 0),
-               (2, 100, 100, 4, 2, 32, True, 0),
-               (1, 1, 256, 4, 1, 64, True, 255),
-               (2, 64, 192, 8, 8, 128, False, 0),
-               (1, 37, 53, 2, 1, 16, True, 16),
-               (2, 70, 300, 8, 1, 256, True, 230),
-               (1, 1, 1100, 8, 1, 256, True, 1050),
-               (2, 33, 33, 8, 8, 8, True, 0)]
+# K6: tests/test_kernels.py's sweep, gemma-2b's MQA at Dh 256, Dh 8, and
+# more of route A's edges (GQA chunked prefill with Skv off the key tile,
+# MHA non-causal at Dh 16, 72 rows at an offset) and route B's (56 rows in
+# bf16). Beside each shape, the route its bf16 call takes; float32 always
+# takes route B ("split"). Route A ("mma") cases: rows (Sq * Hq / Hkv) off
+# the 64-row tile (200, 74, 560, 72), Skv off the key tile (100, 53, 300,
+# 77, 130), chunked prefill (Sq > 1, q_offset > 0), non-causal, GQA and
+# MHA, Dh 16 and 256.
+ATTN_SHAPES = [(1, 128, 128, 2, 2, 64, True, 0, "mma"),
+               (2, 100, 100, 4, 2, 32, True, 0, "mma"),
+               (1, 1, 256, 4, 1, 64, True, 255, "split"),
+               (2, 64, 192, 8, 8, 128, False, 0, "mma"),
+               (1, 37, 53, 2, 1, 16, True, 16, "mma"),
+               (2, 70, 300, 8, 1, 256, True, 230, "mma"),
+               (1, 1, 1100, 8, 1, 256, True, 1050, "split"),
+               (2, 33, 33, 8, 8, 8, True, 0, "split"),
+               (3, 24, 77, 8, 2, 128, True, 53, "mma"),
+               (2, 64, 130, 4, 4, 16, False, 0, "mma"),
+               (2, 9, 300, 8, 1, 32, True, 291, "mma"),
+               (1, 7, 40, 8, 1, 64, True, 33, "split")]
 
 
 def _attn_limit(q, k, v, want, causal, off):
@@ -215,16 +226,27 @@ def _within(got, want, limit) -> None:
     assert float(excess) <= 0.0, float(excess)
 
 
-@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,Dh,causal,off", ATTN_SHAPES)
+def _routes_taken(call):
+    """The K6 routes whose launch count ``call()`` raised, and its result."""
+    before = dict(flash_attention.LAUNCHES)
+    out = call()
+    return [name[len("flash_attention_"):] for name, n
+            in flash_attention.LAUNCHES.items()
+            if n != before[name] and name != "flash_attention"], out
+
+
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,Dh,causal,off,bf16_route",
+                         ATTN_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_matches_plain_and_repeats_bitwise(
-        card, B, Sq, Skv, Hq, Hkv, Dh, causal, off, dtype):
+        card, B, Sq, Skv, Hq, Hkv, Dh, causal, off, bf16_route, dtype):
     g = torch.Generator(device=card).manual_seed(Sq * 1000 + Skv)
     q = torch.randn((B, Sq, Hq, Dh), generator=g, device=card, dtype=dtype)
     k, v = (torch.randn((B, Skv, Hkv, Dh), generator=g, device=card,
                         dtype=dtype) for _ in range(2))
-    got = flash_attention.flash_attention_cuda(q, k, v, causal=causal,
-                                               q_offset=off)
+    taken, got = _routes_taken(lambda: flash_attention.flash_attention_cuda(
+        q, k, v, causal=causal, q_offset=off))
+    assert taken == [bf16_route if dtype == torch.bfloat16 else "split"]
     again = flash_attention.flash_attention_cuda(q, k, v, causal=causal,
                                                  q_offset=off)
     assert got.dtype == dtype and got.shape == q.shape
@@ -241,17 +263,32 @@ def test_flash_attention_reads_strided_keys_and_values(card):
     q = torch.randn((2, 1, 4, 64), generator=g, device=card,
                     dtype=torch.bfloat16)
     k, v = cache[1, 0], cache[1, 1]
-    got = flash_attention.flash_attention_cuda(q, k, v, q_offset=70)
+    # decode against a view of the cache: route B over more than one split
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    assert flash_attention.split_plan(2, 2, 2, 71, sms) > 1
+    taken, got = _routes_taken(lambda: flash_attention.flash_attention_cuda(
+        q, k, v, q_offset=70))
+    assert taken == ["split"]
+    want = ref.flash_attention_ref(q.double(), k.double(), v.double(),
+                                   q_offset=70)
+    _within(got, want, _attn_limit(q, k, v, want, True, 70))
     assert torch.equal(got, flash_attention.flash_attention_cuda(
         q, k.contiguous(), v.contiguous(), q_offset=70))
-    packed = torch.randn((2, 50, 2, 2, 32), generator=g, device=card)
-    q = torch.randn((2, 9, 4, 32), generator=g, device=card)
-    k, v = packed[:, :, 0], packed[:, :, 1]
-    assert not k.is_contiguous()
-    got = flash_attention.flash_attention_cuda(q, k, v, q_offset=41)
-    want = ref.flash_attention_ref(q.double(), k.double(), v.double(),
-                                   q_offset=41)
-    _within(got, want, _attn_limit(q, k, v, want, True, 41))
+    for dtype, Sq, route in ((torch.float32, 9, "split"),
+                             (torch.bfloat16, 40, "mma")):
+        packed = torch.randn((2, 50, 2, 2, 32), generator=g,
+                             device=card, dtype=dtype)
+        q = torch.randn((2, Sq, 4, 32), generator=g, device=card,
+                        dtype=dtype)
+        k, v = packed[:, :, 0], packed[:, :, 1]
+        assert not k.is_contiguous()
+        taken, got = _routes_taken(
+            lambda: flash_attention.flash_attention_cuda(q, k, v,
+                                                         q_offset=41))
+        assert taken == [route]
+        want = ref.flash_attention_ref(q.double(), k.double(), v.double(),
+                                       q_offset=41)
+        _within(got, want, _attn_limit(q, k, v, want, True, 41))
 
 
 @pytest.mark.parametrize("V,d,B,L", [(100, 8, 16, 5), (1000, 18, 64, 100),
