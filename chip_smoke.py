@@ -20,10 +20,12 @@ drives the port's main path, in phases:
    passes where ``|out - want| <= RTOL * |want| + ATOL_FRAC * max|want|``,
    and the printed ratio is the largest ``|out - want|`` over that limit.
    The check must also refuse broken versions (folds that drop slices or
-   rows, a gather that ignores the budget or drops a lane per cell, an
-   SpMV that ignores the mask or drops each row's last cell), and a second
-   launch must give the same bits. Then the lane streams drawn on the card
-   must equal those drawn on the CPU;
+   rows, one for each path of K2's fold: a short row's in-warp fold, a
+   warp-item row, a hub's last slice and its last chunk; a gather that
+   ignores the budget, drops a lane per cell or the last lane of each K3
+   fold block's range; an SpMV that ignores the mask or drops each row's
+   last cell), and a second launch must give the same bits. Then the lane
+   streams drawn on the card must equal those drawn on the CPU;
 2. the dense path: ``fora_fused`` on ``small_test_graph(n=2000)``, against
    exact PPR whose every step is one K4 launch a source;
 3. the paper path at real size: 256 FORA queries on the full-size
@@ -40,9 +42,11 @@ drives the port's main path, in phases:
 5. kernel times at the paths' shapes beside their bound, their plain
    version's time and one PyTorch library call's. Each time is device
    time: the card's kernel durations under ``torch.profiler``, summed and
-   divided by the calls. The host's pace (CUDA events around back-to-back
-   calls) is printed beside it. K1 is timed at the dense path's shape, on
-   a uniform table and on phase 8's Pokec-order table at B = 1;
+   divided by the calls, and printed by kernel for K2 and K3. The host's
+   pace (CUDA events around back-to-back calls) is printed beside it. K1
+   is timed at the dense path's shape, on a uniform table and on phase 8's
+   Pokec-order table at B = 1; K3 beside ``index_add_`` of the gathered
+   pairs and beside the gather, the budget mask and ``index_add_``;
 6. gemma-2b serving at full width and depth (18 layers, d 2048, 8 query
    heads on 1 KV head, Dh 256, vocab 256,000, bf16, 2,506,172,416 random
    parameters from a seed), cut in batch and sequence only: 4 prompts of
@@ -106,10 +110,11 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 FP32_FLOPS_PER_S = 67e12           # H100 SXM float32 outside tensor cores
 # kernel against its float64 plain version: every output within RTOL of
-# the exact value, plus ATOL_FRAC of the output's largest entry. Both
+# the exact value, plus ATOL_FRAC of the output's largest entry. The
 # kernels sum nonnegative terms along chains of at most ~100 float32 adds
-# (K2: 8 cells, two fold levels of 32, a root of at most 32), so their
-# relative error stays under 100 * 2**-24 = 6e-6.
+# (K2: at most 64 units a lane, 4 cells a unit, a butterfly of 5 and a
+# hub's fold of 733 chunks over 32 lanes; K3: at most 31 a level of its
+# four), so their relative error stays under 100 * 2**-24 = 6e-6.
 RTOL = 1e-5
 ATOL_FRAC = 1e-6
 LIBRARY_RTOL = 1e-3      # torch.sparse.mm's summation order is its own
@@ -164,7 +169,8 @@ REPLACES = {"ell_spmm": "src/repro/kernels/ell_spmv.py:141",
             "flash_attention": "src/repro/kernels/flash_attention.py:83",
             "embedding_bag": "src/repro/kernels/embedding_bag.py:40"}
 SOURCES = {"ell_spmm": "src/repro_torch/kernels/csrc/ell_spmm.cu",
-           "ell_spmm_sliced": "src/repro_torch/kernels/csrc/ell_spmm.cu",
+           "ell_spmm_sliced":
+               "src/repro_torch/kernels/csrc/ell_spmm_sliced.cu",
            "ell_spmv": "src/repro_torch/kernels/csrc/ell_spmv.cu",
            "walk_endpoint_gather":
                "src/repro_torch/kernels/csrc/walk_gather.cu",
@@ -322,6 +328,54 @@ def drop_last_lane(endpoints, budget, starts, weights):
     last = torch.full((B * n,), -1, dtype=torch.long, device=s.device)
     last.scatter_reduce_(0, cell[valid], lane.expand(B, L)[valid], "amax")
     return torch.where(valid & (lane[None] == last[cell]), 0.0, weights)
+
+
+def drop_last_of_range(endpoints, budget, starts, weights, cells: int):
+    """Weights with the highest valid lane of every (row, range of
+    ``cells`` cells) zeroed: what a K3 fold block that loses the last lane
+    of its range would fold."""
+    import torch
+
+    B, L = starts.shape
+    n = endpoints.shape[0]
+    blocks = -(-n // cells)
+    lane = torch.arange(L, device=starts.device)
+    s = starts.long()
+    valid = lane[None] < budget[s]
+    key = endpoints[s, lane[None]].long() // cells + \
+        torch.arange(B, device=s.device)[:, None] * blocks
+    last = torch.full((B * blocks,), -1, dtype=torch.long, device=s.device)
+    last.scatter_reduce_(0, key[valid], lane.expand(B, L)[valid], "amax")
+    return torch.where(valid & (lane[None] == last[key]), 0.0, weights)
+
+
+def fold_breaks(mask, row_map, fold):
+    """(label, mask) for each path of K2's fold, the mask of a kernel that
+    breaks that path: a short row's in-warp fold losing the second half of
+    each slice (the lanes past the first), a warp-item row losing its last
+    slice, a hub losing its last slice, and a hub losing its last chunk."""
+    import torch
+
+    n = fold.row_ptr.shape[0] - 1
+    real = row_map < n
+    r = torch.where(real, row_map, 0).long()
+    lo = fold.row_ptr[r].long()
+    slices = (fold.row_ptr[r + 1] - fold.row_ptr[r]).long()
+    v = torch.arange(row_map.shape[0], device=mask.device)
+    last = real & (v == lo + slices - 1)
+    short = real & (slices <= fold.short_slices)
+    item = real & (slices > fold.short_slices) & \
+        (slices <= fold.chunk_slices)
+    hub = real & (slices > fold.chunk_slices)
+    cs = fold.chunk_slices
+    last_chunk = hub & (v - lo >= (slices - 1) // cs * cs)
+    half = torch.arange(mask.shape[1], device=mask.device) >= \
+        mask.shape[1] // 2
+    return [("short rows: each slice's second half",
+             mask & ~(short[:, None] & half[None])),
+            ("warp-item rows: last slice", mask & ~(item & last)[:, None]),
+            ("hubs: last slice", mask & ~(hub & last)[:, None]),
+            ("hubs: last chunk", mask & ~last_chunk[:, None])]
 
 
 def drop_last_cell(mask):
@@ -1409,16 +1463,27 @@ def main() -> int:
                 torch.zeros(pokec.n, dtype=torch.bool, device=dev),
                 "pokec: first cell of each row dropped")
     del short
+    # K2's fold structure, built once for the table as DeviceGraph builds it
+    web_fold = ell_spmv.sliced_fold(web_rm, web.n, web_t[0].shape[1])
+    item_rows = web_fold.items.numel() - web_fold.hub_items
+    hubs = web_fold.hubs.numel()
+    print(f"  K2 fold of the web-stanford table: {web.n - item_rows - hubs}"
+          f" short rows (<= {web_fold.short_slices} slices), {item_rows} "
+          f"warp-item rows, {hubs} hubs in {web_fold.hub_items} chunks of "
+          f"{web_fold.chunk_slices} slices")
     for B in sorted(path_B["ell_spmm_sliced"] | {1, 8, 64}):
         for fused in (False, True):
             x = mass_rows(gen, B, web.n, dev)
             thr = web_thr if fused else None
             compare("ell_spmm_sliced",
                     lambda: ell_spmv.ell_spmm_sliced_cuda(*web_t, web_rm, x,
-                                                          thr),
+                                                          thr, web_fold),
                     web_t, web_rm, x, thr, f"web-stanford B={B} thr={fused}")
     # folds that lose part of a row: the last slice of every row that has
-    # more than one, or every row with fewer than 256 in-edges
+    # more than one, or every row with fewer than 256 in-edges; and one
+    # broken version a path of the fold: the short rows' in-warp fold
+    # losing each slice's second half (its second lane), a warp-item row
+    # losing its last slice, a hub losing its last slice or its last chunk
     last = torch.ones_like(web_rm, dtype=torch.bool)
     last[:-1] = web_rm[1:] != web_rm[:-1]
     multi = torch.zeros_like(last)
@@ -1430,6 +1495,9 @@ def main() -> int:
     must_refuse("ell_spmm_sliced", web_t, web_rm, web_t[1],
                 torch.from_numpy(web.in_degree < 256).to(dev),
                 "rows of in-degree < 256 zeroed")
+    for label, broken in fold_breaks(web_t[1], web_rm, web_fold):
+        must_refuse("ell_spmm_sliced", web_t, web_rm, broken, no_rows,
+                    label)
     # sliced edge cases: rows without a virtual row, W = 1, a single
     # virtual row, and padding rows (row_map == n) that must be dropped
     hub = small_test_graph(n=300, avg_deg=3.0, seed=3)
@@ -1496,6 +1564,7 @@ def main() -> int:
             check(r > 1.0, f"walk_endpoint_gather: the check passes a "
                   f"broken gather ({bad})")
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for pname, (n_k, W_k) in (("dense", (small.n, DENSE_INDEX_WIDTH)),
                               ("paper", (web.n, PAPER_INDEX_WIDTH))):
         etab = torch.randint(0, n_k, (n_k, W_k), generator=gen, device=dev,
@@ -1514,11 +1583,17 @@ def main() -> int:
                 w = torch.rand((B, L), generator=gen, device=dev)
                 for bname, bud in (("full", full), ("retired", retired)):
                     bad = ()
-                    if bname == "retired" and B == 1 and L == 4096:
+                    if bname == "retired" and B in (1, 8) and L >= 4096:
+                        cells, _ = walk_gather.fold_plan(n_k, B, sms)
                         bad = (("budget ignored", (etab, full, starts, w)),
                                ("last lane of each cell dropped",
                                 (etab, bud, starts, drop_last_lane(
-                                    etab, bud, starts, w))))
+                                    etab, bud, starts, w))),
+                               (f"last lane of each {cells}-cell range "
+                                f"dropped", (etab, bud, starts,
+                                             drop_last_of_range(
+                                                 etab, bud, starts, w,
+                                                 cells))))
                     gather_check(f"{pname} n={n_k} W={W_k} B={B} L={L} "
                                  f"{bname}", (etab, bud, starts, w), bad)
         # the hub: every lane of every row ends at one node
@@ -1798,12 +1873,12 @@ def main() -> int:
     print(f"phase 5: kernel times (device time by torch.profiler; events = "
           f"host pace of back-to-back calls), card {card}")
 
-    def timed(name, nbr, msk, w, rm, thr, x, label, reps=200):
+    def timed(name, nbr, msk, w, rm, thr, x, label, reps=200, fold=None):
         n, B = x.shape[1], x.shape[0]
         is_sliced = rm is not None
         if is_sliced:
             kern = lambda: ell_spmv.ell_spmm_sliced_cuda(  # noqa: E731
-                nbr, msk, w, rm, x, thr)
+                nbr, msk, w, rm, x, thr, fold)
         else:
             kern = lambda: ell_spmv.ell_spmm_cuda(  # noqa: E731
                 nbr, msk, w, x, thr)
@@ -1814,13 +1889,16 @@ def main() -> int:
                                                   *f64(x, None)),
                                  LIBRARY_RTOL)
         check(lib_ratio <= 1.0, f"library yardstick disagrees for {name}")
-        ms = device_ms(kern, reps)
+        split = device_split_us(kern, reps)
+        ms = sum(split.values()) / 1e3
         plain_ms = device_ms(lambda: plain(nbr, msk, w, rm, x, thr),
                              max(5, reps // 20))
         lib_ms = device_ms(lib, reps)
         ev_ms = events_ms(kern, reps)
         bound, by = spmm_cost(int(msk.sum()), n, B, nbr.shape[0],
                               thr is not None, is_sliced)
+        print(f"    {name} device time by kernel: " + ", ".join(
+            f"{k[:48]} {us:.2f} us" for k, us in split.items()))
         print(f"  {name:16s} {label:38s} kernel {ms * 1e3:9.2f} us "
               f"(events {ev_ms * 1e3:9.2f} us)  bound "
               f"{bound * 1e3:8.2f} us ({by})  plain {plain_ms * 1e3:10.2f}"
@@ -1852,12 +1930,15 @@ def main() -> int:
     k1 = timed("ell_spmm", *dense_t, None, dense_thr,
                mass_rows(gen, len(DENSE_SOURCES), small.n, dev),
                f"dense path n=2000 B={len(DENSE_SOURCES)}")
+    # x as the push passes it: the transpose of an (n, B) residual
     k2 = timed("ell_spmm_sliced", *web_t, web_rm, web_thr,
                mass_rows(gen, ForaExecutor.block_size, web.n, dev),
-               f"paper path web-stanford B={ForaExecutor.block_size}")
+               f"paper path web-stanford B={ForaExecutor.block_size}",
+               fold=web_fold)
     for B in (CHECK_SOURCES, 8, 64):
         timed("ell_spmm_sliced", *web_t, web_rm, web_thr,
-              mass_rows(gen, B, web.n, dev), f"web-stanford B={B}", reps=50)
+              mass_rows(gen, B, web.n, dev).t().contiguous().t(),
+              f"web-stanford B={B}", reps=50, fold=web_fold)
     # K1 where phase 8 launches it: the Pokec-order table at B = 1 (a FORA
     # query's push), phase 8's threshold
     timed("ell_spmm", *pokec_t, None, pokec_thr,
@@ -1930,13 +2011,24 @@ def main() -> int:
         wv = torch.where(lane[None] < budget[s64], w, 0.0).reshape(-1)
         lib = lambda: torch.zeros(  # noqa: E731
             graph.n, device=dev).index_add_(0, cell, wv)
+
+        def lib_gather():
+            # the same with the gather: the endpoints' advanced indexing,
+            # the budget mask and index_add_, as PyTorch calls
+            s = starts.long()
+            e = idx.endpoints[s, lane[None]].long().reshape(-1)
+            m = torch.where(lane[None] < budget[s], w, 0.0).reshape(-1)
+            return torch.zeros(graph.n, device=dev).index_add_(0, e, m)
+
         want = ref.walk_endpoint_gather_ref(*args[:3], w.double())
-        _, lib_ratio = err_ratio(lib()[None], want, LIBRARY_RTOL)
-        check(lib_ratio <= 1.0, "library yardstick disagrees for K3")
+        for yard in (lib, lib_gather):
+            _, lib_ratio = err_ratio(yard()[None], want, LIBRARY_RTOL)
+            check(lib_ratio <= 1.0, "library yardstick disagrees for K3")
         split = device_split_us(kern, reps)
         ms = sum(split.values()) / 1e3
         plain_ms = device_ms(plain, max(5, reps // 20))
         lib_ms = device_ms(lib, reps)
+        lib_gather_ms = device_ms(lib_gather, reps)
         ev_ms = events_ms(kern, reps)
         bound, by = gather_cost(1, L, graph.n, idx.width)
         print("    K3 device time by kernel: " + ", ".join(
@@ -1945,6 +2037,7 @@ def main() -> int:
               f"{ms * 1e3:9.2f} us (events {ev_ms * 1e3:9.2f} us)  bound "
               f"{bound * 1e3:8.2f} us ({by})  plain {plain_ms * 1e3:10.2f} us"
               f"  index_add_ (gather excluded) {lib_ms * 1e3:9.2f} us  "
+              f"gather + mask + index_add_ {lib_gather_ms * 1e3:9.2f} us  "
               f"[{card}]")
         return ms, plain_ms, bound, by, lib_ms
 

@@ -21,6 +21,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES: dict[str, str] = {"ell_spmm": "ell_spmm.cu",
+                           "ell_spmm_sliced": "ell_spmm_sliced.cu",
                            "ell_spmv": "ell_spmv.cu",
                            "walk_gather": "walk_gather.cu",
                            "flash_attention": "flash_attention.cu",

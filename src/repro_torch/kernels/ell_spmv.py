@@ -2,12 +2,13 @@
 power iteration's step.
 
 ``ell_spmm_cuda`` (K1) replaces ``repro/kernels/ell_spmv.py::ell_spmm_pallas``
-(body ``_spmm_partials``, run through ``_spmm_virtual_rows``) and
-``ell_spmm_sliced_cuda`` (K2) replaces ``ell_spmm_sliced_pallas`` (body
-``_ell_spmm_fold_kernel``). Both launch ``csrc/ell_spmm.cu``.
-``ell_spmv_cuda`` (K4) replaces ``ell_spmv_pallas`` (body ``_ell_kernel``),
-the one-vector product ``P^T x`` of exact power iteration, and launches
-``csrc/ell_spmv.cu`` (its header says how its lanes are laid out).
+(body ``_spmm_partials``, run through ``_spmm_virtual_rows``) and launches
+``csrc/ell_spmm.cu``. ``ell_spmm_sliced_cuda`` (K2) replaces
+``ell_spmm_sliced_pallas`` (line 234, body ``_ell_spmm_fold_kernel``) and
+launches ``csrc/ell_spmm_sliced.cu``. ``ell_spmv_cuda`` (K4) replaces
+``ell_spmv_pallas`` (body ``_ell_kernel``), the one-vector product
+``P^T x`` of exact power iteration, and launches ``csrc/ell_spmv.cu``.
+Each source's header says how its lanes are laid out.
 
 What bounds them on the H100: bytes. Per call a sweep reads each table
 cell once (int32 neighbour + bool mask + f32 weight, 9 bytes), gathers B
@@ -21,12 +22,14 @@ the card has neither a sequential grid nor a VMEM of that size. Instead:
   the sizes of this system's datasets x and the threshold stay in the
   50 MB L2 between gathers;
 * lanes are laid out (row, cell, batch) so that narrow tables and B = 1
-  still fill the warp (see the source's header);
-* the sliced fold runs after the first pass, over its (n_virtual, B)
-  scratch and the CSR offsets it derives from the ascending ``row_map``,
-  as a fixed tree of fan-in 32 over each row's slices, so that a hub row's
-  tens of thousands of slices spread over the grid like any other row's.
-  No float atomics: each output has one summation order.
+  still fill the warp (see the sources' headers);
+* the sliced fold's structure is a constant of the table
+  (:class:`SlicedFold`, built once by :func:`sliced_fold`): each row is
+  folded by the lanes that read its cells, in one pass, short rows several
+  to a warp and longer rows a warp each, and the few hub rows, longer than
+  a warp's share, are cut into chunks of a warp's share whose sums a second
+  kernel adds in a fixed order. No float
+  atomics: each output has one summation order.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs and scratch with ``torch.empty``, launches on PyTorch's current
@@ -37,13 +40,15 @@ launches in :data:`LAUNCHES`.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from . import _build
 
 # launches of each wrapper since the last reset_launches(); a K2 call counts
-# once although it runs four CUDA kernels (rows, two fold levels, root)
+# once although it runs two CUDA kernels when the table has hubs (rows, then
+# the hubs' fold)
 LAUNCHES: dict[str, int] = {"ell_spmm": 0, "ell_spmm_sliced": 0,
                             "ell_spmv": 0}
 
@@ -51,15 +56,80 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "ell_spmm_dense_launch": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
-    "ell_spmm_sliced_launch": ([_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                _I, _I, _I, _I, _P], _I),
     "ell_spmm_error_string": ([_I], ctypes.c_char_p),
+}
+_SLICED_SIGNATURES = {
+    "ell_spmm_sliced_launch": ([_P] * 13 + [ctypes.c_longlong] * 2
+                               + [_I] * 8 + [_P], _I),
+    "ell_spmm_sliced_error_string": ([_I], ctypes.c_char_p),
 }
 _SPMV_SIGNATURES = {
     "ell_spmv_launch": ([_P, _P, _P, _P, _P, _I, _I, _P], _I),
     "ell_spmv_error_string": ([_I], ctypes.c_char_p),
 }
 _INT32_MAX = 2**31 - 1
+# cells one warp item holds at most, and cells a short row holds at most:
+# a row of more than WARP_CELLS // W slices is a hub, cut into warp items of
+# that many slices; a row of more than SHORT_CELLS // W slices is a warp
+# item of its own; the rest share warps
+WARP_CELLS = 256
+SHORT_CELLS = 16
+
+
+class SlicedFold(NamedTuple):
+    """The fold structure of one sliced table, a constant of the table:
+    built once by :func:`sliced_fold` (``DeviceGraph`` carries it as
+    ``in_fold``) and passed to every K2 call on that table."""
+
+    row_ptr: torch.Tensor      # (n + 1,) int32: first virtual row of each row
+    items: torch.Tensor        # (I,) int32: first virtual row of each item
+    hubs: torch.Tensor         # (H,) int32: rows of more than chunk_slices
+    hub_chunks: torch.Tensor   # (H + 1,) int32: hub h's items, as offsets
+    hub_items: int             # the first hub_items items are hub chunks
+    short_slices: int          # slices a short row holds at most
+    chunk_slices: int          # slices one warp item holds at most
+    rows: int                  # virtual rows of the table
+    width: int                 # W of the table
+
+
+def sliced_fold(row_map: torch.Tensor, n: int, width: int) -> SlicedFold:
+    """The fold structure of a sliced table from its ascending ``row_map``
+    (n_virtual,) int32, on ``row_map``'s device. ``row_ptr[r]`` is the
+    first virtual row whose real row is >= r, so padding rows (``row_map``
+    n) lie past ``row_ptr[n]`` and are never read. A row of more than
+    ``chunk_slices = max(1, WARP_CELLS // width)`` slices is a hub, cut into
+    warp items of ``chunk_slices`` slices, hub h owning items
+    ``hub_chunks[h]:hub_chunks[h + 1]``; then each row of more than
+    ``short_slices = max(1, SHORT_CELLS // width)`` slices and no more than
+    ``chunk_slices`` is one warp item. ``items[k]`` is the first virtual
+    row of item k."""
+    if row_map.dim() != 1 or row_map.dtype != torch.int32:
+        raise ValueError(f"row_map must be (n_virtual,) int32, got "
+                         f"{row_map.dtype} {tuple(row_map.shape)}")
+    if n < 0 or width < 1:
+        raise ValueError(f"need n >= 0 and width >= 1, got {n}, {width}")
+    dev = row_map.device
+    cs = max(1, WARP_CELLS // width)
+    ss = max(1, SHORT_CELLS // width)
+    row_ptr = torch.searchsorted(
+        row_map.contiguous(),
+        torch.arange(n + 1, dtype=torch.int32, device=dev), out_int32=True)
+    slices = row_ptr[1:] - row_ptr[:-1]
+    hubs = torch.nonzero(slices > cs).reshape(-1).to(torch.int32)
+    per_hub = (slices[hubs.long()] + cs - 1) // cs
+    hub_chunks = torch.zeros(hubs.numel() + 1, dtype=torch.int32, device=dev)
+    hub_chunks[1:] = torch.cumsum(per_hub, 0)
+    owner = torch.repeat_interleave(
+        torch.arange(hubs.numel(), device=dev), per_hub.long())
+    rank = torch.arange(owner.numel(), device=dev) - hub_chunks[owner]
+    chunks = row_ptr[hubs.long()][owner] + rank * cs
+    longer = row_ptr[:-1][(slices > ss) & (slices <= cs)]
+    return SlicedFold(row_ptr=row_ptr,
+                      items=torch.cat([chunks, longer]).to(torch.int32),
+                      hubs=hubs, hub_chunks=hub_chunks,
+                      hub_items=int(owner.numel()), short_slices=ss,
+                      chunk_slices=cs, rows=int(row_map.shape[0]),
+                      width=width)
 
 
 def reset_launches() -> None:
@@ -87,7 +157,9 @@ def _check_table(neighbors, mask, weights, device) -> tuple[int, int]:
     return rows, width
 
 
-def _prepare_x(x: torch.Tensor, threshold: torch.Tensor | None):
+def _check_x(x: torch.Tensor, threshold: torch.Tensor | None):
+    """(B, n, the threshold contiguous or None) after checking x (B, n)
+    float32 on a CUDA device and the threshold (n,) float32 beside it."""
     if x.device.type != "cuda":
         raise ValueError(f"x must be a CUDA tensor, got {x.device}")
     if x.dtype != torch.float32 or x.dim() != 2:
@@ -96,25 +168,27 @@ def _prepare_x(x: torch.Tensor, threshold: torch.Tensor | None):
     B, n = x.shape
     if not (1 <= B <= _INT32_MAX and 1 <= n < _INT32_MAX):
         raise ValueError(f"x shape {(B, n)} out of range")
-    # (n, B) row-major; free when x is already a transposed (n, B) tensor
-    xT = x.t().contiguous()
     if threshold is None:
-        return xT, None, B, n
+        return B, n, None
     if threshold.device != x.device or threshold.dtype != torch.float32 \
             or threshold.shape != (n,):
         raise ValueError(f"threshold must be ({n},) float32 on {x.device}, "
                          f"got {threshold.dtype} {tuple(threshold.shape)} on "
                          f"{threshold.device}")
-    return xT, threshold.contiguous(), B, n
+    return B, n, threshold.contiguous()
 
 
 def _lib() -> ctypes.CDLL:
     return _build.load("ell_spmm", _SIGNATURES)
 
 
-def _raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
+def _sliced_lib() -> ctypes.CDLL:
+    return _build.load("ell_spmm_sliced", _SLICED_SIGNATURES)
+
+
+def _raise_on(err: int, message, what: str) -> None:
     if err != 0:
-        msg = lib.ell_spmm_error_string(err).decode()
+        msg = message(err).decode()
         raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
 
 
@@ -133,7 +207,9 @@ def ell_spmm_cuda(neighbors: torch.Tensor, mask: torch.Tensor,
     (n, K) table (int32/bool/float32), x is (B, n) float32, ``threshold``
     (n,) fuses FORA's push condition. Returns (B, n), a transposed view of
     the kernel's (n, B) output."""
-    xT, thr, B, n = _prepare_x(x, threshold)
+    B, n, thr = _check_x(x, threshold)
+    # (n, B) row-major; free when x is already a transposed (n, B) tensor
+    xT = x.t().contiguous()
     rows, width = _check_table(neighbors, mask, weights, x.device)
     if rows != n:
         raise ValueError(f"dense table has {rows} rows for n={n}")
@@ -143,7 +219,7 @@ def ell_spmm_cuda(neighbors: torch.Tensor, mask: torch.Tensor,
     err = lib.ell_spmm_dense_launch(
         _ptr(neighbors), _ptr(mask), _ptr(weights), _ptr(xT), _ptr(thr),
         _ptr(yT), rows, width, B, stream)
-    _raise_on(lib, err, "ell_spmm")
+    _raise_on(err, lib.ell_spmm_error_string, "ell_spmm")
     LAUNCHES["ell_spmm"] += 1
     return yT.t()
 
@@ -151,30 +227,55 @@ def ell_spmm_cuda(neighbors: torch.Tensor, mask: torch.Tensor,
 def ell_spmm_sliced_cuda(neighbors: torch.Tensor, mask: torch.Tensor,
                          weights: torch.Tensor, row_map: torch.Tensor,
                          x: torch.Tensor,
-                         threshold: torch.Tensor | None = None
-                         ) -> torch.Tensor:
+                         threshold: torch.Tensor | None = None,
+                         fold: SlicedFold | None = None) -> torch.Tensor:
     """K2: sliced pull-form SpMM with the row fold on the card.
     neighbors/mask/weights are the (n_virtual, W) table, ``row_map``
     (n_virtual,) int32 ascending maps each virtual row to its real row
     (the value n marks padding, which is dropped). x is (B, n) float32.
-    Returns (B, n), a transposed view of the kernel's (n, B) output."""
-    xT, thr, B, n = _prepare_x(x, threshold)
+    ``fold`` is the table's :func:`sliced_fold`; without it the call
+    derives it first (a ``searchsorted`` and a few small ops), so a sweep
+    loop passes it. Returns (B, n), a transposed view of the kernel's
+    (n, B) output."""
+    B, n, thr = _check_x(x, threshold)
     nv, width = _check_table(neighbors, mask, weights, x.device)
     if row_map.device != x.device or row_map.dtype != torch.int32 \
             or row_map.shape != (nv,) or not row_map.is_contiguous():
         raise ValueError(f"row_map must be contiguous ({nv},) int32 on "
                          f"{x.device}, got {row_map.dtype} "
                          f"{tuple(row_map.shape)} on {row_map.device}")
-    partials = torch.empty((nv, B), dtype=torch.float32, device=x.device)
-    row_ptr = torch.empty((n + 1,), dtype=torch.int32, device=x.device)
+    if fold is None:
+        fold = sliced_fold(row_map, n, width)
+    if (fold.rows, fold.width) != (nv, width) \
+            or fold.row_ptr.shape != (n + 1,):
+        raise ValueError(f"fold is for {fold.rows} x {fold.width} rows and "
+                         f"{fold.row_ptr.shape[0] - 1} nodes, the table is "
+                         f"{nv} x {width} for n={n}")
+    for name in ("row_ptr", "items", "hubs", "hub_chunks"):
+        t = getattr(fold, name)
+        if t.device != x.device or t.dtype != torch.int32 \
+                or not t.is_contiguous():
+            raise ValueError(f"fold.{name} must be contiguous int32 on "
+                             f"{x.device}")
+    # x masked by the threshold and laid out (n, B) by the kernel's first
+    # pass, unless x lies (n, B) already (an (n, B) tensor's transpose, as
+    # the push passes it) and there is no threshold
+    laid_out = x.stride(1) == B and (x.stride(0) == 1 or B == 1)
+    xm = None if thr is None and laid_out else \
+        torch.empty((n, B), dtype=torch.float32, device=x.device)
+    partials = torch.empty((fold.hub_items, B), dtype=torch.float32,
+                           device=x.device) if fold.hub_items else None
     yT = torch.empty((n, B), dtype=torch.float32, device=x.device)
-    lib = _lib()
+    lib = _sliced_lib()
     stream = torch.cuda.current_stream(x.device.index).cuda_stream
     err = lib.ell_spmm_sliced_launch(
-        _ptr(neighbors), _ptr(mask), _ptr(weights), _ptr(row_map), _ptr(xT),
-        _ptr(thr), _ptr(partials), _ptr(row_ptr), _ptr(yT), nv, width, B, n,
-        stream)
-    _raise_on(lib, err, "ell_spmm_sliced")
+        _ptr(neighbors), _ptr(mask), _ptr(weights), _ptr(row_map),
+        _ptr(fold.row_ptr), _ptr(fold.items), _ptr(fold.hubs),
+        _ptr(fold.hub_chunks), _ptr(x), _ptr(thr), _ptr(xm),
+        _ptr(partials), _ptr(yT), x.stride(0), x.stride(1), n, width, B,
+        fold.items.shape[0], fold.hub_items, fold.hubs.shape[0],
+        fold.short_slices, fold.chunk_slices, stream)
+    _raise_on(err, lib.ell_spmm_sliced_error_string, "ell_spmm_sliced")
     LAUNCHES["ell_spmm_sliced"] += 1
     return yT.t()
 

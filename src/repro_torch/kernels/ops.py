@@ -10,7 +10,8 @@ from __future__ import annotations
 import torch
 
 from . import ref
-from .ell_spmv import ell_spmm_cuda, ell_spmm_sliced_cuda, ell_spmv_cuda
+from .ell_spmv import (SlicedFold, ell_spmm_cuda, ell_spmm_sliced_cuda,
+                       ell_spmv_cuda)
 from .embedding_bag import embedding_bag_cuda
 from .flash_attention import flash_attention_cuda
 from .walk_gather import walk_endpoint_gather_cuda
@@ -47,12 +48,14 @@ def ell_spmm(neighbors: torch.Tensor, mask: torch.Tensor,
 def ell_spmm_sliced(neighbors: torch.Tensor, mask: torch.Tensor,
                     weights: torch.Tensor, row_map: torch.Tensor,
                     x: torch.Tensor, *,
-                    threshold: torch.Tensor | None = None) -> torch.Tensor:
+                    threshold: torch.Tensor | None = None,
+                    fold: SlicedFold | None = None) -> torch.Tensor:
     """Sliced-ELL batched SpMM: virtual rows (n_virtual, W) folded onto the
-    real rows through the ascending ``row_map``."""
+    real rows through the ascending ``row_map``. ``fold`` is the table's
+    fold structure for the kernel; the plain version needs none."""
     if _on_cuda(x):
         return ell_spmm_sliced_cuda(neighbors, mask, weights, row_map, x,
-                                    threshold)
+                                    threshold, fold)
     return ref.ell_spmm_sliced_ref(neighbors, mask, x, weights, threshold,
                                    row_map)
 

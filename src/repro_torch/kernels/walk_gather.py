@@ -12,15 +12,20 @@ resident in VMEM and compared every lane with every node of an output
 block, O(B * L * n) work shaped for the TPU's vector unit. On the card
 that compare would cost n / 32 warp instructions a lane; instead:
 
-* each lane is one gather, and the fold is a sort: a block sorts a tile of
-  lanes by (endpoint, lane) in shared memory, sums each run of equal
-  endpoints as a pairwise tree in lane order, and the run's head writes
-  its cell;
-* no float atomics: every output cell has one summation order, so a second
-  launch gives the same bits, and a hub cell that collects thousands of
-  lanes rounds log2(tile) times instead of once per lane;
-* rows with more lanes than one tile write one scratch row per tile, added
-  in tile order by a second pass.
+* one thread a lane, a warp a 32-lane chunk, gathers each lane's cell
+  (-1 for a dropped lane) and adds each cell's lanes of the chunk in lane
+  order, over the whole card at once, into a (B, L) scratch of cells and
+  chunk sums;
+* a grid of blocks, one an SM, each owning a range of output cells of one
+  row (:func:`fold_plan` sizes the ranges so that the grid fills the card
+  once at any B), adds the chunk sums of its cells in lane order, group by
+  group of 1,024 lanes, and writes its range once, zeros included;
+* no float atomics: every output cell has one summation order, fixed by
+  its own lanes (lanes within a chunk, chunks within a group, groups within
+  a segment of 32,768 lanes, segments), so a second launch gives the same
+  bits, and a hub cell that collects thousands of lanes rounds a few dozen
+  times at most instead of once per lane, and costs no more time than
+  lanes spread over many cells.
 
 The wrapper checks device, dtype, shape and contiguity, allocates the
 output and scratch with ``torch.empty``, launches on PyTorch's current
@@ -37,18 +42,41 @@ import torch
 from . import _build
 
 # launches since the last reset_launches(); one call counts once although it
-# runs a memset and one or two CUDA kernels
+# runs two CUDA kernels (the gather, then the fold)
 LAUNCHES: dict[str, int] = {"walk_endpoint_gather": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "walk_gather_launch": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
-    "walk_gather_tile_lanes": ([], _I),
+    "walk_gather_launch": ([_P] * 7 + [_I] * 5 + [_P], _I),
     "walk_gather_error_string": ([_I], ctypes.c_char_p),
 }
 _INT32_MAX = 2**31 - 1
 _MAX_ROWS = 65535          # the grid's y dimension carries the row
+FOLD_BLOCKS_PER_SM = 1     # fold blocks the plan aims for, per SM
+FOLD_MAX_CELLS = 4096      # cells a fold block owns at most (kMaxCells)
+_SMS: dict[int, int] = {}
+
+
+def fold_plan(n: int, B: int, sms: int) -> tuple[int, int]:
+    """(cells each fold block owns, fold blocks a row) for a (B, n) output
+    on a card of ``sms`` SMs: about FOLD_BLOCKS_PER_SM blocks per SM over
+    the whole grid, each owning a multiple of 32 cells, at least 32 and at
+    most FOLD_MAX_CELLS. The last block of a row owns the rest."""
+    if n < 1 or B < 1 or sms < 1:
+        raise ValueError(f"need n, B, sms >= 1, got {n}, {B}, {sms}")
+    per_row = max(1, -(-FOLD_BLOCKS_PER_SM * sms // B))
+    cells = min(FOLD_MAX_CELLS, 32 * -(-n // (32 * per_row)))
+    return cells, -(-n // cells)
+
+
+def _sm_count(dev: torch.device) -> int:
+    index = dev.index if dev.index is not None else \
+        torch.cuda.current_device()
+    if index not in _SMS:
+        _SMS[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _SMS[index]
 
 
 def reset_launches() -> None:
@@ -100,15 +128,15 @@ def walk_endpoint_gather_cuda(endpoints: torch.Tensor, budget: torch.Tensor,
     _check(starts, "starts", torch.int32, (B, L), dev)
     _check(weights, "weights", torch.float32, (B, L), dev)
     lib = _lib()
-    tiles = -(-L // lib.walk_gather_tile_lanes())
+    cells_per_block, _ = fold_plan(n, B, _sm_count(dev))
+    cells = torch.empty((B, L), dtype=torch.int32, device=dev)
+    values = torch.empty((B, L), dtype=torch.float32, device=dev)
     out = torch.empty((B, n), dtype=torch.float32, device=dev)
-    scratch = None if tiles == 1 else torch.empty(
-        (B, tiles, n), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev.index).cuda_stream
     err = lib.walk_gather_launch(
         endpoints.data_ptr(), budget.data_ptr(), starts.data_ptr(),
-        weights.data_ptr(), None if scratch is None else scratch.data_ptr(),
-        out.data_ptr(), n, W, B, L, stream)
+        weights.data_ptr(), cells.data_ptr(), values.data_ptr(),
+        out.data_ptr(), n, W, B, L, cells_per_block, stream)
     if err != 0:
         msg = lib.walk_gather_error_string(err).decode()
         raise RuntimeError(f"walk_endpoint_gather launch failed: CUDA error "

@@ -8,11 +8,11 @@ Every above-threshold node is relaxed in each sweep:
 
 The relaxation is one pull-form ELL SpMM per sweep (``kernels.ops.ell_spmm``
 over the dense table, ``ell_spmm_sliced`` when the residency carries a
-``row_map``), with the push condition fused into the kernel's gather
-through its ``threshold`` argument. The termination condition (all
-r(v) <= rmax * deg(v)) is sequential FORA's, so its guarantee holds, and
-the invariant pi_true(s,t) = pi(t) + sum_v r(v) pi_true(v,t) holds after
-every sweep.
+``row_map`` and its fold structure), with the push condition fused into
+the kernel's gather through its ``threshold`` argument. The termination
+condition (all r(v) <= rmax * deg(v)) is sequential FORA's, so its
+guarantee holds, and the invariant pi_true(s,t) = pi(t) + sum_v r(v)
+pi_true(v,t) holds after every sweep.
 
 Residual and reserve are kept as (n, B) tensors between sweeps, the
 kernels' layout, and returned as (B, n) views. The host tests convergence
@@ -31,6 +31,7 @@ import torch
 
 from .._device import resolve_device
 from ..kernels import ops
+from ..kernels.ell_spmv import SlicedFold, sliced_fold
 from .graph import Graph
 
 CHECK_EVERY = 8      # sweeps between the host's convergence tests
@@ -47,13 +48,17 @@ def forward_push(in_neighbors: torch.Tensor, in_mask: torch.Tensor,
                  seeds: torch.Tensor, *, alpha: float, rmax: float,
                  max_iters: int = 10_000,
                  row_map: torch.Tensor | None = None,
+                 fold: SlicedFold | None = None,
                  pi0: torch.Tensor | None = None) -> PushResult:
     """Batched frontier push over the pull-form ELL table.
 
     ``in_neighbors``/``in_mask``/``in_weights`` are the (n, K) table of
     :meth:`Graph.ell_in`, or with ``row_map`` the sliced (n_virtual, W)
-    table of :meth:`Graph.ell_in_sliced`; ``seeds`` is (B, n) one-hot (or
-    any residual); ``pi0`` (default zeros) seeds the reserve. Runs until no
+    table of :meth:`Graph.ell_in_sliced` and ``fold`` its
+    :func:`~repro_torch.kernels.ell_spmv.sliced_fold` (``DeviceGraph``
+    carries it as ``in_fold``; derived once here when not given);
+    ``seeds`` is (B, n) one-hot (or any residual); ``pi0`` (default
+    zeros) seeds the reserve. Runs until no
     residual is above threshold or ``max_iters`` sweeps have run, and syncs
     with the host once every ``CHECK_EVERY`` sweeps.
     """
@@ -63,6 +68,8 @@ def forward_push(in_neighbors: torch.Tensor, in_mask: torch.Tensor,
     rT = seeds.t().contiguous()                              # (n, B)
     piT = torch.zeros_like(rT) if pi0 is None else pi0.t().contiguous()
     iters = torch.zeros((), dtype=torch.int32, device=seeds.device)
+    if row_map is not None and fold is None:
+        fold = sliced_fold(row_map, seeds.shape[1], in_neighbors.shape[1])
     done = 0
     while done < max_iters and bool((rT > thr_col).any()):
         sweeps = min(CHECK_EVERY, max_iters - done)
@@ -76,7 +83,7 @@ def forward_push(in_neighbors: torch.Tensor, in_mask: torch.Tensor,
             else:
                 moved = ops.ell_spmm_sliced(in_neighbors, in_mask,
                                             in_weights, row_map, rT.t(),
-                                            threshold=threshold)
+                                            threshold=threshold, fold=fold)
             rT = rT * ~front + (1.0 - alpha) * moved.t()
         done += sweeps
     return PushResult(pi=piT.t(), r=rT.t(), iters=iters)
@@ -101,4 +108,4 @@ def forward_push_np(graph: Graph, sources: np.ndarray, *, alpha: float,
                         dg.out_degree, one_hot_seeds(sources, graph.n,
                                                      dg.device),
                         alpha=alpha, rmax=rmax, max_iters=max_iters,
-                        row_map=dg.in_row_map)
+                        row_map=dg.in_row_map, fold=dg.in_fold)

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..kernels.ell_spmv import SlicedFold, sliced_fold
 
 # Pad multiple of the push-table widths. 8 is what the JAX package uses off
 # the TPU, so the host tables here are array-equal to its tables.
@@ -318,7 +319,8 @@ class DeviceGraph:
     Holds tensors for the CSR walk view (edge_dst / out_offsets /
     out_degree) and the pull-form push view (in_neighbors / in_mask /
     in_weights), either the dense (n, k_max) table (``in_row_map`` None)
-    or the sliced (n_virtual, W) table with its ``row_map``.
+    or the sliced (n_virtual, W) table with its ``row_map`` and, built
+    from it once, the fold structure K2 reads (``in_fold``).
     ``DeviceGraph.uploads`` counts constructions, so tests can hold the
     upload-once contract.
     """
@@ -334,6 +336,7 @@ class DeviceGraph:
     in_weights: torch.Tensor
     in_row_map: torch.Tensor | None = None   # (n_virtual,) int32, or None
     ell_width: int = 0                       # K of the resident table
+    in_fold: SlicedFold | None = None        # the sliced table's fold
 
     uploads: ClassVar[int] = 0
     AUTO_SLICE_RATIO: ClassVar[float] = 4.0
@@ -400,6 +403,8 @@ class DeviceGraph:
             raise ValueError("out_offsets must have n + 1 entries")
         if tensors["in_row_map"] is None and nbr.shape[0] != n:
             raise ValueError("a dense push table needs one row per node")
+        fold = None if tensors["in_row_map"] is None else sliced_fold(
+            tensors["in_row_map"], n, int(nbr.shape[1]))
         DeviceGraph.uploads += 1
         return cls(n=n, m=int(tensors["edge_dst"].shape[0]),
-                   ell_width=int(nbr.shape[1]), **tensors)
+                   ell_width=int(nbr.shape[1]), in_fold=fold, **tensors)

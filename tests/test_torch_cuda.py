@@ -24,6 +24,7 @@ from repro_torch.ppr import (ForaExecutor, ForaParams, LaneStreams,
                              PprWorkload, TableDraws, fora_fused, load,
                              ppr_power_iteration, ppr_single_pair,
                              small_test_graph, walk_length_for_tail)
+from repro_torch.ppr.graph import Graph
 from repro_torch.ppr.power_iteration import (default_iters,
                                              power_iteration_coo)
 
@@ -135,9 +136,104 @@ def test_walk_gather_matches_plain_and_repeats_bitwise(card, B, L, case):
             for a in (table, budget, starts, weights)]
     got = walk_gather.walk_endpoint_gather_cuda(*args)
     again = walk_gather.walk_endpoint_gather_cuda(*args)
-    # float64 plain version; the kernel sums each cell as a pairwise tree
-    # (at most 11 levels) and adds at most L / 2048 tiles in order
+    # float64 plain version; the kernel sums each cell in lane order within
+    # 32-lane chunks, chunks within groups of 32, groups in order: at most
+    # 31 roundings a level
     want = ref.walk_endpoint_gather_ref(*args[:3], args[3].double())
+    torch.testing.assert_close(got.double(), want, rtol=1e-5,
+                               atol=1e-6 * float(want.abs().max()))
+    assert torch.equal(got, again)
+
+
+def _edge_rows_graph() -> Graph:
+    """A graph whose width-8 sliced table has every kind of row K2 folds:
+    rows without a slice, rows of 1 to 32 slices (rows 100..355 take 1 to
+    256 in-edges), and a hub of 3,000 slices, far past a warp item's 32."""
+    rng = np.random.default_rng(11)
+    n = 30_000
+    hub_src = rng.choice(n, size=24_000, replace=False)
+    rows = np.arange(100, 356)
+    ramp_src = np.concatenate([rng.choice(n, size=r - 99, replace=False)
+                               for r in rows])
+    ramp_dst = np.repeat(rows, rows - 99)
+    tail_src = rng.integers(0, n, 40_000)
+    tail_dst = rng.integers(20_000, n, 40_000)     # rows below stay bare
+    return Graph.from_edges(
+        n, np.concatenate([hub_src, ramp_src, tail_src]),
+        np.concatenate([np.full(hub_src.size, 7), ramp_dst, tail_dst]))
+
+
+@pytest.mark.parametrize("B", [1, 3, 5, 33, 64])
+def test_sliced_spmm_edge_rows_match_plain_and_repeat_bitwise(card, B):
+    g = _edge_rows_graph()
+    sl = g.ell_in_sliced(width=8)
+    pad = 5                                   # padding rows: row_map == n
+    nbr = torch.from_numpy(np.concatenate(
+        [sl.neighbors, np.zeros((pad, 8), np.int32)])).to(card)
+    mask = torch.from_numpy(np.concatenate(
+        [sl.mask, np.ones((pad, 8), bool)])).to(card)
+    w = torch.from_numpy(np.concatenate(
+        [sl.weights, np.ones((pad, 8), np.float32)])).to(card)
+    rm = torch.from_numpy(np.concatenate(
+        [sl.row_map, np.full(pad, g.n, np.int32)])).to(card)
+    fold = ell_spmv.sliced_fold(rm, g.n, 8)
+    slices = np.diff(fold.row_ptr.cpu().numpy())
+    assert slices.min() == 0 and slices.max() == 3000
+    assert fold.hubs.tolist() == [7] and fold.hub_items == 94
+    assert set(range(1, 33)) <= set(slices.tolist())
+    xT = _x(g.n, B, seed=B, device=card).t().contiguous()
+    thr = torch.quantile(xT, 0.5).expand(g.n).contiguous()
+    # x as the push passes it (an (n, B) tensor's transpose), and as a
+    # (B, n) tensor, which the kernel's first pass lays out
+    for x in (xT.t(), xT.t().contiguous()):
+        for th in (None, thr):
+            got = ell_spmv.ell_spmm_sliced_cuda(nbr, mask, w, rm, x, th, fold)
+            again = ell_spmv.ell_spmm_sliced_cuda(nbr, mask, w, rm, x, th)
+            want = ref.ell_spmm_sliced_ref(
+                nbr, mask, x.double(), w.double(),
+                None if th is None else th.double(), rm)
+            torch.testing.assert_close(got.double(), want, rtol=1e-5,
+                                       atol=1e-6 * float(want.abs().max()))
+            assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("shape", ["dense", "paper"])
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("case", ["full", "retired", "hub", "range edges"])
+def test_walk_gather_at_index_path_shapes(card, shape, B, case):
+    """K3 at the index paths' shapes: the dense path's (n = 2,000, L =
+    32,768) and the paper path's (n = 281,903, L = 4,096)."""
+    n, W = (2000, 1 << 15) if shape == "dense" else (281_903, 1 << 12)
+    gen = torch.Generator(device=card).manual_seed(B * 31 + len(case))
+    table = torch.randint(0, n, (n, W), generator=gen, device=card,
+                          dtype=torch.int32)
+    budget = torch.full((n,), W, dtype=torch.int32, device=card)
+    if case == "retired":
+        rows = torch.randperm(n, generator=gen, device=card)[:n // 3]
+        budget[rows] = torch.randint(0, W + 1, (rows.numel(),), generator=gen,
+                                     device=card, dtype=torch.int32)
+    elif case == "hub":
+        table.fill_(n // 2)                   # every lane ends at one node
+    elif case == "range edges":
+        # endpoints on the first and last cells of the fold blocks' ranges
+        sms = torch.cuda.get_device_properties(card).multi_processor_count
+        cells, blocks = walk_gather.fold_plan(n, B, sms)
+        edges = torch.tensor(sorted({0, n - 1} | {
+            e for k in range(blocks) for e in (k * cells, k * cells - 1,
+                                               (k + 1) * cells - 1)
+            if 0 <= e < n}), dtype=torch.int32, device=card)
+        pick = torch.randint(0, edges.numel(), (n, W), generator=gen,
+                             device=card)
+        table = edges[pick]
+        del pick
+    starts = torch.randint(0, n, (B, W), generator=gen, device=card,
+                           dtype=torch.int32)
+    weights = torch.rand((B, W), generator=gen, device=card)
+    args = (table, budget, starts, weights)
+    got = walk_gather.walk_endpoint_gather_cuda(*args)
+    again = walk_gather.walk_endpoint_gather_cuda(*args)
+    want = ref.walk_endpoint_gather_ref(table, budget, starts,
+                                        weights.double())
     torch.testing.assert_close(got.double(), want, rtol=1e-5,
                                atol=1e-6 * float(want.abs().max()))
     assert torch.equal(got, again)

@@ -179,6 +179,34 @@ def test_fora_fused_matches_jax_on_its_draws(graphs, powerlaw, which):
                                atol=1e-6)
 
 
+def test_fora_fused_on_carried_jax_arrays_matches_jax(powerlaw):
+    """A residency carried across from the JAX package's DeviceGraph arrays
+    (its sliced table, the fold built from its row_map) answers FORA as the
+    port's own residency does, bit for bit, and as the JAX package does."""
+    jg, tg = powerlaw
+    jdg = jg.device()
+    arrays = {f: np.asarray(getattr(jdg, f))
+              for f in tppr.DeviceGraph.ARRAY_FIELDS
+              if getattr(jdg, f) is not None}
+    carried = tppr.DeviceGraph.from_arrays(arrays, device="cpu")
+    assert carried.layout == "sliced" and carried.in_fold is not None
+    params = jppr.ForaParams(epsilon=0.5)
+    W = 2048
+    key = jax.random.PRNGKey(7)
+    qids = np.array([3, 8, 21], np.int32)
+    j = jppr.fora_fused(jdg, SOURCES, params, key, num_walks=W,
+                        query_seeds=qids, bulk_rng=True)
+    L = jrw.walk_length_for_tail(params.alpha, params.walk_tail)
+    draws = _jax_draws(key, qids, W, L)
+    got = [tppr.fora_fused(dg, SOURCES, tppr.ForaParams(epsilon=0.5),
+                           num_walks=W, draws=draws, device="cpu")
+           for dg in (carried, tg.device("cpu"))]
+    assert torch.equal(got[0].pi, got[1].pi)
+    assert int(got[0].push_iters) == int(j.push_iters)
+    np.testing.assert_allclose(got[0].pi.numpy(), np.asarray(j.pi),
+                               rtol=1e-4, atol=1e-6)
+
+
 def test_residual_walks_match_jax_with_active_walks(graphs):
     jg, tg = graphs
     _, j, _ = _push_both(jg, tg)

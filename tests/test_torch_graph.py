@@ -85,6 +85,35 @@ def test_device_graph_and_from_arrays_equal_jax(kind, layout):
         assert tdg.layout == ("dense" if kind == "small" else "sliced")
 
 
+@pytest.mark.parametrize("kind", ["small", "powerlaw"])
+@pytest.mark.parametrize("layout", ["dense", "sliced"])
+def test_from_arrays_builds_the_fold_from_the_row_map(kind, layout):
+    """The sliced table's fold structure (K2's offsets and hub list) comes
+    from the row_map alone: the JAX package's arrays carried across give
+    the same fold as the port's own residency."""
+    jg, tg = _pair(kind)
+    jdg = jgraph.DeviceGraph.from_graph(jg, layout=layout)
+    arrays = {f: np.asarray(getattr(jdg, f))
+              for f in tgraph.DeviceGraph.ARRAY_FIELDS
+              if getattr(jdg, f) is not None}
+    carried = tgraph.DeviceGraph.from_arrays(arrays, device="cpu")
+    own = tgraph.DeviceGraph.from_graph(tg, layout=layout, device="cpu")
+    if layout == "dense":
+        assert carried.in_fold is None and own.in_fold is None
+        return
+    rm = arrays["in_row_map"]
+    np.testing.assert_array_equal(carried.in_fold.row_ptr.numpy(),
+                                  np.searchsorted(rm, np.arange(jg.n + 1)))
+    for field, value in carried.in_fold._asdict().items():
+        other = getattr(own.in_fold, field)
+        if isinstance(value, torch.Tensor):
+            assert torch.equal(value, other), field
+        else:
+            assert value == other, field
+    assert carried.in_fold.rows == rm.shape[0]
+    assert carried.in_fold.width == carried.ell_width
+
+
 @pytest.mark.parametrize("name,scale", [("web-stanford", 512), ("dblp", 1024),
                                         ("pokec", 2048),
                                         ("livejournal", 4096)])

@@ -143,3 +143,76 @@ def test_failed_build_raises_and_leaves_no_library(monkeypatch, tmp_path):
     assert not _build.library_path("ell_spmm").exists()
     assert _build.log_path("ell_spmm").exists()
     assert "ell_spmm" not in _build._loaded
+
+
+def _fold_by_plan(fold, partials: torch.Tensor, row_map: np.ndarray,
+                  n: int) -> torch.Tensor:
+    """K2's fold as its plan lays it out, in the partials' dtype: each short
+    row adds its virtual rows, each warp item its run of them, into its row
+    or, for a hub's chunk, into the hub's sum."""
+    rp = fold.row_ptr.tolist()
+    out = torch.zeros((partials.shape[0], n), dtype=partials.dtype)
+    for r in range(n):
+        if rp[r + 1] - rp[r] <= fold.short_slices:
+            out[:, r] = partials[:, rp[r]:rp[r + 1]].sum(dim=1)
+    for first in fold.items.tolist():
+        r = int(row_map[first])
+        end = min(first + fold.chunk_slices, rp[r + 1])
+        out[:, r] += partials[:, first:end].sum(dim=1)
+    return out
+
+
+@pytest.mark.parametrize("n,width,pad", [(150, 8, 0), (300, 8, 5),
+                                         (300, 1, 3), (700, 24, 0)])
+def test_sliced_fold_plan_covers_each_slice_once(n, width, pad):
+    g = powerlaw_graph(n, hubs=2, seed=n)
+    sl = g.ell_in_sliced(width=width, pad_multiple=1 if width == 1 else 8)
+    nbr, mask, w, rm = _padded(sl, g.n, pad, seed=pad)
+    fold = ell_spmv.sliced_fold(torch.from_numpy(rm), g.n, sl.width)
+    assert fold.row_ptr.dtype == fold.items.dtype == torch.int32
+    np.testing.assert_array_equal(fold.row_ptr.numpy(),
+                                  np.searchsorted(rm, np.arange(g.n + 1)))
+    assert fold.chunk_slices == max(1, ell_spmv.WARP_CELLS // sl.width)
+    assert fold.short_slices == max(1, ell_spmv.SHORT_CELLS // sl.width)
+    assert (fold.rows, fold.width) == (rm.shape[0], sl.width)
+    rp = fold.row_ptr.numpy()
+    slices = np.diff(rp)
+    hubs = np.flatnonzero(slices > fold.chunk_slices)
+    np.testing.assert_array_equal(fold.hubs.numpy(), hubs)
+    if width == 8 and n >= 300:
+        assert hubs.size >= 1          # the graph's hubs take 38+ slices
+    # the hub chunks first, hub by hub, then each longer row's first slice
+    hc = fold.hub_chunks.numpy()
+    assert hc[0] == 0 and hc[-1] == fold.hub_items
+    items = fold.items.numpy()
+    for h, r in enumerate(hubs):
+        np.testing.assert_array_equal(
+            items[hc[h]:hc[h + 1]],
+            np.arange(rp[r], rp[r + 1], fold.chunk_slices))
+    longer = (slices > fold.short_slices) & (slices <= fold.chunk_slices)
+    np.testing.assert_array_equal(items[fold.hub_items:], rp[:-1][longer])
+    # every virtual row of a real row is read once, padding never
+    reads = np.zeros(rm.shape[0], int)
+    for r in np.flatnonzero(slices <= fold.short_slices):
+        reads[rp[r]:rp[r + 1]] += 1
+    for first in items:
+        reads[first:min(first + fold.chunk_slices, rp[rm[first] + 1])] += 1
+    np.testing.assert_array_equal(reads, rm < g.n)
+    # the plan's fold equals the plain version's
+    x, thr = _inputs(g, 3, seed=n)
+    tn, tm, tw, tx, tthr = _t(nbr, mask, w, x, thr)
+    partials = ref.ell_spmm_ref(tn, tm, tx.double(), tw.double(),
+                                tthr.double())
+    want = ref.ell_spmm_sliced_ref(tn, tm, tx.double(), tw.double(),
+                                   tthr.double(), torch.from_numpy(rm))
+    torch.testing.assert_close(_fold_by_plan(fold, partials, rm, g.n), want,
+                               rtol=1e-12, atol=1e-15)
+
+
+def test_sliced_fold_plan_of_an_edgeless_table():
+    fold = ell_spmv.sliced_fold(torch.zeros(1, dtype=torch.int32), 4, 8)
+    np.testing.assert_array_equal(fold.row_ptr.numpy(), [0, 1, 1, 1, 1])
+    assert fold.items.numel() == fold.hubs.numel() == fold.hub_items == 0
+    assert fold.hub_chunks.tolist() == [0]
+    with pytest.raises(ValueError, match="int32"):
+        ell_spmv.sliced_fold(torch.zeros(3, dtype=torch.int64), 4, 8)

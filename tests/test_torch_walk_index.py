@@ -450,3 +450,20 @@ def test_quickstart_with_walk_index_on_cpu():
     assert out["accepted"] and out["index_width"] == 1 << 12
     assert out["index_coverage"] == 1.0 and out["walk_lanes"] <= 1 << 12
     assert out["fora_max_rel_err"] < 0.5
+
+
+@pytest.mark.parametrize("n,B,sms,want", [
+    (281_903, 1, 132, (2144, 132)),      # the paper index path
+    (2000, 1, 132, (32, 63)),            # the dense index path
+    (2000, 8, 132, (128, 16)),
+    (281_903, 8, 132, (4096, 69)),
+    (5, 3, 132, (32, 1)),
+    (100_000, 64, 132, (4096, 25)),
+])
+def test_walk_gather_fold_plan(n, B, sms, want):
+    cells, blocks = walk_gather.fold_plan(n, B, sms)
+    assert (cells, blocks) == want
+    assert cells % 32 == 0 and 32 <= cells <= walk_gather.FOLD_MAX_CELLS
+    assert (blocks - 1) * cells < n <= blocks * cells
+    with pytest.raises(ValueError):
+        walk_gather.fold_plan(n, 0, sms)
