@@ -11,7 +11,12 @@ drives the port's main path, in phases:
    phase 8's Pokec-order table with its threshold, K2: the full-size
    Web-Stanford stand-in) at the batch widths the paths launch them with
    (and K1 and K2 at 8 and 64), with and without the fused threshold, and
-   on the sliced table's edge cases; K3 on endpoint tables
+   on the sliced table's edge cases; K1 also on real push residuals at
+   Pokec's order (its frontier route at B = 1), on a dense table past 2^19
+   nodes, and with K4 on tables whose masks are not left-packed (K in
+   {1, 7, 33, 48, 130}, n = 1,003, K1 at B in {1, 3, 4, 33, 64} and on
+   its frontier route forced at B = 1);
+   K3 on endpoint tables
    of both index paths' shapes at B in {1, 3, 8} and L in {1, 130, 4096}
    and the dense path's L, with full and retired budgets and a hub that
    every lane ends at; K4 over the JAX package's sweep shapes, the dense
@@ -24,7 +29,10 @@ drives the port's main path, in phases:
    warp-item row, a hub's last slice and its last chunk; a gather that
    ignores the budget, drops a lane per cell or the last lane of each K3
    fold block's range; an SpMV that ignores the mask or drops each row's
-   last cell), and a second launch must give the same bits. Then the lane
+   last cell; K1 and K4 reading each row one cell short of its extent, K1
+   reading the threshold at the row instead of the source, and K1's
+   frontier route losing one word of its bitmap), and a second launch must
+   give the same bits. Then the lane
    streams drawn on the card must equal those drawn on the CPU;
 2. the dense path: ``fora_fused`` on ``small_test_graph(n=2000)``, against
    exact PPR whose every step is one K4 launch a source;
@@ -46,7 +54,15 @@ drives the port's main path, in phases:
    pace (CUDA events around back-to-back calls) is printed beside it. K1
    is timed at the dense path's shape, on a uniform table and on phase 8's
    Pokec-order table at B = 1; K3 beside ``index_add_`` of the gathered
-   pairs and beside the gather, the budget mask and ``index_add_``;
+   pairs and beside the gather, the budget mask and ``index_add_``. At
+   Pokec's order the two floors of K1 and K4 (``tools/ell_floors.cu``:
+   the rows' live cells read with no gather, and x gathered at the live
+   neighbours with nothing else read) are printed beside K4, and K1's
+   frontier route on real push residuals (sweeps 4, 6 and 27 of one
+   source's push) beside its plain route and ``torch.sparse.mm`` on the
+   same thresholded x; then K1's two routes over every launch of one
+   push, from the dense path's n = 2,000 to Pokec's order, the measure of
+   the rule that picks the route;
 6. gemma-2b serving at full width and depth (18 layers, d 2048, 8 query
    heads on 1 KV head, Dh 256, vocab 256,000, bf16, 2,506,172,416 random
    parameters from a seed), cut in batch and sequence only: 4 prompts of
@@ -107,6 +123,7 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
+FLOORS_SRC = ROOT / "tools" / "ell_floors.cu"
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 FP32_FLOPS_PER_S = 67e12           # H100 SXM float32 outside tensor cores
 # kernel against its float64 plain version: every output within RTOL of
@@ -200,6 +217,19 @@ STALL_LANE = 1
 STALL = 20
 # tests/test_kernels.py::test_ell_spmv_sweep's shapes (n, K)
 SPMV_SWEEP = [(64, 4), (100, 7), (512, 16), (300, 130), (1000, 33)]
+# K1 and K4 on non-left-packed tables: EDGE_N rows (not a multiple of the
+# rows a warp takes), each K, K1 at each B
+EDGE_N = 1003
+EDGE_KS = (1, 7, 33, 48, 130)
+EDGE_BS = (1, 3, 4, 33, 64)
+# a dense graph past 2^19 nodes: K1's frontier bitmap at two nodes a bit
+HALF_N = 600_000
+# sweeps of one Pokec-order push whose residuals K1 runs on: a small
+# frontier (~7% of the nodes), all of them, and ~15% late in the push
+RESIDUAL_SWEEPS = (4, 6, 27)
+# uniform tables at Pokec's mean degree on which phase 5 times K1's two
+# routes over a push, between the dense path's n and the uniform table's
+ROUTE_SIZES = (16_384, 131_072)
 
 
 class SmokeFailure(RuntimeError):
@@ -389,6 +419,41 @@ def drop_last_cell(mask):
     out = mask.clone()
     out[rows, last[rows]] = False
     return out
+
+
+def extent_cut(mask, extent):
+    """The mask with every cell at or past ``extent`` of its row cleared:
+    what a kernel reading rows only up to that extent would sum."""
+    import torch
+
+    cols = torch.arange(mask.shape[1], device=mask.device)
+    return mask & (cols[None] < extent[:, None])
+
+
+def row_threshold(nbr, mask, x, w, thr):
+    """K1 with the push threshold read at the output row instead of the
+    source: ``sum_j mask * w * x[b, src] * [x[b, src] > thr[i]]``."""
+    import torch
+
+    gathered = x[:, nbr.long()]                    # (B, n, K)
+    gathered = torch.where(gathered > thr[None, :, None], gathered, 0.0)
+    return torch.einsum("nk,bnk->bn", mask.to(x.dtype) * w, gathered)
+
+
+def edge_table(gen, n: int, K: int, dev):
+    """A dense (n, K) table whose random mask is not left-packed
+    (nonnegative weights, non-zero under a false mask too): row 0 and the
+    last row with no live cell, row 1 with only its last column live."""
+    import torch
+
+    nbr = torch.randint(0, n, (n, K), generator=gen, device=dev,
+                        dtype=torch.int32)
+    mask = torch.rand((n, K), generator=gen, device=dev) < 0.6
+    mask[0] = False
+    mask[1] = False
+    mask[1, K - 1] = True
+    mask[n - 1] = False
+    return nbr, mask, torch.rand((n, K), generator=gen, device=dev)
 
 
 def csr_of(nbr, msk, w, rm, n: int):
@@ -1125,6 +1190,187 @@ def phase7_din(dev, gen, card: str) -> dict:
             "library_ms": lib_ms}
 
 
+def start_floors_build():
+    """nvcc started on ``tools/ell_floors.cu`` (measurement only) with the
+    port's flags, beside the port's own builds. Returns (process, the
+    library it writes)."""
+    from repro_torch.kernels import _build
+
+    out = _build.BUILD_DIR.parent / "tools" / "libell_floors.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.Popen(
+        [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(out),
+         str(FLOORS_SRC)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    return proc, out
+
+
+def floors(lib_path, tables, plan, k4, card: str) -> None:
+    """The two floors of K1 and K4 on a dense table (``tools/ell_floors.cu``,
+    measurement only), in device time, beside K4's time and spmm_cost's
+    bound: the table floor reads each row's live cells (neighbour, weight,
+    mask, by 4-cell units up to the row's extent) and gathers nothing; the
+    gather floor gathers x at the table's live neighbours and reads nothing
+    else but their list; the hashed one gathers as many scattered floats
+    and reads no list (the L2 sector rate alone); ``x[live]`` is PyTorch's
+    gather of the same floats, a yardstick."""
+    import ctypes
+
+    import torch
+
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib = ctypes.CDLL(str(lib_path))
+    for fn, args, res in (
+            ("ell_table_floor_launch", [P] * 4 + [I, I, P, P], I),
+            ("ell_gather_floor_launch", [P, ctypes.c_longlong, P, I, P, P],
+             I),
+            ("ell_floor_warps", [], I),
+            ("ell_floors_error_string", [I], ctypes.c_char_p)):
+        getattr(lib, fn).argtypes, getattr(lib, fn).restype = args, res
+    nbr, msk, w = tables
+    n, K = nbr.shape
+    dev = nbr.device
+    live = nbr[msk].contiguous()
+    x = torch.rand(n, device=dev)
+    sums = torch.empty(lib.ell_floor_warps(), device=dev)
+
+    def run(err):
+        check(err == 0, f"floor kernel: CUDA error {err} "
+              f"({lib.ell_floors_error_string(err).decode()})")
+
+    stream = lambda: torch.cuda.current_stream(dev).cuda_stream  # noqa
+    table_ms = device_ms(lambda: run(lib.ell_table_floor_launch(
+        nbr.data_ptr(), msk.data_ptr(), w.data_ptr(), plan.extent.data_ptr(),
+        n, K, sums.data_ptr(), stream())), 50)
+    gather_ms = device_ms(lambda: run(lib.ell_gather_floor_launch(
+        live.data_ptr(), live.numel(), x.data_ptr(), n, sums.data_ptr(),
+        stream())), 50)
+    hashed_ms = device_ms(lambda: run(lib.ell_gather_floor_launch(
+        None, live.numel(), x.data_ptr(), n, sums.data_ptr(), stream())), 50)
+    index_ms = device_ms(lambda: x[live], 50)
+    bound, by = spmm_cost(live.numel(), n, 1, n, False, False)
+    print(f"  floors at n={n} K={K} ({live.numel()} live cells, device "
+          f"time): table {table_ms * 1e3:.2f} us (the rows' live cells in "
+          f"4-cell units, no gather); gather "
+          f"{gather_ms * 1e3:.2f} us (x at the live neighbours' list); "
+          f"hashed gather {hashed_ms * 1e3:.2f} us (as many scattered "
+          f"floats, no list); x[live] {index_ms * 1e3:.2f} us; spmm_cost "
+          f"bound {bound * 1e3:.2f} us ({by}); K4 {k4[0] * 1e3:.2f} us "
+          f"[{card}]")
+
+
+def k1_on_route(tables, plan, x, thr, group: int):
+    """One K1 launch at B = 1 through the library on a route picked here,
+    whatever ``frontier_group`` would pick: the plain route (prepare_x,
+    then ell_rows) at ``group`` 0, else the frontier route with ``group``
+    nodes a bit. Outside the launch counts. Returns (n, 1)."""
+    import torch
+
+    from repro_torch.kernels import ell_spmv
+
+    nbr, msk, w = tables
+    n, K = nbr.shape
+    dev = nbr.device
+    xm = torch.empty((n, 1), device=dev)
+    bits = torch.empty(-(-n // (32 * group)), dtype=torch.int32,
+                       device=dev) if group else None
+    y = torch.empty((n, 1), device=dev)
+    lib = ell_spmv._lib()
+    err = lib.ell_spmm_dense_launch(
+        nbr.data_ptr(), msk.data_ptr(), w.data_ptr(), plan.extent.data_ptr(),
+        x.data_ptr(), thr.data_ptr(), xm.data_ptr(),
+        None if bits is None else bits.data_ptr(), y.data_ptr(),
+        x.stride(0), x.stride(1), n, n, K, 1, plan.lanes.bit_length() - 1,
+        group.bit_length() - 1, torch.cuda.current_stream(dev).cuda_stream)
+    check(err == 0, f"K1 (group {group}): CUDA error {err}")
+    return y
+
+
+def push_residuals(tables, out_degree, plan, src: int, rmax: float,
+                   sweeps=None) -> dict:
+    """The residuals one push from ``src`` hands K1, by sweep: the residual
+    after k sweeps for each k in ``sweeps``, or for every sweep the push
+    launches (its ``iters``, a multiple of the host's check interval) when
+    ``sweeps`` is None. Each (1, n) float32."""
+    from repro_torch.ppr import forward_push
+    from repro_torch.ppr.forward_push import CHECK_EVERY, one_hot_seeds
+
+    n = tables[0].shape[0]
+    seeds = one_hot_seeds([src], n, tables[0].device)
+    if sweeps is None:
+        iters = int(forward_push(*tables, out_degree, seeds, alpha=0.2,
+                                 rmax=rmax, plan=plan).iters)
+        sweeps = range(-(-iters // CHECK_EVERY) * CHECK_EVERY)
+    return {k: forward_push(*tables, out_degree, seeds, alpha=0.2,
+                            rmax=rmax, max_iters=k, plan=plan).r.contiguous()
+            for k in sweeps}
+
+
+def timed_push_routes(label, tables, plan, thr, residuals, card: str,
+                      reps: int) -> tuple[float, float]:
+    """K1's device time over every launch of one push (``residuals``, as
+    :func:`push_residuals` gives them) on each route, both forced through
+    the library: the sum a query's push pays, the route rule's yardstick.
+    Returns (frontier route, plain route) microseconds a push."""
+    from repro_torch.kernels import ell_spmv
+
+    n = tables[0].shape[0]
+    group = ell_spmv.bitmap_group(n)
+    xs = list(residuals.values())
+    share = sum(float((x[0] > thr).double().mean()) for x in xs) / len(xs)
+    front_us = sum(device_split_us(lambda: [
+        k1_on_route(tables, plan, x, thr, group) for x in xs],
+        reps).values())
+    plain_us = sum(device_split_us(lambda: [
+        k1_on_route(tables, plan, x, thr, 0) for x in xs], reps).values())
+    picked = "frontier" if ell_spmv.frontier_group(n, 1) else "plain"
+    print(f"  ell_spmm routes over one push, {label} n={n} "
+          f"K={tables[0].shape[1]}: {len(xs)} launches, mean frontier "
+          f"share {share:.4f}; frontier route ({group} node(s) a bit) "
+          f"{front_us:.2f} us ({front_us / len(xs):.2f} a launch), plain "
+          f"route {plain_us:.2f} us ({plain_us / len(xs):.2f} a launch); "
+          f"the rule picks {picked} [{card}]")
+    return front_us, plain_us
+
+
+def timed_residuals(tables, plan, thr, residuals, card: str) -> None:
+    """K1 at B = 1 on phase 8's table, as a FORA query's push launches it
+    (the frontier route), on mass rows and on the real residuals of one
+    push after each of ``residuals``' sweep counts; beside the plain route
+    (prepare_x and ell_rows, called through the library with no bitmap)
+    and ``torch.sparse.mm`` on the same thresholded x. Device time."""
+    import torch
+
+    from repro_torch.kernels import ell_spmv
+
+    nbr, msk, w = tables
+    n, K = nbr.shape
+    a = csr_of(nbr, msk, w, None, n)
+    gen = torch.Generator(device=nbr.device).manual_seed(5)
+    cases = [("mass rows", mass_rows(gen, 1, n, nbr.device))]
+    cases += [(f"residual after sweep {k}", x)
+              for k, x in residuals.items()]
+    for label, x in cases:
+        front = x[0] > thr
+        live = float((front[nbr.long()] & msk).double().sum()
+                     / msk.double().sum())
+        route = device_split_us(lambda: ell_spmv.ell_spmm_cuda(
+            nbr, msk, w, x, thr, plan), 50)
+        plain_us = sum(device_split_us(
+            lambda: k1_on_route(tables, plan, x, thr, 0), 50).values())
+        xt = torch.where(front, x[0], 0.0)[:, None].contiguous()
+        lib_us = device_ms(lambda: torch.sparse.mm(a, xt), 50) * 1e3
+        share = float(front.double().mean())
+        print(f"  ell_spmm pokec B=1 {label}: frontier {share:.4f} of the "
+              f"nodes, {live:.4f} of the live cells; frontier route "
+              f"{sum(route.values()):.2f} us (" + ", ".join(
+                  f"{k.split('(')[0].split('::')[-1][:24]} {v:.2f}"
+                  for k, v in route.items())
+              + f"), plain route {plain_us:.2f} us, torch.sparse.mm on the "
+              f"thresholded x {lib_us:.2f} us [{card}]")
+    del a
+
+
 def phase8_pokec(pokec, dg, dev, card: str) -> int:
     """Exact PPR through K4, FORA into D&A_REAL and the deadline-serving
     loop on the dense graph at Pokec's order. Returns K4's launches on this
@@ -1191,6 +1437,13 @@ def phase8_pokec(pokec, dg, dev, card: str) -> int:
                                  max_cores=fleet.capacity)
     t_dna = time.perf_counter() - t0
     k1 = ell_spmv.LAUNCHES["ell_spmm"]
+    k1_frontier = ell_spmv.ROUTES["ell_spmm_frontier"]
+    # the run's one push at B > 1, the executor's walk-budget calibration
+    # (a batch of sources: the plain route), counted again on its own
+    ell_spmv.reset_launches()
+    budget = executor._calibrate_walk_budget()
+    k1_calib = ell_spmv.LAUNCHES["ell_spmm"]
+    k1_calib_frontier = ell_spmv.ROUTES["ell_spmm_frontier"]
     fres = fora_fused(executor.device_graph, srcs, params,
                       num_walks=executor.current_walk_budget(), device=dev)
     pi = fres.pi.cpu().numpy()
@@ -1208,7 +1461,9 @@ def phase8_pokec(pokec, dg, dev, card: str) -> int:
           f"{need.astype(np.int64).tolist()}, run {ran.tolist()}, short "
           f"{short.tolist()}; max rel "
           f"err {rel:.4f} against the K4 oracle over {len(srcs)} sources "
-          f"(eps 0.5); K1 launches {k1}")
+          f"(eps 0.5); K1 launches {k1}, {k1_frontier} on the frontier "
+          f"route, {k1_calib} in the walk-budget calibration's push "
+          f"({k1_calib_frontier} on the frontier route)")
     print(f"  dna_real: X={POKEC_QUERIES} T={T:.3f}s cores={res.cores} "
           f"lemma2={res.bounds.lemma2_cores} reduction="
           f"{res.reduction_vs_lemma2_pct:.1f}% completion="
@@ -1220,6 +1475,17 @@ def phase8_pokec(pokec, dg, dev, card: str) -> int:
     check(rel < 0.5, f"pokec: FORA rel err {rel} >= eps")
     check(res.accepted, "pokec: dna_real result not accepted")
     check(k1 > 0, "pokec: FORA never launched K1")
+    # every query's push (B = 1) takes the frontier route, and only the
+    # calibration's push (B > 1) takes the plain route
+    check(budget == executor.current_walk_budget() and k1_calib > 0
+          and k1_calib_frontier == 0,
+          f"pokec: the calibration's push recounted gave budget {budget} "
+          f"(want {executor.current_walk_budget()}), {k1_calib} K1 "
+          f"launches, {k1_calib_frontier} on the frontier route")
+    check(k1 - k1_frontier == k1_calib,
+          f"pokec: {k1 - k1_frontier} of FORA's K1 launches took the plain "
+          f"route, the calibration's push {k1_calib}: a push at B = 1 "
+          f"missed the frontier route")
 
     # deadline_serving's loop needs several cores. The quickstart's rule
     # cannot give them: with its probe of X/4 queries, T = 8 t_pre = 2 X
@@ -1324,8 +1590,15 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    libs = _build.build()
-    print(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f}s")
+    floors_build, floors_lib = start_floors_build()
+    try:
+        libs = _build.build()
+    finally:
+        floors_log, _ = floors_build.communicate()
+    check(floors_build.returncode == 0,
+          f"nvcc failed for {FLOORS_SRC.name}:\n{floors_log}")
+    print(f"build: {sorted(libs)} and {FLOORS_SRC.name} in "
+          f"{time.perf_counter() - t0:.1f}s")
     for name in libs:
         for line in _build.log_path(name).read_text().splitlines():
             if "registers" in line or "spill" in line or "error" in line:
@@ -1433,12 +1706,26 @@ def main() -> int:
 
     print("phase 1: kernels against their plain versions on the card "
           f"(rtol {RTOL}, atol {ATOL_FRAC} * max|want|, float64 plain)")
+    # K1's and K4's row plans, built once a table as DeviceGraph builds them
+    dense_plan = ell_spmv.dense_plan(dense_t[1])
+    pokec_plan = pokec_dg.in_plan
+    print(f"  row plans: dense path {dense_plan.lanes} lanes a row, pokec "
+          f"{pokec_plan.lanes} (mean extent "
+          f"{float(pokec_plan.extent.double().mean()):.3f}, max "
+          f"{int(pokec_plan.extent.max())}); K1's frontier route at B = 1 "
+          f"from n = {ell_spmv.FRONTIER_MIN_N}: "
+          f"{ell_spmv.frontier_group(small.n, 1)} node(s) a bit (dense "
+          f"path; 0 the plain route), "
+          f"{ell_spmv.frontier_group(pokec.n, 1)} (pokec)")
+    check(bool(torch.equal(pokec_plan.extent.long(), pokec_t[1].sum(dim=1))),
+          "pokec: a row's extent is not its live count")
     for B in sorted(path_B["ell_spmm"] | {1, 8, 33, 64}):
         for fused in (False, True):
             x = mass_rows(gen, B, small.n, dev)
             thr = dense_thr if fused else None
             compare("ell_spmm",
-                    lambda: ell_spmv.ell_spmm_cuda(*dense_t, x, thr),
+                    lambda: ell_spmv.ell_spmm_cuda(*dense_t, x, thr,
+                                                   dense_plan),
                     dense_t, None, x, thr, f"small n=2000 B={B} thr={fused}")
     # a kernel that loses one neighbour of every row
     no_rows = torch.zeros(small.n, dtype=torch.bool, device=dev)
@@ -1447,7 +1734,8 @@ def main() -> int:
     must_refuse("ell_spmm", dense_t, None, short, no_rows,
                 "first cell of each row dropped")
     # K1 at the shapes phase 8 gives it: the Pokec-order table at the
-    # executor's block and the FORA check's batch, phase 8's threshold
+    # executor's block (the frontier route) and the FORA check's batch,
+    # phase 8's threshold
     pokec_thr = thr_of(pokec, ForaParams(epsilon=0.5,
                                          rmax_scale=POKEC_RMAX_SCALE))
     for B in sorted({ForaExecutor.block_size, POKEC_SOURCES}):
@@ -1455,14 +1743,88 @@ def main() -> int:
             x = mass_rows(gen, B, pokec.n, dev)
             thr = pokec_thr if fused else None
             compare("ell_spmm",
-                    lambda: ell_spmv.ell_spmm_cuda(*pokec_t, x, thr),
+                    lambda: ell_spmv.ell_spmm_cuda(*pokec_t, x, thr,
+                                                   pokec_plan),
                     pokec_t, None, x, thr, f"pokec B={B} thr={fused}")
+    # and on real push residuals, where the frontier bitmap skips sources
+    pokec_src = int(PprWorkload(pokec, POKEC_QUERIES, seed=0).sources[0])
+    pokec_rmax = ForaParams(epsilon=0.5, rmax_scale=POKEC_RMAX_SCALE) \
+        .resolve(pokec).rmax
+    residuals = push_residuals(pokec_t, pokec_dg.out_degree, pokec_plan,
+                               pokec_src, pokec_rmax, RESIDUAL_SWEEPS)
+    for sweeps, x in residuals.items():
+        share = float((x[0] > pokec_thr).double().mean())
+        compare("ell_spmm",
+                lambda: ell_spmv.ell_spmm_cuda(*pokec_t, x, pokec_thr,
+                                               pokec_plan),
+                pokec_t, None, x, pokec_thr,
+                f"pokec residual sweep {sweeps} ({share:.3f})")
     short = pokec_t[1].clone()
     short[:, 0] = False
     must_refuse("ell_spmm", pokec_t, None, short,
                 torch.zeros(pokec.n, dtype=torch.bool, device=dev),
                 "pokec: first cell of each row dropped")
     del short
+    # broken versions of the row plan and of the threshold pass: every
+    # row's extent one short, the threshold read at the row, not the
+    # source, and (the frontier route) a bitmap that drops one word
+    x = mass_rows(gen, 1, pokec.n, dev)
+    want = ref.ell_spmm_ref(pokec_t[0], pokec_t[1], x.double(),
+                            pokec_t[2].double(), pokec_thr.double())
+    group = ell_spmv.frontier_group(pokec.n, 1)
+    word = int(torch.nonzero(x[0] > pokec_thr)[0]) // (32 * group)
+    dropped = x.clone()
+    dropped[0, word * 32 * group:(word + 1) * 32 * group] = 0.0
+    for label, broken in (
+            ("extent one short", ref.ell_spmm_ref(
+                pokec_t[0], extent_cut(pokec_t[1], pokec_plan.extent - 1),
+                x, pokec_t[2], pokec_thr)),
+            ("threshold at the row", row_threshold(
+                pokec_t[0], pokec_t[1], x, pokec_t[2], pokec_thr)),
+            (f"bitmap word {word} dropped", ref.ell_spmm_ref(
+                *pokec_t[:2], dropped, pokec_t[2], pokec_thr))):
+        _, ratio = err_ratio(broken, want, RTOL)
+        print(f"  {'ell_spmm':16s} {'broken: ' + label:34s} err/limit="
+              f"{ratio:.4g} {'refused' if ratio > 1 else 'PASSED'}")
+        check(ratio > 1.0, f"ell_spmm: the check passes a broken kernel "
+              f"({label})")
+    del dropped, want
+    # K1 and K4 on tables that are not left-packed (the plan's extents,
+    # random masks, a row whose only live cell is its last column, rows
+    # with none), at every K of the sweep, n not a multiple of the rows a
+    # warp takes; and a table past 2^19 nodes (two nodes a bitmap bit)
+    edge_tables = {K_e: edge_table(gen, EDGE_N, K_e, dev) for K_e in EDGE_KS}
+    for K_e, (nbr_e, msk_e, w_e) in edge_tables.items():
+        plan_e = ell_spmv.dense_plan(msk_e)
+        thr_e = torch.full((EDGE_N,), 0.5 / EDGE_N, device=dev)
+        for B in EDGE_BS:
+            for fused in (False, True):
+                x = mass_rows(gen, B, EDGE_N, dev)
+                thr = thr_e if fused else None
+                compare("ell_spmm",
+                        lambda: ell_spmv.ell_spmm_cuda(nbr_e, msk_e, w_e, x,
+                                                       thr, plan_e),
+                        (nbr_e, msk_e, w_e), None, x, thr,
+                        f"edge K={K_e} B={B} thr={fused}")
+        # the frontier route, which the rule gives only larger tables
+        x = mass_rows(gen, 1, EDGE_N, dev)
+        compare("ell_spmm",
+                lambda: k1_on_route((nbr_e, msk_e, w_e), plan_e, x, thr_e,
+                                    ell_spmv.bitmap_group(EDGE_N)).t(),
+                (nbr_e, msk_e, w_e), None, x, thr_e,
+                f"edge K={K_e} B=1 thr=True frontier")
+    half = small_test_graph(n=HALF_N, avg_deg=6, seed=2)
+    half_dg = half.device(dev)
+    half_t = (half_dg.in_neighbors, half_dg.in_mask, half_dg.in_weights)
+    half_thr = thr_of(half)
+    x = mass_rows(gen, 1, half.n, dev)
+    compare("ell_spmm",
+            lambda: ell_spmv.ell_spmm_cuda(*half_t, x, half_thr,
+                                           half_dg.in_plan),
+            half_t, None, x, half_thr,
+            f"n={half.n} B=1 thr ({ell_spmv.frontier_group(half.n, 1)} "
+            f"nodes a bit)")
+    del half, half_dg, half_t, half_thr
     # K2's fold structure, built once for the table as DeviceGraph builds it
     web_fold = ell_spmv.sliced_fold(web_rm, web.n, web_t[0].shape[1])
     item_rows = web_fold.items.numel() - web_fold.hub_items
@@ -1650,13 +2012,25 @@ def main() -> int:
                             drop_last_cell(msk))])
         check(float(ell_spmv.ell_spmv_cuda(nbr, msk, w, x)[0]) == 0.0,
               "ell_spmv: a row with no live cell is not 0")
-    for label, tables in (
-            (f"dense path n={small.n} K={dense_t[0].shape[1]}", dense_t),
-            (f"pokec n={pokec.n} K={pokec_t[0].shape[1]}", pokec_t)):
+    for K_e, (nbr_e, msk_e, w_e) in edge_tables.items():
+        spmv_check(f"edge K={K_e}", (nbr_e, msk_e, w_e),
+                   mass_rows(gen, 1, EDGE_N, dev)[0])
+        y_e = ell_spmv.ell_spmv_cuda(nbr_e, msk_e, w_e,
+                                     torch.ones(EDGE_N, device=dev))
+        check(float(y_e[0]) == 0.0 and float(y_e[EDGE_N - 1]) == 0.0,
+              f"ell_spmv edge K={K_e}: a row with no live cell is not 0")
+    del edge_tables
+    for label, tables, plan in (
+            (f"dense path n={small.n} K={dense_t[0].shape[1]}", dense_t,
+             dense_plan),
+            (f"pokec n={pokec.n} K={pokec_t[0].shape[1]}", pokec_t,
+             pokec_plan)):
         spmv_check(label, tables, mass_rows(gen, 1, tables[0].shape[0],
                                             dev)[0],
                    broken=[("last cell of each row dropped",
-                            drop_last_cell(tables[1]))])
+                            drop_last_cell(tables[1])),
+                           ("extent one short",
+                            extent_cut(tables[1], plan.extent - 1))])
 
     # K5 on ids outside [0, V), against the plain version (NaN equal NaN)
     tab = torch.randn((4, 3), generator=gen, device=dev)
@@ -1873,7 +2247,8 @@ def main() -> int:
     print(f"phase 5: kernel times (device time by torch.profiler; events = "
           f"host pace of back-to-back calls), card {card}")
 
-    def timed(name, nbr, msk, w, rm, thr, x, label, reps=200, fold=None):
+    def timed(name, nbr, msk, w, rm, thr, x, label, reps=200, fold=None,
+              plan=None):
         n, B = x.shape[1], x.shape[0]
         is_sliced = rm is not None
         if is_sliced:
@@ -1881,7 +2256,7 @@ def main() -> int:
                 nbr, msk, w, rm, x, thr, fold)
         else:
             kern = lambda: ell_spmv.ell_spmm_cuda(  # noqa: E731
-                nbr, msk, w, x, thr)
+                nbr, msk, w, x, thr, plan)
         a = csr_of(nbr, msk, w, rm, n)
         xT = x.t().contiguous()
         lib = lambda: torch.sparse.mm(a, xT)  # noqa: E731
@@ -1908,19 +2283,23 @@ def main() -> int:
     # host cost of one launch through ctypes, beside the wrapper's
     x3 = mass_rows(gen, 3, small.n, dev)
     lib = ell_spmv._lib()
-    xT3, y3 = x3.t().contiguous(), torch.empty((small.n, 3), device=dev)
-    raw = [t.data_ptr() for t in (*dense_t, xT3, dense_thr, y3)]
+    xm3, y3 = torch.empty((small.n, 3), device=dev), \
+        torch.empty((small.n, 3), device=dev)
+    raw = [t.data_ptr() for t in (*dense_t, dense_plan.extent, x3,
+                                  dense_thr, xm3)]
     stream = torch.cuda.current_stream(dev).cuda_stream
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(1000):
-        lib.ell_spmm_dense_launch(*raw, small.n, dense_t[0].shape[1], 3,
-                                  stream)
+        lib.ell_spmm_dense_launch(
+            *raw, None, y3.data_ptr(), x3.stride(0), x3.stride(1), small.n,
+            small.n, dense_t[0].shape[1], 3, dense_plan.lanes.bit_length() - 1,
+            -1, stream)
     torch.cuda.synchronize()
     raw_us = (time.perf_counter() - t0) * 1e3
     t0 = time.perf_counter()
     for _ in range(1000):
-        ell_spmv.ell_spmm_cuda(*dense_t, x3, dense_thr)
+        ell_spmv.ell_spmm_cuda(*dense_t, x3, dense_thr, dense_plan)
     torch.cuda.synchronize()
     wrap_us = (time.perf_counter() - t0) * 1e3
     print(f"  host: raw ctypes launch {raw_us:.2f} us/call, checked "
@@ -1929,7 +2308,7 @@ def main() -> int:
     # block), both with the fused threshold as the push runs them
     k1 = timed("ell_spmm", *dense_t, None, dense_thr,
                mass_rows(gen, len(DENSE_SOURCES), small.n, dev),
-               f"dense path n=2000 B={len(DENSE_SOURCES)}")
+               f"dense path n=2000 B={len(DENSE_SOURCES)}", plan=dense_plan)
     # x as the push passes it: the transpose of an (n, B) residual
     k2 = timed("ell_spmm_sliced", *web_t, web_rm, web_thr,
                mass_rows(gen, ForaExecutor.block_size, web.n, dev),
@@ -1940,25 +2319,30 @@ def main() -> int:
               mass_rows(gen, B, web.n, dev).t().contiguous().t(),
               f"web-stanford B={B}", reps=50, fold=web_fold)
     # K1 where phase 8 launches it: the Pokec-order table at B = 1 (a FORA
-    # query's push), phase 8's threshold
+    # query's push: the frontier route), phase 8's threshold; x of mass
+    # rows, most of it above the threshold
     timed("ell_spmm", *pokec_t, None, pokec_thr,
           mass_rows(gen, 1, pokec.n, dev),
-          f"pokec n={pokec.n} K={pokec_t[0].shape[1]} B=1 thr", reps=50)
+          f"pokec n={pokec.n} K={pokec_t[0].shape[1]} B=1 thr", reps=50,
+          plan=pokec_plan)
     uni = small_test_graph(n=web.n, avg_deg=web.m / web.n, seed=1)
     uni_t, _, uni_thr = table(uni, "dense")
+    uni_plan = ell_spmv.dense_plan(uni_t[1])
     for B in (1, 64):
         timed("ell_spmm", *uni_t, None, uni_thr,
               mass_rows(gen, B, uni.n, dev),
-              f"uniform n={uni.n} K={uni_t[0].shape[1]} B={B}", reps=50)
+              f"uniform n={uni.n} K={uni_t[0].shape[1]} B={B}", reps=50,
+              plan=uni_plan)
 
-    def timed_spmv(tables, label, reps=200):
+    def timed_spmv(tables, plan, label, reps=200):
         """K4 on a dense table at B = 1, as the power iteration runs it:
         beside spmm_cost's bound at B = 1, the float32 plain version and
         ``torch.sparse.mm`` of the same table on an (n, 1) column."""
         nbr, msk, w = tables
         n = nbr.shape[0]
         x = mass_rows(gen, 1, n, dev)[0]
-        kern = lambda: ell_spmv.ell_spmv_cuda(nbr, msk, w, x)  # noqa: E731
+        kern = lambda: ell_spmv.ell_spmv_cuda(  # noqa: E731
+            nbr, msk, w, x, plan)
         plain_f = lambda: ref.ell_spmv_ref(nbr, msk, x, w)  # noqa: E731
         a = csr_of(nbr, msk, w, None, n)
         xc = x[:, None].contiguous()
@@ -1980,10 +2364,35 @@ def main() -> int:
         del a
         return ms, plain_ms, bound, by, lib_ms
 
-    k4 = timed_spmv(pokec_t, f"pokec n={pokec.n} K={pokec_t[0].shape[1]} "
-                             f"B=1")
-    timed_spmv(dense_t, f"dense path n={small.n} K={dense_t[0].shape[1]} "
-                        f"B=1")
+    k4 = timed_spmv(pokec_t, pokec_plan,
+                    f"pokec n={pokec.n} K={pokec_t[0].shape[1]} B=1")
+    timed_spmv(dense_t, dense_plan,
+               f"dense path n={small.n} K={dense_t[0].shape[1]} B=1")
+    floors(floors_lib, pokec_t, pokec_plan, k4, card)
+    timed_residuals(pokec_t, pokec_plan, pokec_thr, residuals, card)
+    # K1's two routes over one query's push from node 0, the measure of
+    # the route rule (ell_spmv.FRONTIER_MIN_N): the dense (index) path's
+    # table, uniform tables at Pokec's mean degree, the uniform table above
+    # and phase 8's, each at its path's push threshold (phase 8's for the
+    # Pokec-order table, FORA's default for the rest)
+    pokec_params = ForaParams(epsilon=0.5, rmax_scale=POKEC_RMAX_SCALE)
+    route_cases = [("dense path", small, dense_t, dense_plan,
+                    ForaParams(epsilon=0.5))]
+    for n_r in ROUTE_SIZES:
+        g_r = small_test_graph(n=n_r, avg_deg=POKEC_M / POKEC_N, seed=3)
+        t_r = table(g_r, "dense")[0]
+        route_cases.append(("uniform", g_r, t_r, ell_spmv.dense_plan(t_r[1]),
+                            ForaParams(epsilon=0.5)))
+    route_cases += [("uniform", uni, uni_t, uni_plan, ForaParams(epsilon=0.5)),
+                    ("pokec", pokec, pokec_t, pokec_plan, pokec_params)]
+    for label, g_r, t_r, plan_r, params_r in route_cases:
+        res_r = push_residuals(
+            t_r, torch.from_numpy(g_r.out_degree).to(dev), plan_r, 0,
+            params_r.resolve(g_r).rmax)
+        timed_push_routes(label, t_r, plan_r, thr_of(g_r, params_r), res_r,
+                          card, reps=3 if g_r.n > 1 << 20 else 20)
+        del res_r
+    del route_cases
 
     def timed_gather(idx, budget, graph, dgraph, L, label, reps=200):
         """K3 at a path's shape: the index's table, and starts and weights

@@ -3,8 +3,9 @@
 Each source under ``csrc/`` is compiled at first use with ``nvcc`` into a
 shared library with a plain C interface, and loaded with ``ctypes``. The
 library lands in ``build/kernels/`` at the root of the checkout, named by a
-hash of its source and flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is. A failed build raises with the
+hash of its source, the ``csrc/`` headers it includes (``#include "..."``)
+and the flags, so an edited source or header is rebuilt and an unchanged
+one is loaded as it is. A failed build raises with the
 compiler's output. Nothing here runs when the package is imported.
 """
 
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from collections.abc import Iterable, Mapping
@@ -47,9 +49,15 @@ def nvcc_path() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#include\s+"([^"]+)"', re.MULTILINE)
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes()
+    text = (CSRC / SOURCES[name]).read_bytes()
+    headers = sorted(set(_INCLUDE.findall(text)))
+    content = text + b"".join((CSRC / h.decode()).read_bytes()
+                              for h in headers)
+    digest = hashlib.sha256(content
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -3,112 +3,92 @@
 //   y[b, i] = sum_j mask[i,j] * w[i,j] * f(x[b, nbr[i,j]])
 //   f(v)    = v * [v > thr[nbr[i,j]]]   when a threshold is given, else v
 //
-// x and y are carried transposed, xT (n, B) and yT (n, B), so that one
-// neighbour gather reads B contiguous floats. Built with nvcc into a shared
-// library with a plain C interface and called through ctypes from
-// repro_torch/kernels/ell_spmv.py, which checks every argument first. The
-// sliced table's product (K2) is ell_spmm_sliced.cu.
+// It replaces repro/kernels/ell_spmv.py::ell_spmm_pallas (body
+// _spmm_partials, run through _spmm_virtual_rows). Built with nvcc into a
+// shared library with a plain C interface and called through ctypes from
+// repro_torch/kernels/ell_spmv.py (ell_spmm_cuda), which checks every
+// argument first. The sliced table's product (K2) is ell_spmm_sliced.cu;
+// the row kernel is shared with K4 through ell_rows.cuh, whose header says
+// how the lanes are laid out.
 //
-// Lane layout (one warp, 32 lanes): lane = (rw, kg, b) with b the fastest
-// index. BL = 2^lg_bl lanes cover the batch (B <= 32 in one pass, more in
-// chunks of 32), KG = 2^lg_kg lanes stride over the row's cells, and the
-// remaining 32 / (BL*KG) lane groups take one row each. At B = 1 and a
-// width-8 table a warp therefore works on four rows at once instead of
-// leaving 24 of 32 lanes idle. The KG lane partials are combined with a
-// fixed xor butterfly, so every output has one summation order per
-// (K, B) shape: no atomics, the same bits on every run.
+// What bounds it on the H100, measured at Pokec's order (1,632,803 x 48
+// cells, 30.6M live, B = 1; device time, H100 80GB HBM3 at 700 W,
+// chip_smoke.py phase 5 with the floors of tools/ell_floors.cu): not the
+// table's HBM bytes (spmm_cost's bound, 88 us) but the gathers. Reading
+// each row's live cells with no gather takes 137 us (the table floor); a
+// minimal kernel that only gathers x at the 30.6M live neighbours takes
+// 233 us, 218 us at as many scattered indices with no list (the gather
+// floor): each 4-byte gather moves one 32-byte L2 sector, and L2's rate of
+// random sectors, not HBM, sets that floor. The gathers also need L1's
+// room to keep their misses in flight, so the frontier route below
+// keeps its shared memory small. Two passes:
+//
+// 0. prepare_x, when a threshold is given or x is not laid out (n, B):
+//    xm[i, b] = f(x[b, i]), the push condition applied once a source, so the
+//    rows gather one float a live cell and never read thr (the old K1
+//    gathered x and thr[src], 61.2M random reads at that size).
+// 1. ell_rows: KG lanes a row, KG from the table's extents (the plan), so
+//    a row with 19 live cells of 48 is read as five 16-byte units on eight
+//    lanes instead of two rounds of 32 lanes; each lane loads its units'
+//    neighbours, weights and mask bytes before it gathers, up to 8 gathers
+//    in flight a lane.
+//
+// At B = 1 (a FORA query's push) the wrapper takes the frontier route on a
+// table large enough for it to pay and whose bitmap fits
+// (ell_spmv.py::frontier_group, from n alone): prepare_frontier also
+// writes one bit a group of g nodes, and ell_rows_frontier gathers no
+// source whose group holds no node above the threshold. Most sweeps of a
+// push have a small frontier, and a gather of a zero costs the L2 sector
+// all the same.
 
-#include <cstdint>
-#include <cuda_runtime.h>
-
-namespace {
-
-constexpr int kBlock = 256;
-constexpr int kWarpsPerBlock = kBlock / 32;
-
-int ceil_log2(int v) {
-  int lg = 0;
-  while ((1 << lg) < v) ++lg;
-  return lg;
-}
-
-template <bool kFuse>
-__global__ void __launch_bounds__(kBlock)
-ell_rows(const int32_t* __restrict__ nbr, const uint8_t* __restrict__ mask,
-         const float* __restrict__ w, const float* __restrict__ xT,
-         const float* __restrict__ thr, float* __restrict__ out,
-         int rows, int K, int B, int lg_bl, int lg_kg) {
-  const int lane = threadIdx.x & 31;
-  const int bl = 1 << lg_bl;
-  const int kgs = 1 << lg_kg;
-  const int b_lane = lane & (bl - 1);
-  const int kg = (lane >> lg_bl) & (kgs - 1);
-  const int rows_per_warp = 32 >> (lg_bl + lg_kg);
-  const long long warp =
-      static_cast<long long>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
-  const long long row = warp * rows_per_warp + (lane >> (lg_bl + lg_kg));
-  const bool live = row < rows;
-
-  const long long base = row * K;
-  for (int b0 = 0; b0 < B; b0 += bl) {
-    const int b = b0 + b_lane;
-    float acc = 0.f;
-    if (live && b < B) {
-      for (int j = kg; j < K; j += kgs) {
-        if (mask[base + j]) {
-          const int src = nbr[base + j];
-          float v = xT[static_cast<long long>(src) * B + b];
-          if (kFuse && !(v > thr[src])) v = 0.f;
-          acc += w[base + j] * v;
-        }
-      }
-    }
-    for (int off = bl; off < bl * kgs; off <<= 1) {
-      acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    }
-    if (live && b < B && kg == 0) out[row * B + b] = acc;
-  }
-}
-
-void lane_map(int K, int B, int* lg_bl, int* lg_kg) {
-  *lg_bl = ceil_log2(B < 32 ? B : 32);
-  const int room = 32 >> *lg_bl;
-  *lg_kg = ceil_log2(K < room ? K : room);
-}
-
-cudaError_t launch_rows(const int32_t* nbr, const uint8_t* mask,
-                        const float* w, const float* xT, const float* thr,
-                        float* out, int rows, int K, int B,
-                        cudaStream_t stream) {
-  int lg_bl, lg_kg;
-  lane_map(K, B, &lg_bl, &lg_kg);
-  const long long rows_per_warp = 32 >> (lg_bl + lg_kg);
-  const long long warps = (rows + rows_per_warp - 1) / rows_per_warp;
-  const unsigned grid =
-      static_cast<unsigned>((warps + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  if (thr != nullptr) {
-    ell_rows<true><<<grid, kBlock, 0, stream>>>(
-        nbr, mask, w, xT, thr, out, rows, K, B, lg_bl, lg_kg);
-  } else {
-    ell_rows<false><<<grid, kBlock, 0, stream>>>(
-        nbr, mask, w, xT, thr, out, rows, K, B, lg_bl, lg_kg);
-  }
-  return cudaGetLastError();
-}
-
-}  // namespace
+#include "ell_rows.cuh"
 
 extern "C" {
 
-// K1: yT (n, B) from the dense (n, K) table. thr may be null (no threshold).
+// K1: yT (rows, B) from the dense (rows, K) table and its extents (rows,)
+// int32. x (B, n) f32 lies at strides (sb, si); thr (n,) may be null (no
+// threshold). xm (n, B) f32 is caller-allocated scratch for x masked by the
+// threshold and laid out (n, B); when it is null, x is read as it lies and
+// must be (n, B) row-major (si == B, and sb == 1 or B == 1) with no
+// threshold. lg_lanes is log2 of the plan's lanes a row. lg_g >= 0 takes
+// the frontier route (B = 1, rows == n) with groups of 2^lg_g nodes a bit:
+// xm (n,) and bits (one bit a group, in 32-bit words) are then required.
+// Returns a cudaError_t.
 int ell_spmm_dense_launch(const void* nbr, const void* mask, const void* w,
-                          const void* xT, const void* thr, void* yT, int rows,
-                          int K, int B, void* stream) {
+                          const void* extent, const void* x, const void* thr,
+                          void* xm, void* bits, void* yT, long long sb,
+                          long long si, int rows, int n, int K, int B,
+                          int lg_lanes, int lg_g, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (lg_g >= 0) {
+    if (B != 1 || rows != n || xm == nullptr || bits == nullptr) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return static_cast<int>(launch_frontier(
+        static_cast<const int32_t*>(nbr), static_cast<const uint8_t*>(mask),
+        static_cast<const float*>(w), static_cast<const int32_t*>(extent),
+        static_cast<const float*>(x), static_cast<const float*>(thr),
+        static_cast<float*>(xm), static_cast<unsigned*>(bits),
+        static_cast<float*>(yT), si, rows, K, lg_lanes, lg_g, s));
+  }
+  const float* xT = static_cast<const float*>(x);
+  if (xm != nullptr) {
+    const long long cells = static_cast<long long>(n) * B;
+    prepare_x<<<static_cast<unsigned>((cells + kBlock - 1) /
+                                           kBlock),
+                     kBlock, 0, s>>>(xT, static_cast<const float*>(thr),
+                                          static_cast<float*>(xm), sb, si, n,
+                                          B);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    xT = static_cast<const float*>(xm);
+  } else if (thr != nullptr || si != B || (sb != 1 && B != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(launch_rows(
       static_cast<const int32_t*>(nbr), static_cast<const uint8_t*>(mask),
-      static_cast<const float*>(w), static_cast<const float*>(xT),
-      static_cast<const float*>(thr), static_cast<float*>(yT), rows, K, B,
-      static_cast<cudaStream_t>(stream)));
+      static_cast<const float*>(w), static_cast<const int32_t*>(extent), xT,
+      static_cast<float*>(yT), rows, K, B, lg_lanes, s));
 }
 
 const char* ell_spmm_error_string(int code) {

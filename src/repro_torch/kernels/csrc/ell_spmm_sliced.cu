@@ -54,35 +54,9 @@
 // on every launch. A row's chain of float32 adds is at most units-per-lane
 // + 7 (64 + 7 at W = 8 and B > 16), so the error stays near 70 * 2^-24.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "ell_rows.cuh"   // prepare_x, shared with K1
 
 namespace {
-
-constexpr int kBlock = 256;
-constexpr int kWarpsPerBlock = kBlock / 32;
-
-int ceil_log2(int v) {
-  int lg = 0;
-  while ((1 << lg) < v) ++lg;
-  return lg;
-}
-
-// xm[i, b] = f(x[b, i]) for x (B, n) at strides (sb, si): FORA's push
-// condition applied once a source instead of once a cell, and x laid out
-// (n, B) for the rows' gathers.
-__global__ void __launch_bounds__(kBlock)
-prepare_x(const float* __restrict__ x, const float* __restrict__ thr,
-          float* __restrict__ xm, long long sb, long long si, int n, int B) {
-  const long long idx =
-      static_cast<long long>(blockIdx.x) * kBlock + threadIdx.x;
-  if (idx >= static_cast<long long>(n) * B) return;
-  const long long i = idx / B;
-  const long long b = idx - i * B;
-  float v = x[b * sb + i * si];
-  if (thr != nullptr && !(v > thr[i])) v = 0.f;
-  xm[idx] = v;
-}
 
 // The sum of one unit (kVec consecutive cells starting at cell u * kVec).
 // The table streams past (evict-first loads), x stays in L2; a masked cell
@@ -245,10 +219,6 @@ cudaError_t launch(const int32_t* nbr, const uint8_t* mask, const float* w,
   fold_hubs<<<(n_hubs + kWarpsPerBlock - 1) / kWarpsPerBlock, kBlock, 0,
               stream>>>(partials, hubs, hub_chunks, yT, B, n_hubs, lg_bl);
   return cudaGetLastError();
-}
-
-bool aligned(const void* p, uintptr_t bytes) {
-  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
 }  // namespace

@@ -10,87 +10,41 @@
 //
 // It replaces repro/kernels/ell_spmv.py::ell_spmv_pallas (body _ell_kernel).
 // The TPU kernel keeps x resident in VMEM for each block of 256 rows and
-// walks K in chunks of 128 lanes. The card has no VMEM of that size; instead
-// x (6.5 MB at 1.6M nodes) stays in the 50 MB L2 between gathers, and each
-// row's cells are spread over lanes so that a narrow table still fills the
-// warp:
+// walks K in chunks of 128 lanes. The card has no VMEM of that size; x
+// (6.5 MB at 1.6M nodes) stays in the 50 MB L2 between gathers. It is K1's
+// row kernel (ell_rows.cuh) at B = 1 with no threshold, so it reads x as it
+// lies and needs no first pass.
 //
-// * G = 2^ceil(log2(min(K, 32))) lanes take one row, the remaining
-//   32 / G lane groups of the warp one row each. At K = 8 a warp works on
-//   four rows, at K = 48 on one, and neighbouring lanes read neighbouring
-//   cells, so the table is read in whole sectors;
-// * lane c of a row adds cells c, c + G, c + 2G, ... in order, and the G
-//   lane partials are combined by a fixed xor butterfly: every output has
-//   one summation order for a given K, no atomics, the same bits on every
-//   launch;
-// * a masked-out cell reads neither its neighbour nor its weight, so a row
-//   whose mask is all false comes out 0; row * K is a 64-bit offset.
-//
-// What bounds it on the H100: bytes. Each cell's mask byte is read, and
-// each live cell's neighbour and weight (8 bytes) and one float of x from
-// L2; y is written once. Two flops a live cell, far below the card's ratio
-// of operations to bytes. At Pokec's order (1.6M x 48, 30.6M live cells)
-// it takes about four times that bound (PERF.md). A variant with four
-// cells a lane and their loads in flight (four rows a warp) was no faster,
-// so a row's three dependent loads are not what holds it; each gather of x
-// moves a whole 32-byte L2 sector for 4 bytes, 980 MB at that size.
+// What bounds it on the H100, measured at Pokec's order (30.6M live cells;
+// device time, H100 80GB HBM3 at 700 W, chip_smoke.py phase 5 with the
+// floors of tools/ell_floors.cu): the gathers, not the table's HBM bytes
+// (spmm_cost's bound, 86 us). Each 4-byte gather of x moves a 32-byte L2
+// sector; gathering x at the table's live neighbours and reading nothing
+// else but their list takes 233 us (218 at scattered indices with no list:
+// the L2's sector rate), reading the rows' live cells with no gather 137
+// us, and this kernel 303 us, about what torch.sparse.mm takes (301). The
+// earlier finding that four cells a lane was no faster than one is this
+// floor: no lane layout moves fewer sectors. The old kernel gave each row
+// 32 lanes at K = 48 (two rounds over j, each a chain of dependent loads:
+// mask byte, then neighbour, then x), so most lanes loaded a mask byte and
+// waited, 366 us. Here a row takes the plan's lanes (8 at that table), each
+// loads up to two 16-byte units of neighbours and weights before it
+// gathers, and cells past the row's extent are not read.
 
-#include <cstdint>
-#include <cuda_runtime.h>
-
-namespace {
-
-constexpr int kBlock = 256;
-constexpr int kWarpsPerBlock = kBlock / 32;
-
-int ceil_log2(int v) {
-  int lg = 0;
-  while ((1 << lg) < v) ++lg;
-  return lg;
-}
-
-__global__ void __launch_bounds__(kBlock)
-spmv_rows(const int32_t* __restrict__ nbr, const uint8_t* __restrict__ mask,
-          const float* __restrict__ w, const float* __restrict__ x,
-          float* __restrict__ y, int rows, int K, int lg_g) {
-  const int lane = threadIdx.x & 31;
-  const int g = 1 << lg_g;
-  const int cell = lane & (g - 1);
-  const long long warp =
-      static_cast<long long>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
-  const long long row = warp * (32 >> lg_g) + (lane >> lg_g);
-  const bool live = row < rows;
-  float acc = 0.f;
-  if (live) {
-    const long long base = row * K;
-    for (int j = cell; j < K; j += g) {
-      if (mask[base + j]) acc += w[base + j] * __ldg(x + nbr[base + j]);
-    }
-  }
-  // every lane of the warp takes part, live or not
-  for (int off = 1; off < g; off <<= 1) {
-    acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  }
-  if (live && cell == 0) y[row] = acc;
-}
-
-}  // namespace
+#include "ell_rows.cuh"
 
 extern "C" {
 
-// y (rows,) from the dense (rows, K) table and x. Returns a cudaError_t.
+// y (rows,) from the dense (rows, K) table, its extents (rows,) int32 and
+// x (n,). lg_lanes is log2 of the plan's lanes a row. Returns a cudaError_t.
 int ell_spmv_launch(const void* nbr, const void* mask, const void* w,
-                    const void* x, void* y, int rows, int K, void* stream) {
-  const int lg_g = ceil_log2(K < 32 ? K : 32);
-  const long long rows_per_warp = 32 >> lg_g;
-  const long long warps = (rows + rows_per_warp - 1) / rows_per_warp;
-  const unsigned grid =
-      static_cast<unsigned>((warps + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  spmv_rows<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+                    const void* extent, const void* x, void* y, int rows,
+                    int K, int lg_lanes, void* stream) {
+  return static_cast<int>(launch_rows(
       static_cast<const int32_t*>(nbr), static_cast<const uint8_t*>(mask),
-      static_cast<const float*>(w), static_cast<const float*>(x),
-      static_cast<float*>(y), rows, K, lg_g);
-  return static_cast<int>(cudaGetLastError());
+      static_cast<const float*>(w), static_cast<const int32_t*>(extent),
+      static_cast<const float*>(x), static_cast<float*>(y), rows, K, 1,
+      lg_lanes, static_cast<cudaStream_t>(stream)));
 }
 
 const char* ell_spmv_error_string(int code) {

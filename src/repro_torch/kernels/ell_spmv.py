@@ -7,22 +7,28 @@ power iteration's step.
 ``ell_spmm_sliced_pallas`` (line 234, body ``_ell_spmm_fold_kernel``) and
 launches ``csrc/ell_spmm_sliced.cu``. ``ell_spmv_cuda`` (K4) replaces
 ``ell_spmv_pallas`` (body ``_ell_kernel``), the one-vector product
-``P^T x`` of exact power iteration, and launches ``csrc/ell_spmv.cu``.
-Each source's header says how its lanes are laid out.
+``P^T x`` of exact power iteration, and launches ``csrc/ell_spmv.cu``. K1
+and K4 share one row kernel (``csrc/ell_rows.cuh``). Each source's header
+says how its lanes are laid out.
 
 What bounds them on the H100: bytes. Per call a sweep reads each table
 cell once (int32 neighbour + bool mask + f32 weight, 9 bytes), gathers B
-floats of x and one threshold per cell, and writes (rows, B) floats; it
-does two flops per cell and batch column, far below the card's ratio of
-operations to bytes. The Pallas kernels kept x resident in VMEM and the
-sliced fold's (n + 1, B) accumulator resident across a sequential grid;
-the card has neither a sequential grid nor a VMEM of that size. Instead:
+floats of x a live cell, and writes (rows, B) floats; it does two flops
+per cell and batch column, far below the card's ratio of operations to
+bytes. Each 4-byte gather moves a 32-byte L2 sector, so on a large table
+the gathers, not the table, set the pace. The Pallas kernels kept x
+resident in VMEM and the sliced fold's (n + 1, B) accumulator resident
+across a sequential grid; the card has neither a sequential grid nor a
+VMEM of that size. Instead:
 
 * x is carried as (n, B), so one gather reads B contiguous floats, and at
-  the sizes of this system's datasets x and the threshold stay in the
-  50 MB L2 between gathers;
+  the sizes of this system's datasets x stays in the 50 MB L2 between
+  gathers; K1 and K2 apply the push threshold once a source in a first
+  pass, so a live cell gathers one float and no threshold;
 * lanes are laid out (row, cell, batch) so that narrow tables and B = 1
-  still fill the warp (see the sources' headers);
+  still fill the warp. On a dense table the lanes a row takes and the
+  cells it reads follow its live extent, a constant of the table
+  (:class:`DensePlan`, built once by :func:`dense_plan`), not K;
 * the sliced fold's structure is a constant of the table
   (:class:`SlicedFold`, built once by :func:`sliced_fold`): each row is
   folded by the lanes that read its cells, in one pass, short rows several
@@ -46,16 +52,19 @@ import torch
 
 from . import _build
 
-# launches of each wrapper since the last reset_launches(); a K2 call counts
-# once although it runs two CUDA kernels when the table has hubs (rows, then
-# the hubs' fold)
+# launches of each wrapper since the last reset_launches(); a K1 or K2 call
+# counts once although it runs two CUDA kernels when it applies a threshold
+# (the first pass, then the rows; K2's hubs' fold a third)
 LAUNCHES: dict[str, int] = {"ell_spmm": 0, "ell_spmm_sliced": 0,
                             "ell_spmv": 0}
+# of the ell_spmm calls, those that took the frontier route
+ROUTES: dict[str, int] = {"ell_spmm_frontier": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "ell_spmm_dense_launch": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
+    "ell_spmm_dense_launch": ([_P] * 9 + [ctypes.c_longlong] * 2
+                              + [_I] * 6 + [_P], _I),
     "ell_spmm_error_string": ([_I], ctypes.c_char_p),
 }
 _SLICED_SIGNATURES = {
@@ -64,7 +73,7 @@ _SLICED_SIGNATURES = {
     "ell_spmm_sliced_error_string": ([_I], ctypes.c_char_p),
 }
 _SPMV_SIGNATURES = {
-    "ell_spmv_launch": ([_P, _P, _P, _P, _P, _I, _I, _P], _I),
+    "ell_spmv_launch": ([_P] * 6 + [_I] * 3 + [_P], _I),
     "ell_spmv_error_string": ([_I], ctypes.c_char_p),
 }
 _INT32_MAX = 2**31 - 1
@@ -74,6 +83,56 @@ _INT32_MAX = 2**31 - 1
 # item of its own; the rest share warps
 WARP_CELLS = 256
 SHORT_CELLS = 16
+# cells one 16-byte unit of a dense row holds, when K is a multiple of it
+DENSE_VEC = 4
+# K1's frontier route: the bitmap a block of the rows kernel holds in shared
+# memory (two blocks an SM leave the rest of the SM's 256 KB to L1, which
+# the gathers need), at most FRONTIER_GROUP nodes a bit
+FRONTIER_BYTES = 64 << 10
+FRONTIER_GROUP = 4
+# ... and the least n that takes it: the least n at which the frontier
+# route took less device time over a push than the plain route
+# (chip_smoke.py phase 5, PERF.md)
+FRONTIER_MIN_N = 1 << 14
+
+
+class DensePlan(NamedTuple):
+    """The row plan of one dense table, a constant of the table: built once
+    by :func:`dense_plan` (``DeviceGraph`` carries it as ``in_plan``) and
+    passed to every K1 and K4 call on that table. It must come from that
+    table's own mask: the wrappers check its shape, not its extents, and a
+    plan of another mask of the same shape reads each row only up to that
+    mask's extent."""
+
+    extent: torch.Tensor       # (n,) int32: 1 + last live column, 0 if none
+    lanes: int                 # lanes a row takes at B = 1, a power of two
+    width: int                 # K of the table
+
+
+def dense_plan(mask: torch.Tensor) -> DensePlan:
+    """The row plan of a dense (n, K) table from its mask, on the mask's
+    device. ``extent[i]`` is 1 + the last live column of row i, 0 for a row
+    with no live cell; the kernels read no cell at or past it. A row's
+    units are its cells below the extent in runs of ``DENSE_VEC`` (one
+    16-byte load) when K is a multiple of it, else one by one, and
+    ``lanes`` is the least power of two at or above the mean units of the
+    rows that have any (1 when none has), at most 32: the lanes that share
+    a row, so that most rows are read in one pass of their lanes and few
+    lanes load nothing. One read back to the host, once a table."""
+    if mask.dim() != 2 or mask.dtype != torch.bool or mask.shape[1] < 1:
+        raise ValueError(f"mask must be (n, K >= 1) bool, got {mask.dtype} "
+                         f"{tuple(mask.shape)}")
+    width = int(mask.shape[1])
+    col = torch.arange(1, width + 1, dtype=torch.int32, device=mask.device)
+    extent = torch.where(mask, col, 0).amax(dim=1).to(torch.int32)
+    vec = DENSE_VEC if width % DENSE_VEC == 0 else 1
+    units = (extent + vec - 1) // vec
+    held = units[units > 0]
+    mean = float(held.double().mean()) if held.numel() else 1.0
+    lanes = 1
+    while lanes < min(mean, 32):
+        lanes *= 2
+    return DensePlan(extent=extent.contiguous(), lanes=lanes, width=width)
 
 
 class SlicedFold(NamedTuple):
@@ -132,9 +191,34 @@ def sliced_fold(row_map: torch.Tensor, n: int, width: int) -> SlicedFold:
                       width=width)
 
 
+def bitmap_group(n: int) -> int:
+    """Nodes a bit of a frontier bitmap over n nodes: the least power of
+    two g <= FRONTIER_GROUP whose ceil(n / g) bits fit FRONTIER_BYTES, or 0
+    where none fits."""
+    g = 1
+    while -(-n // g) > FRONTIER_BYTES * 8:
+        g *= 2
+        if g > FRONTIER_GROUP:
+            return 0
+    return g
+
+
+def frontier_group(n: int, B: int) -> int:
+    """Nodes a bit of K1's frontier bitmap for an (n, B) sweep, or 0 for the
+    plain route: :func:`bitmap_group` at B = 1 and n >= FRONTIER_MIN_N. A
+    push at B = 1 (a FORA query) then gathers only the sources whose group
+    holds a node above the threshold; a wider batch gathers the union of
+    its columns' frontiers, and a smaller table, whose gathers cost less
+    than the bitmap's pass, takes the plain route."""
+    if B != 1 or n < FRONTIER_MIN_N:
+        return 0
+    return bitmap_group(n)
+
+
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, ROUTES):
+        for name in counts:
+            counts[name] = 0
 
 
 def _check_table(neighbors, mask, weights, device) -> tuple[int, int]:
@@ -200,27 +284,62 @@ def _ptr(t: torch.Tensor | None) -> int | None:
     return None if t is None else t.data_ptr()
 
 
+def _check_plan(plan: DensePlan | None, mask: torch.Tensor) -> DensePlan:
+    """The table's plan, derived from the mask when not given, after
+    checking that it fits the table."""
+    if plan is None:
+        return dense_plan(mask)
+    rows, width = mask.shape
+    ext = plan.extent
+    if plan.width != width or ext.shape != (rows,) \
+            or ext.dtype != torch.int32 or ext.device != mask.device \
+            or not ext.is_contiguous():
+        raise ValueError(f"plan is for width {plan.width} with extent "
+                         f"{ext.dtype} {tuple(ext.shape)} on {ext.device}; "
+                         f"the table is {rows} x {width} on {mask.device}")
+    if not (plan.lanes >= 1 and plan.lanes & (plan.lanes - 1) == 0
+            and plan.lanes <= 32):
+        raise ValueError(f"plan.lanes must be a power of two <= 32, got "
+                         f"{plan.lanes}")
+    return plan
+
+
 def ell_spmm_cuda(neighbors: torch.Tensor, mask: torch.Tensor,
                   weights: torch.Tensor, x: torch.Tensor,
-                  threshold: torch.Tensor | None = None) -> torch.Tensor:
+                  threshold: torch.Tensor | None = None,
+                  plan: DensePlan | None = None) -> torch.Tensor:
     """K1: dense pull-form SpMM on the card. neighbors/mask/weights are the
     (n, K) table (int32/bool/float32), x is (B, n) float32, ``threshold``
-    (n,) fuses FORA's push condition. Returns (B, n), a transposed view of
-    the kernel's (n, B) output."""
+    (n,) fuses FORA's push condition. ``plan`` is the table's
+    :func:`dense_plan`; without it the call derives it first (one
+    reduction over the mask and a read back), so a sweep loop passes it.
+    Returns (B, n), a transposed view of the kernel's (n, B) output."""
     B, n, thr = _check_x(x, threshold)
-    # (n, B) row-major; free when x is already a transposed (n, B) tensor
-    xT = x.t().contiguous()
     rows, width = _check_table(neighbors, mask, weights, x.device)
     if rows != n:
         raise ValueError(f"dense table has {rows} rows for n={n}")
+    plan = _check_plan(plan, mask)
+    # x masked by the threshold and laid out (n, B) by the kernel's first
+    # pass, unless x lies (n, B) already (an (n, B) tensor's transpose, as
+    # the push passes it) and there is no threshold; the frontier route's
+    # first pass always writes xm and the bitmap
+    group = frontier_group(n, B)
+    laid_out = x.stride(1) == B and (x.stride(0) == 1 or B == 1)
+    xm = None if thr is None and laid_out and not group else \
+        torch.empty((n, B), dtype=torch.float32, device=x.device)
+    bits = torch.empty(-(-n // (32 * group)), dtype=torch.int32,
+                       device=x.device) if group else None
     yT = torch.empty((rows, B), dtype=torch.float32, device=x.device)
     lib = _lib()
     stream = torch.cuda.current_stream(x.device.index).cuda_stream
     err = lib.ell_spmm_dense_launch(
-        _ptr(neighbors), _ptr(mask), _ptr(weights), _ptr(xT), _ptr(thr),
-        _ptr(yT), rows, width, B, stream)
+        _ptr(neighbors), _ptr(mask), _ptr(weights), _ptr(plan.extent),
+        _ptr(x), _ptr(thr), _ptr(xm), _ptr(bits), _ptr(yT), x.stride(0),
+        x.stride(1), rows, n, width, B, plan.lanes.bit_length() - 1,
+        group.bit_length() - 1, stream)
     _raise_on(err, lib.ell_spmm_error_string, "ell_spmm")
     LAUNCHES["ell_spmm"] += 1
+    ROUTES["ell_spmm_frontier"] += bool(group)
     return yT.t()
 
 
@@ -281,11 +400,14 @@ def ell_spmm_sliced_cuda(neighbors: torch.Tensor, mask: torch.Tensor,
 
 
 def ell_spmv_cuda(neighbors: torch.Tensor, mask: torch.Tensor,
-                  weights: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+                  weights: torch.Tensor, x: torch.Tensor,
+                  plan: DensePlan | None = None) -> torch.Tensor:
     """K4: ``y[i] = sum_j mask[i,j] * w[i,j] * x[neighbors[i,j]]`` on the
     card. neighbors (n, K) int32 and mask (n, K) bool, contiguous; weights
     (n, K) and x (n,) are cast to float32 as the JAX package casts them (a
-    copy only when they are not float32 already). Returns (n,) float32."""
+    copy only when they are not float32 already). ``plan`` is the table's
+    :func:`dense_plan`, derived first when not given. Returns (n,)
+    float32."""
     if x.device.type != "cuda":
         raise ValueError(f"x must be a CUDA tensor, got {x.device}")
     if x.dim() != 1:
@@ -296,14 +418,13 @@ def ell_spmv_cuda(neighbors: torch.Tensor, mask: torch.Tensor,
     if rows != x.shape[0]:
         raise ValueError(f"dense table has {rows} rows for x of "
                          f"{x.shape[0]}")
+    plan = _check_plan(plan, mask)
     y = torch.empty((rows,), dtype=torch.float32, device=x.device)
     lib = _spmv_lib()
     stream = torch.cuda.current_stream(x.device.index).cuda_stream
     err = lib.ell_spmv_launch(_ptr(neighbors), _ptr(mask), _ptr(weights),
-                              _ptr(x), _ptr(y), rows, width, stream)
-    if err != 0:
-        msg = lib.ell_spmv_error_string(err).decode()
-        raise RuntimeError(f"ell_spmv launch failed: CUDA error {err} "
-                           f"({msg})")
+                              _ptr(plan.extent), _ptr(x), _ptr(y), rows,
+                              width, plan.lanes.bit_length() - 1, stream)
+    _raise_on(err, lib.ell_spmv_error_string, "ell_spmv")
     LAUNCHES["ell_spmv"] += 1
     return y

@@ -10,8 +10,8 @@ from __future__ import annotations
 import torch
 
 from . import ref
-from .ell_spmv import (SlicedFold, ell_spmm_cuda, ell_spmm_sliced_cuda,
-                       ell_spmv_cuda)
+from .ell_spmv import (DensePlan, SlicedFold, ell_spmm_cuda,
+                       ell_spmm_sliced_cuda, ell_spmv_cuda)
 from .embedding_bag import embedding_bag_cuda
 from .flash_attention import flash_attention_cuda
 from .walk_gather import walk_endpoint_gather_cuda
@@ -26,22 +26,26 @@ def _on_cuda(x: torch.Tensor) -> bool:
 
 
 def ell_spmv(neighbors: torch.Tensor, mask: torch.Tensor,
-             weights: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+             weights: torch.Tensor, x: torch.Tensor, *,
+             plan: DensePlan | None = None) -> torch.Tensor:
     """One-vector (n,) pull-form SpMV over the dense (n, K) table: with the
-    in-neighbour table and w = 1/deg_out(src), ``P^T x``."""
+    in-neighbour table and w = 1/deg_out(src), ``P^T x``. ``plan`` is the
+    table's row plan for the kernel; the plain version needs none."""
     if _on_cuda(x):
-        return ell_spmv_cuda(neighbors, mask, weights, x)
+        return ell_spmv_cuda(neighbors, mask, weights, x, plan)
     return ref.ell_spmv_ref(neighbors, mask, x.to(torch.float32),
                             weights.to(torch.float32))
 
 
 def ell_spmm(neighbors: torch.Tensor, mask: torch.Tensor,
              weights: torch.Tensor, x: torch.Tensor, *,
-             threshold: torch.Tensor | None = None) -> torch.Tensor:
+             threshold: torch.Tensor | None = None,
+             plan: DensePlan | None = None) -> torch.Tensor:
     """Batched (B, n) pull-form SpMM over the dense (n, K) table;
-    ``threshold`` fuses FORA's push condition into the gather."""
+    ``threshold`` fuses FORA's push condition into the gather. ``plan`` is
+    the table's row plan for the kernel; the plain version needs none."""
     if _on_cuda(x):
-        return ell_spmm_cuda(neighbors, mask, weights, x, threshold)
+        return ell_spmm_cuda(neighbors, mask, weights, x, threshold, plan)
     return ref.ell_spmm_ref(neighbors, mask, x, weights, threshold)
 
 

@@ -196,7 +196,7 @@ def fora_fused(dg: DeviceGraph, sources, params: ForaParams = ForaParams(),
     push = forward_push(dg.in_neighbors, dg.in_mask, dg.in_weights,
                         dg.out_degree, seeds, alpha=rp.alpha, rmax=rp.rmax,
                         max_iters=MAX_PUSH_ITERS, row_map=dg.in_row_map,
-                        fold=dg.in_fold)
+                        fold=dg.in_fold, plan=dg.in_plan)
     r_sum = push.r.sum(dim=1)                                # (B,)
     need = torch.clamp(torch.ceil(r_sum * rp.omega), min=1.0)
     w_eff = torch.exp2(torch.ceil(torch.log2(need)))

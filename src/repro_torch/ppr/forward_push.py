@@ -7,9 +7,10 @@ Every above-threshold node is relaxed in each sweep:
     r         <- r * (1 - front) + (1 - alpha) * P^T (r * front)
 
 The relaxation is one pull-form ELL SpMM per sweep (``kernels.ops.ell_spmm``
-over the dense table, ``ell_spmm_sliced`` when the residency carries a
-``row_map`` and its fold structure), with the push condition fused into
-the kernel's gather through its ``threshold`` argument. The termination
+over the dense table with its row plan, ``ell_spmm_sliced`` when the
+residency carries a ``row_map`` and its fold structure), with the push
+condition fused into the kernel's gather through its ``threshold``
+argument. The termination
 condition (all r(v) <= rmax * deg(v)) is sequential FORA's, so its
 guarantee holds, and the invariant pi_true(s,t) = pi(t) + sum_v r(v)
 pi_true(v,t) holds after every sweep.
@@ -31,7 +32,8 @@ import torch
 
 from .._device import resolve_device
 from ..kernels import ops
-from ..kernels.ell_spmv import SlicedFold, sliced_fold
+from ..kernels.ell_spmv import (DensePlan, SlicedFold, dense_plan,
+                               sliced_fold)
 from .graph import Graph
 
 CHECK_EVERY = 8      # sweeps between the host's convergence tests
@@ -49,6 +51,7 @@ def forward_push(in_neighbors: torch.Tensor, in_mask: torch.Tensor,
                  max_iters: int = 10_000,
                  row_map: torch.Tensor | None = None,
                  fold: SlicedFold | None = None,
+                 plan: DensePlan | None = None,
                  pi0: torch.Tensor | None = None) -> PushResult:
     """Batched frontier push over the pull-form ELL table.
 
@@ -56,11 +59,13 @@ def forward_push(in_neighbors: torch.Tensor, in_mask: torch.Tensor,
     :meth:`Graph.ell_in`, or with ``row_map`` the sliced (n_virtual, W)
     table of :meth:`Graph.ell_in_sliced` and ``fold`` its
     :func:`~repro_torch.kernels.ell_spmv.sliced_fold` (``DeviceGraph``
-    carries it as ``in_fold``; derived once here when not given);
-    ``seeds`` is (B, n) one-hot (or any residual); ``pi0`` (default
-    zeros) seeds the reserve. Runs until no
-    residual is above threshold or ``max_iters`` sweeps have run, and syncs
-    with the host once every ``CHECK_EVERY`` sweeps.
+    carries it as ``in_fold``; derived once here when not given); a dense
+    table's :func:`~repro_torch.kernels.ell_spmv.dense_plan` is ``plan``
+    (``DeviceGraph.in_plan``; derived once here on the card when not
+    given, the plain version needs none); ``seeds`` is (B, n) one-hot (or
+    any residual); ``pi0`` (default zeros) seeds the reserve. Runs until
+    no residual is above threshold or ``max_iters`` sweeps have run, and
+    syncs with the host once every ``CHECK_EVERY`` sweeps.
     """
     deg_safe = torch.clamp(out_degree.to(torch.float32), min=1.0)
     threshold = rmax * deg_safe                              # (n,)
@@ -70,6 +75,8 @@ def forward_push(in_neighbors: torch.Tensor, in_mask: torch.Tensor,
     iters = torch.zeros((), dtype=torch.int32, device=seeds.device)
     if row_map is not None and fold is None:
         fold = sliced_fold(row_map, seeds.shape[1], in_neighbors.shape[1])
+    if row_map is None and plan is None and seeds.device.type == "cuda":
+        plan = dense_plan(in_mask)
     done = 0
     while done < max_iters and bool((rT > thr_col).any()):
         sweeps = min(CHECK_EVERY, max_iters - done)
@@ -79,7 +86,7 @@ def forward_push(in_neighbors: torch.Tensor, in_mask: torch.Tensor,
             piT = piT + alpha * rT * front
             if row_map is None:
                 moved = ops.ell_spmm(in_neighbors, in_mask, in_weights,
-                                     rT.t(), threshold=threshold)
+                                     rT.t(), threshold=threshold, plan=plan)
             else:
                 moved = ops.ell_spmm_sliced(in_neighbors, in_mask,
                                             in_weights, row_map, rT.t(),
@@ -108,4 +115,5 @@ def forward_push_np(graph: Graph, sources: np.ndarray, *, alpha: float,
                         dg.out_degree, one_hot_seeds(sources, graph.n,
                                                      dg.device),
                         alpha=alpha, rmax=rmax, max_iters=max_iters,
-                        row_map=dg.in_row_map, fold=dg.in_fold)
+                        row_map=dg.in_row_map, fold=dg.in_fold,
+                        plan=dg.in_plan)

@@ -30,7 +30,8 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..kernels.ell_spmv import SlicedFold, sliced_fold
+from ..kernels.ell_spmv import (DensePlan, SlicedFold, dense_plan,
+                               sliced_fold)
 
 # Pad multiple of the push-table widths. 8 is what the JAX package uses off
 # the TPU, so the host tables here are array-equal to its tables.
@@ -319,8 +320,10 @@ class DeviceGraph:
     Holds tensors for the CSR walk view (edge_dst / out_offsets /
     out_degree) and the pull-form push view (in_neighbors / in_mask /
     in_weights), either the dense (n, k_max) table (``in_row_map`` None)
-    or the sliced (n_virtual, W) table with its ``row_map`` and, built
-    from it once, the fold structure K2 reads (``in_fold``).
+    or the sliced (n_virtual, W) table with its ``row_map``. Built once
+    from the table: a dense table's row plan, which K1 and K4 read
+    (``in_plan``: each row's live extent and the lanes a row takes), or a
+    sliced table's fold structure, which K2 reads (``in_fold``).
     ``DeviceGraph.uploads`` counts constructions, so tests can hold the
     upload-once contract.
     """
@@ -337,6 +340,7 @@ class DeviceGraph:
     in_row_map: torch.Tensor | None = None   # (n_virtual,) int32, or None
     ell_width: int = 0                       # K of the resident table
     in_fold: SlicedFold | None = None        # the sliced table's fold
+    in_plan: DensePlan | None = None         # the dense table's row plan
 
     uploads: ClassVar[int] = 0
     AUTO_SLICE_RATIO: ClassVar[float] = 4.0
@@ -403,8 +407,12 @@ class DeviceGraph:
             raise ValueError("out_offsets must have n + 1 entries")
         if tensors["in_row_map"] is None and nbr.shape[0] != n:
             raise ValueError("a dense push table needs one row per node")
-        fold = None if tensors["in_row_map"] is None else sliced_fold(
-            tensors["in_row_map"], n, int(nbr.shape[1]))
+        if tensors["in_row_map"] is None:
+            fold, plan = None, dense_plan(tensors["in_mask"])
+        else:
+            fold = sliced_fold(tensors["in_row_map"], n, int(nbr.shape[1]))
+            plan = None
         DeviceGraph.uploads += 1
         return cls(n=n, m=int(tensors["edge_dst"].shape[0]),
-                   ell_width=int(nbr.shape[1]), in_fold=fold, **tensors)
+                   ell_width=int(nbr.shape[1]), in_fold=fold, in_plan=plan,
+                   **tensors)

@@ -8,11 +8,11 @@ out-neighbour. pi(s, t) = P[walk from s stops at t]. Fixed point:
 
 Each step's ``P^T pi`` takes the route of the graph's resident push table
 (``graph.device(dev)``). With the dense (n, K) in-neighbour table, whose
-weights are 1/deg_out(src), it is one ``ops.ell_spmv`` (K4 on the card) a
-source and step, the sources run one after another as the JAX package
-vmaps over them. A graph whose in-degrees put it on the sliced table (every
-dataset stand-in: their Zipf targets make hubs) has no dense table to run
-K4 over, so its steps are a ``index_add_`` over the COO edge list, batched
+weights are 1/deg_out(src), it is one ``ops.ell_spmv`` (K4 on the card,
+over the table's row plan ``in_plan``) a source and step, the sources run
+one after another as the JAX package vmaps over them. A graph whose
+in-degrees put it on the sliced table (every dataset stand-in: their Zipf
+targets make hubs) has no dense table to run K4 over, so its steps are a ``index_add_`` over the COO edge list, batched
 over sources: that is the layout's route, not a fallback.
 """
 
@@ -82,7 +82,7 @@ def ppr_power_iteration(graph: Graph, sources: np.ndarray, alpha: float = 0.2,
         pi = seed
         for _ in range(iters):
             moved = ops.ell_spmv(dg.in_neighbors, dg.in_mask, dg.in_weights,
-                                 pi)
+                                 pi, plan=dg.in_plan)
             pi = alpha * seed + (1.0 - alpha) * moved
         rows.append(pi)
     out = torch.stack(rows) if rows else _seeds(sources, graph.n, dev)

@@ -437,6 +437,100 @@ def test_ell_spmv_matches_plain_and_repeats_bitwise(card, n, K):
         assert float(got[0]) == 0.0
 
 
+def _edge_table(n: int, K: int, seed: int, device):
+    """A dense (n, K) table with a random mask that is not left-packed
+    (nonnegative weights, non-zero under a false mask too), row 0 with no
+    live cell, row 1 with only its last column live, and the last row
+    with none."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    nbr = torch.randint(0, n, (n, K), generator=g, device=device,
+                        dtype=torch.int32)
+    mask = torch.rand((n, K), generator=g, device=device) < 0.6
+    mask[0] = False
+    mask[1] = False
+    mask[1, K - 1] = True
+    mask[n - 1] = False
+    w = torch.rand((n, K), generator=g, device=device)
+    return nbr, mask, w
+
+
+def _close_to_plain(got, want):
+    torch.testing.assert_close(got.double(), want, rtol=1e-5,
+                               atol=1e-6 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("K", [1, 7, 33, 48, 130])
+def test_dense_kernels_follow_the_row_plan(card, K, monkeypatch):
+    """K1 and K4 over tables with non-left-packed masks, a row whose only
+    live cell is its last column and rows with none, n not a multiple of
+    the rows a warp takes: each against the float64 plain version at rtol
+    1e-5 + 1e-6 max, bits repeating, K1 at B in {1, 3, 4, 33, 64} with and
+    without the threshold, and at B = 1 on both routes (the frontier route
+    forced, as the rule gives it only larger tables). The plan a wrapper
+    derives equals the one it is given, and a plan one cell short on every
+    row gives the plain version of the table cut there: no cell at or past
+    a row's extent is read."""
+    n = 1003
+    nbr, mask, w = _edge_table(n, K, seed=K, device=card)
+    plan = ell_spmv.dense_plan(mask)           # the plan passed below
+    cols = torch.arange(K, device=card)
+    want_ext = torch.where(mask, cols + 1, 0).amax(dim=1)
+    assert torch.equal(plan.extent.long(), want_ext)
+    assert int(plan.extent[1]) == K and int(plan.extent[0]) == 0
+    short = plan._replace(extent=(plan.extent - 1).clamp_min(0).to(
+        torch.int32))
+    cut = mask & (cols[None] < short.extent[:, None])
+    x1 = _x(n, 1, seed=K, device=card)[0]
+    for p in (None, plan):
+        got = ell_spmv.ell_spmv_cuda(nbr, mask, w, x1, p)
+        _close_to_plain(got, ref.ell_spmv_ref(nbr, mask, x1.double(),
+                                              w.double()))
+        assert torch.equal(got, ell_spmv.ell_spmv_cuda(nbr, mask, w, x1,
+                                                       plan))
+        assert float(got[0]) == 0.0 and float(got[n - 1]) == 0.0
+    _close_to_plain(ell_spmv.ell_spmv_cuda(nbr, mask, w, x1, short),
+                    ref.ell_spmv_ref(nbr, cut, x1.double(), w.double()))
+    for B in (1, 3, 4, 33, 64):
+        x = _x(n, B, seed=B, device=card)
+        for thr in (None, torch.quantile(x, 0.5).expand(n).contiguous()):
+            thr64 = None if thr is None else thr.double()
+            want = ref.ell_spmm_ref(nbr, mask, x.double(), w.double(), thr64)
+            got = ell_spmv.ell_spmm_cuda(nbr, mask, w, x, thr, plan)
+            _close_to_plain(got, want)
+            assert torch.equal(got, ell_spmv.ell_spmm_cuda(nbr, mask, w, x,
+                                                           thr))
+            _close_to_plain(
+                ell_spmv.ell_spmm_cuda(nbr, mask, w, x, thr, short),
+                ref.ell_spmm_ref(nbr, cut, x.double(), w.double(), thr64))
+    monkeypatch.setattr(ell_spmv, "FRONTIER_MIN_N", 0)
+    assert ell_spmv.frontier_group(n, 1) == 1
+    x = _x(n, 1, seed=1, device=card)
+    for thr in (None, torch.quantile(x, 0.5).expand(n).contiguous()):
+        thr64 = None if thr is None else thr.double()
+        before = ell_spmv.ROUTES["ell_spmm_frontier"]
+        got = ell_spmv.ell_spmm_cuda(nbr, mask, w, x, thr, plan)
+        assert ell_spmv.ROUTES["ell_spmm_frontier"] == before + 1
+        _close_to_plain(got, ref.ell_spmm_ref(nbr, mask, x.double(),
+                                              w.double(), thr64))
+        assert torch.equal(got, ell_spmv.ell_spmm_cuda(nbr, mask, w, x, thr))
+        _close_to_plain(
+            ell_spmv.ell_spmm_cuda(nbr, mask, w, x, thr, short),
+            ref.ell_spmm_ref(nbr, cut, x.double(), w.double(), thr64))
+
+
+def test_dense_plan_on_a_graph_table_is_its_live_count(card):
+    """On a graph's left-packed ``ell_in`` table the extent is the live
+    count, and the residency carries the plan it derives."""
+    g = small_test_graph(n=2000)
+    dg = g.device(card)
+    assert dg.layout == "dense" and dg.in_plan is not None
+    assert torch.equal(dg.in_plan.extent.long(),
+                       dg.in_mask.sum(dim=1))
+    fresh = ell_spmv.dense_plan(dg.in_mask)
+    assert torch.equal(fresh.extent, dg.in_plan.extent)
+    assert fresh.lanes == dg.in_plan.lanes
+
+
 @pytest.mark.parametrize("ids", [[[0, -1]], [[0, 5]], [[-4, 3], [1, -5]]])
 def test_embedding_bag_reads_ids_as_the_plain_version(card, ids):
     """K5 on ids outside [0, V): [-V, 0) wraps to id + V, a bag with an id

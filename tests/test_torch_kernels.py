@@ -122,12 +122,27 @@ def test_dispatch_routes_by_device():
                                  "ell_spmv": 0}
 
 
-def test_build_names_follow_source_and_flags(monkeypatch):
+def test_build_names_follow_source_and_flags(monkeypatch, tmp_path):
     path = _build.library_path("ell_spmm")
     assert path.parent == _build.BUILD_DIR and path.suffix == ".so"
     assert path == _build.library_path("ell_spmm")
+    # an edited header renames every library whose source includes it
+    for src in _build.CSRC.iterdir():
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    assert _build.library_path("ell_spmm") == path
+    names = {k: _build.library_path(k) for k in _build.SOURCES}
+    header = tmp_path / "ell_rows.cuh"
+    header.write_text(header.read_text() + "// edited\n")
+    for k in _build.SOURCES:
+        includes = '#include "ell_rows.cuh"' in \
+            (tmp_path / _build.SOURCES[k]).read_text()
+        assert (_build.library_path(k) != names[k]) == includes, k
+    assert {"ell_spmm", "ell_spmv"} <= {
+        k for k in _build.SOURCES if _build.library_path(k) != names[k]}
+    edited = _build.library_path("ell_spmm")
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-G",))
-    assert _build.library_path("ell_spmm") != path
+    assert _build.library_path("ell_spmm") != edited
     monkeypatch.setenv("CUDA_HOME", "/nonexistent")
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     monkeypatch.setattr(_build.Path, "is_file", lambda self: False)

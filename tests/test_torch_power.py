@@ -83,13 +83,14 @@ def test_ops_ell_spmv_on_cpu_is_the_plain_version():
 
 @pytest.fixture
 def k4_calls(monkeypatch):
-    """Counts the calls that reach ``ops.ell_spmv``."""
+    """Counts the calls that reach ``ops.ell_spmv``, with x's shape and
+    the row plan each passes."""
     calls = []
     plain = ops.ell_spmv
 
-    def counting(*args):
-        calls.append(args[3].shape)
-        return plain(*args)
+    def counting(*args, **kwargs):
+        calls.append((args[3].shape, kwargs.get("plan")))
+        return plain(*args, **kwargs)
 
     monkeypatch.setattr(ops, "ell_spmv", counting)
     return calls
@@ -103,7 +104,9 @@ def test_power_iteration_dense_runs_through_ell_spmv(k4_calls):
     got = tppr.ppr_power_iteration(tg, SOURCES, alpha=0.2, device="cpu")
     iters = tpi.default_iters(0.2)
     assert len(k4_calls) == iters * SOURCES.size
-    assert set(k4_calls) == {(tg.n,)}
+    assert {shape for shape, _ in k4_calls} == {(tg.n,)}
+    # every step passes the residency's row plan, built once
+    assert all(plan is tg.device("cpu").in_plan for _, plan in k4_calls)
     assert got.shape == (SOURCES.size, tg.n) and got.dtype == np.float32
     _close(got, want)
     # the COO loop computes the same rows
