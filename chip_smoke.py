@@ -21,7 +21,7 @@ drives the port's main path, in phases:
    and the dense path's L, with full and retired budgets and a hub that
    every lane ends at; K4 over the JAX package's sweep shapes, the dense
    path's table and the Pokec-order table of phase 8; K5 on ids outside
-   [0, V). The plain version runs in float64 on the same inputs; an output
+   [0, V) on both its routes. The plain version runs in float64 on the same inputs; an output
    passes where ``|out - want| <= RTOL * |want| + ATOL_FRAC * max|want|``,
    and the printed ratio is the largest ``|out - want|`` over that limit.
    The check must also refuse broken versions (folds that drop slices or
@@ -84,12 +84,18 @@ drives the port's main path, in phases:
 7. DIN serving with its full-size tables (10M x 18 items, 100k x 18
    categories): serve_p99 (B = 512, L = 100) through ``score`` and
    1,000,000 candidates in blocks of 8,192 through ``score_candidates``,
-   unfactored and factored, the history pooling through K5. K5 is held
-   against its float64 plain version at the path's inputs and over the JAX
-   package's sweep, and the limit must refuse a kernel that drops the last
-   history item and one that ignores the weights; factored must equal
-   unfactored, and 256 candidates must equal ``score`` on the same pairs.
-   Then K5's times beside its bound, the plain version's and
+   unfactored and factored, the history pooling through K5 (route G for
+   serve_p99's own histories, route S for retrieval's shared one; the
+   launches are counted by route). K5 is held against its float64 plain
+   version at the path's inputs, at a shared history longer than one
+   staged pass and over the JAX package's sweep on both routes, each
+   check asserting its route, and the limit must refuse a kernel that
+   drops the last history item, one that ignores the weights, route G
+   dropping one warp's share of a bag's items, route S staging only the
+   first pass, and either route dropping the last column unit; factored
+   must equal unfactored, and 256 candidates must equal ``score`` on the
+   same pairs. Then the times of every K5 launch of the path (items,
+   categories, retrieval block) beside its bound, the plain version's and
    ``F.embedding_bag``'s, and a profile of each path;
 8. the dense graph at Pokec's order (paper Table I: n = 1,632,803, m =
    30,622,564; ``small_test_graph`` with uniform endpoints, so its
@@ -176,6 +182,7 @@ DIN_SERVE_REQUESTS = 20
 DIN_BLOCK = 8192               # retrieval candidates a block
 DIN_ATOL = 1e-5                # tests/test_models.py's factored-retrieval atol
 LIBRARY_BAG_RTOL = 1e-5        # F.embedding_bag, of sum_l |w| |row|
+BAG_LONG_B = 1024              # bags of the shared history above one pass
 # tests/test_kernels.py::test_embedding_bag_sweep's shapes (V, d, B, L)
 BAG_SWEEP = [(100, 8, 16, 5), (1000, 18, 64, 100), (64, 32, 300, 7),
              (50_000, 16, 128, 64)]
@@ -1055,9 +1062,16 @@ def phase7_din(dev, gen, card: str) -> dict:
               f" peak): {flops:.4e} flops, {nbytes:.4e} bytes, least "
               f"{least * 1e3:.3f} ms against {seconds * 1e3:.3f} ms measured"
               f" ({least / seconds:.4f} of the roofline)")
-    print(f"  K5 launches {launches} (want {want_launches})")
+    routes = {r: embedding_bag.LAUNCHES[f"embedding_bag_{r}"]
+              for r in ("gather", "shared")}
+    want_routes = {"gather": 2 * DIN_SERVE_REQUESTS, "shared": 4 * blocks}
+    print(f"  K5 launches {launches} (want {want_launches}): route G "
+          f"{routes['gather']} (want {want_routes['gather']}), route S "
+          f"{routes['shared']} (want {want_routes['shared']})")
     check(launches == want_launches,
           f"DIN path launched K5 {launches} times, not {want_launches}")
+    check(routes == want_routes,
+          f"DIN path's K5 routes {routes}, not {want_routes}")
     check(scores.shape == (Bs,) and bool(torch.isfinite(scores).all()),
           "serve_p99: bad scores")
     for name, c in cands.items():
@@ -1098,61 +1112,117 @@ def phase7_din(dev, gen, card: str) -> dict:
     blk = DIN_BLOCK
     ids_ret = ret_b["hist_items"][0][None].expand(blk, cfg.seq_len)
     w_ret = torch.rand((blk, cfg.seq_len), generator=gen, device=dev)
+    # a shared history longer than one staged pass of route S
+    long_l = 2 * embedding_bag.SHARED_ITEMS + 37
+    ids_long = torch.randint(0, params.item_emb.shape[0], (1, long_l),
+                             generator=gen, device=dev,
+                             dtype=torch.int32).expand(BAG_LONG_B, long_l)
+    w_long = torch.rand((BAG_LONG_B, long_l), generator=gen, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     stats = {"max_abs_err": 0.0}
 
-    def bag_check(label, table, ids, w, broken=()):
+    def plain64(table, ids, w):
+        return ref.embedding_bag_ref(table.double(), ids, w.double())
+
+    def bag_check(label, table, ids, w, route, broken=()):
+        """K5 on ``route`` against its float64 plain version; each of
+        ``broken`` (label, its float64 output) must be refused."""
+        before = dict(embedding_bag.LAUNCHES)
         torch.cuda.synchronize()
         out = embedding_bag.embedding_bag_cuda(table, ids, w)
         torch.cuda.synchronize()
-        want = ref.embedding_bag_ref(table.double(), ids, w.double())
+        taken = [r for r in ("gather", "shared")
+                 if embedding_bag.LAUNCHES[f"embedding_bag_{r}"]
+                 != before[f"embedding_bag_{r}"]]
+        want = plain64(table, ids, w)
         limit = ids.shape[1] * 2.0**-24 * ref.embedding_bag_ref(
             table.double().abs(), ids, w.double().abs())
         err, ratio = limit_ratio(out, want, limit)
         stats["max_abs_err"] = max(stats["max_abs_err"], err)
         again = embedding_bag.embedding_bag_cuda(table, ids, w)
-        print(f"  embedding_bag {label:46s} max_abs_err={err:.3e} "
-              f"max|want|={float(want.abs().max()):.3e} err/limit="
-              f"{ratio:.4f} {'ok' if ratio <= 1 else 'FAIL'}")
+        print(f"  embedding_bag {label:46s} route {'+'.join(taken):6s} "
+              f"max_abs_err={err:.3e} max|want|="
+              f"{float(want.abs().max()):.3e} err/limit={ratio:.4f} "
+              f"{'ok' if ratio <= 1 else 'FAIL'}")
+        check(taken == [route], f"K5 {label}: took {taken}, not {route}")
         check(ratio <= 1.0, f"K5 {label}: error {err} above the limit "
               f"(ratio {ratio})")
         check(bool(torch.equal(out, again)),
               f"K5 {label}: a second launch gave other bits")
-        for bad, bw in broken:
-            _, r = limit_ratio(ref.embedding_bag_ref(table.double(), ids,
-                                                     bw.double()),
-                               want, limit)
+        for bad, bout in broken:
+            _, r = limit_ratio(bout, want, limit)
             print(f"  embedding_bag {'broken: ' + bad:46s} err/limit={r:.4g}"
                   f" {'refused' if r > 1 else 'PASSED'}")
             check(r > 1.0, f"K5: the check passes a broken kernel ({bad})")
 
+    def no_last_unit(table, ids, w, unit):
+        """The plain output with its last ``unit`` columns (a row load's
+        last unit) dropped."""
+        out = plain64(table, ids, w)
+        out[:, -unit:] = 0.0
+        return out
+
     print("  K5 against its float64 plain version (atol L * 2^-24 * "
           "sum_l |w| |row|)")
+    L = cfg.seq_len
     no_last = w_serve.clone()
     no_last[torch.arange(Bs, device=dev),
             serve_b["hist_mask"].sum(1) - 1] = 0.0
-    bag_check(f"serve_p99 items B={Bs} L={cfg.seq_len}", params.item_emb,
-              serve_b["hist_items"], w_serve,
-              broken=[("last history item dropped", no_last),
-                      ("weights ignored", serve_b["hist_mask"].float())])
+    # route G's second warp of a bag (its items l with l mod bag threads
+    # in [32, 64)) dropped
+    g_plan = embedding_bag.plan(Bs, L, serve_b["hist_items"].stride(0), sms)
+    check(g_plan.bag_warps > 1, f"serve_p99 bags take {g_plan.bag_warps} "
+          f"warp(s)")
+    lane = torch.arange(L, device=dev) % (g_plan.bag_warps * 32)
+    no_warp = w_serve * ((lane < 32) | (lane >= 64))
+    bag_check(f"serve_p99 items B={Bs} L={L}", params.item_emb,
+              serve_b["hist_items"], w_serve, "gather",
+              broken=[("last history item dropped",
+                       plain64(params.item_emb, serve_b["hist_items"],
+                               no_last)),
+                      ("weights ignored",
+                       plain64(params.item_emb, serve_b["hist_items"],
+                               serve_b["hist_mask"].float())),
+                      ("route G: a warp's share of items dropped",
+                       plain64(params.item_emb, serve_b["hist_items"],
+                               no_warp)),
+                      ("route G: last column unit dropped",
+                       no_last_unit(params.item_emb, serve_b["hist_items"],
+                                    w_serve,
+                                    embedding_bag.unit_width(
+                                        params.item_emb)))])
     bag_check(f"serve_p99 categories B={Bs}", params.cat_emb,
-              serve_b["hist_cats"], w_serve)
+              serve_b["hist_cats"], w_serve, "gather")
     bag_check(f"retrieval block {blk} broadcast history",
-              params.item_emb, ids_ret, w_ret)
-    for V, d, Bq, L in BAG_SWEEP:
-        rng = torch.Generator(device=dev).manual_seed(V + L)
+              params.item_emb, ids_ret, w_ret, "shared",
+              broken=[("route S: last column unit dropped",
+                       no_last_unit(params.item_emb, ids_ret, w_ret, 1))])
+    no_tail = w_long.clone()
+    no_tail[:, embedding_bag.SHARED_ITEMS:] = 0.0
+    bag_check(f"shared history B={BAG_LONG_B} L={long_l}", params.item_emb,
+              ids_long, w_long, "shared",
+              broken=[("route S: staging stops after the first pass",
+                       plain64(params.item_emb, ids_long, no_tail))])
+    for V, d, Bq, Lq in BAG_SWEEP:
+        rng = torch.Generator(device=dev).manual_seed(V + Lq)
         table = torch.randn((V, d), generator=rng, device=dev)
-        ids = torch.randint(0, V, (Bq, L), generator=rng, device=dev,
+        ids = torch.randint(0, V, (Bq, Lq), generator=rng, device=dev,
                             dtype=torch.int32)
-        w = torch.rand((Bq, L), generator=rng, device=dev)
-        bag_check(f"sweep V={V} d={d} B={Bq} L={L}", table, ids, w)
+        w = torch.rand((Bq, Lq), generator=rng, device=dev)
+        bag_check(f"sweep V={V} d={d} B={Bq} L={Lq}", table, ids, w,
+                  "gather")
+        bag_check(f"sweep V={V} d={d} B={Bq} L={Lq} one history", table,
+                  ids[:1].expand(Bq, Lq), w, "shared")
 
-    # times at the path's shapes, each call after an L2 flush; the library
-    # yardstick is F.embedding_bag
+    # times of every K5 launch of the path, each call after an L2 flush;
+    # the library yardstick is F.embedding_bag
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
     rows = []
     for label, (table, ids, w) in (
-            (f"serve_p99 items B={Bs} L={cfg.seq_len}",
+            (f"serve_p99 items B={Bs} L={L}",
              (params.item_emb, serve_b["hist_items"], w_serve)),
+            (f"serve_p99 categories B={Bs} L={L}",
+             (params.cat_emb, serve_b["hist_cats"], w_serve)),
             (f"retrieval block B={blk} broadcast ids",
              (params.item_emb, ids_ret, w_ret))):
         ids_c = ids.long().contiguous()
@@ -1161,19 +1231,20 @@ def phase7_din(dev, gen, card: str) -> dict:
         plain = lambda: ref.embedding_bag_ref(table, ids, w)  # noqa: E731
         lib = lambda: F.embedding_bag(  # noqa: E731
             ids_c, table, mode="sum", per_sample_weights=w)
-        want = ref.embedding_bag_ref(table.double(), ids, w.double())
+        want = plain64(table, ids, w)
         _, lib_ratio = limit_ratio(lib(), want, LIBRARY_BAG_RTOL
                                    * ref.embedding_bag_ref(
                                        table.double().abs(), ids,
                                        w.double().abs()))
         check(lib_ratio <= 1.0, "F.embedding_bag disagrees with K5's plain "
               "version")
-        ms, seen = kernel_launch_ms(flushing(kern, flush), 100, "bag_sum")
-        warm, _ = kernel_launch_ms(kern, 100, "bag_sum")
+        name = f"bag_{embedding_bag.route(ids.stride(0))}"
+        ms, seen = kernel_launch_ms(flushing(kern, flush), 100, name)
+        warm, _ = kernel_launch_ms(kern, 100, name)
         plain_ms = call_ms(flushing(plain, flush), 50)
         lib_ms = call_ms(flushing(lib, flush), 100)
         bound, by = bag_cost(table, ids, w)
-        print(f"  embedding_bag {label:38s} kernel {ms * 1e3:9.2f} us "
+        print(f"  embedding_bag {label:38s} {name} {ms * 1e3:9.2f} us "
               f"({seen} launches; L2 warm {warm * 1e3:9.2f} us)  bound "
               f"{bound * 1e3:8.2f} us ({by})  plain {plain_ms * 1e3:9.2f} us"
               f"  F.embedding_bag {lib_ms * 1e3:9.2f} us  [{card}]")
@@ -2032,25 +2103,28 @@ def main() -> int:
                            ("extent one short",
                             extent_cut(tables[1], plan.extent - 1))])
 
-    # K5 on ids outside [0, V), against the plain version (NaN equal NaN)
+    # K5 on ids outside [0, V), against the plain version (NaN equal NaN),
+    # on route G (as given) and route S (the row as 3 bags' history)
     tab = torch.randn((4, 3), generator=gen, device=dev)
     for ids_l in ([[0, -1]], [[0, 5]]):
-        ids = torch.tensor(ids_l, dtype=torch.int32, device=dev)
-        w = torch.rand(ids.shape, generator=gen, device=dev)
-        out = embedding_bag.embedding_bag_cuda(tab, ids, w)
-        want = ref.embedding_bag_ref(tab.double(), ids, w.double())
-        nan_ok = bool(torch.equal(torch.isnan(out), torch.isnan(want)))
-        fin = ~torch.isnan(want)
-        err = float((out.double() - want)[fin].abs().max()) \
-            if bool(fin.any()) else 0.0
-        limit = RTOL * float(want[fin].abs().max()) if bool(fin.any()) \
-            else 0.0
-        print(f"  {'embedding_bag':16s} ids {str(ids_l):30s} out="
-              f"{out.cpu().numpy().round(6).tolist()} want="
-              f"{want.cpu().numpy().round(6).tolist()} "
-              f"{'ok' if nan_ok and err <= limit else 'FAIL'}")
-        check(nan_ok and err <= limit,
-              f"embedding_bag ids {ids_l}: {out} against {want}")
+        row = torch.tensor(ids_l, dtype=torch.int32, device=dev)
+        for way, ids in (("G", row), ("S", row.expand(3, -1))):
+            w = torch.rand(ids.shape, generator=gen, device=dev)
+            out = embedding_bag.embedding_bag_cuda(tab, ids, w)
+            want = ref.embedding_bag_ref(tab.double(), ids, w.double())
+            nan_ok = bool(torch.equal(torch.isnan(out), torch.isnan(want)))
+            fin = ~torch.isnan(want)
+            err = float((out.double() - want)[fin].abs().max()) \
+                if bool(fin.any()) else 0.0
+            limit = RTOL * float(want[fin].abs().max()) \
+                if bool(fin.any()) else 0.0
+            print(f"  {'embedding_bag':16s} route {way} ids {str(ids_l):22s}"
+                  f" out={out.cpu().numpy().round(6).tolist()} want="
+                  f"{want.cpu().numpy().round(6).tolist()} "
+                  f"{'ok' if nan_ok and err <= limit else 'FAIL'}")
+            check(nan_ok and err <= limit,
+                  f"embedding_bag route {way} ids {ids_l}: {out} against "
+                  f"{want}")
     for name, st in stats.items():
         print(f"  {name}: max_abs_err {st['max_abs_err']:.3e}, largest "
               f"err/limit {st['ratio']:.4f}")

@@ -7,41 +7,76 @@ with ``jnp.einsum`` over gathered rows and names the Pallas kernel as the
 same op for the TPU (``repro/models/recsys/din.py``); the port's DIN calls
 this kernel there, in ``score`` and ``score_candidates``.
 
-What bounds it on the H100: bytes. Each (bag, item) reads its id, its
-weight and one random table row (three 32-byte sectors at d = 18); the
-(B, d) output is written once. The Pallas kernel holds the whole table in
-VMEM; DIN's 720 MB item table fits in no on-chip memory, so each row is
-read where it lies, one warp per bag summing its items in order (see the
-source's header).
+What bounds it on the H100: latency. A call at DIN's shapes moves a few
+MB, but every row is a random read that costs a whole memory latency, so
+a bag whose items are read one after another costs L latencies. Neither
+route chains reads over a bag's items (see the source's header):
+
+* route G (``"gather"``, ids with a row stride other than 0, a history a
+  bag): the items of a bag are spread over the lanes of up to 8 warps,
+  each lane loads its item's whole row at once, and the lanes' scaled rows
+  are folded in a fixed tree;
+* route S (``"shared"``, ids with row stride 0, one history for every bag:
+  retrieval): each block stages the history's rows in shared memory once,
+  then each group of 8 lanes sums a bag over them, its lanes over
+  consecutive items.
+
+:func:`route` picks the route from the ids' row stride alone, and
+:func:`plan` the launch geometry from the shapes and the card's SM count,
+both plain Python that the CPU tests cover (:func:`items_of` and
+:func:`columns_of` say which (bag, item) a thread multiplies in and which
+(bag, column) it writes, as the kernels compute them).
 
 The wrapper checks device, dtype, shape and strides, allocates the output
 with ``torch.empty``, launches on PyTorch's current stream, raises on a
 non-zero ``cudaGetLastError()``, and counts its launches in
-:data:`LAUNCHES`. ``ids`` and ``weights`` may have any row stride,
-including 0 (one history broadcast over a block of candidates): nothing is
-copied, the table least of all.
+:data:`LAUNCHES`: every call under ``embedding_bag`` and each under
+``embedding_bag_gather`` or ``embedding_bag_shared``. ``ids`` and
+``weights`` may have any row stride, including 0 (one history broadcast
+over a block of candidates): nothing is copied, the table least of all.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
 from . import _build
 
 # launches since the last reset_launches()
-LAUNCHES: dict[str, int] = {"embedding_bag": 0}
+LAUNCHES: dict[str, int] = {"embedding_bag": 0, "embedding_bag_gather": 0,
+                            "embedding_bag_shared": 0}
+
+THREADS = 256                  # a block's threads at most (route S: always)
+COLUMNS = 32                   # columns a pass, both routes
+SHARED_ITEMS = 256             # route S: history items staged a pass
+SHARED_GROUP = 8               # route S: lanes a bag
+_ROUTE_CODE = {"gather": 0, "shared": 1}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    "embedding_bag_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _P],
-                             _I),
+    "embedding_bag_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _I, _I,
+                              _I, _I, _I, _P], _I),
     "embedding_bag_error_string": ([_I], ctypes.c_char_p),
 }
 _INT32_MAX = 2**31 - 1
+
+
+@dataclass(frozen=True)
+class BagPlan:
+    """A launch's geometry: ``blocks`` blocks of ``threads`` threads, each
+    block owning ``bags_per_block`` consecutive bags. On route G a bag
+    takes ``bag_warps`` warps; on route S a group of 8 lanes takes a
+    bag."""
+    route: str
+    blocks: int
+    threads: int
+    bag_warps: int
+    bags_per_block: int
 
 
 def reset_launches() -> None:
@@ -51,6 +86,78 @@ def reset_launches() -> None:
 
 def _lib() -> ctypes.CDLL:
     return _build.load("embedding_bag", _SIGNATURES)
+
+
+def route(ids_row_stride: int) -> str:
+    """``"shared"`` (route S) for ids whose rows are one history (row
+    stride 0), else ``"gather"`` (route G)."""
+    return "shared" if ids_row_stride == 0 else "gather"
+
+
+def plan(B: int, L: int, ids_row_stride: int, sm_count: int) -> BagPlan:
+    """The geometry of a call over B bags of L items on a card with
+    ``sm_count`` SMs. Route S gives a block 256 threads, 32 groups of 8
+    lanes, a bag each. Route G gives a bag ``ceil(L / 32)`` warps (at most
+    8) and a block as many bags as fit in 256 threads, then halves the bags
+    a block while that leaves fewer than 2 blocks an SM."""
+    if route(ids_row_stride) == "shared":
+        per_block = THREADS // SHARED_GROUP
+        return BagPlan("shared", -(-B // per_block), THREADS, 1, per_block)
+    bag_warps = min(THREADS // 32, -(-L // 32))
+    per_block = THREADS // 32 // bag_warps
+    while per_block > 1 and -(-B // per_block) < 2 * sm_count:
+        per_block //= 2
+    return BagPlan("gather", -(-B // per_block), per_block * bag_warps * 32,
+                   bag_warps, per_block)
+
+
+def items_of(p: BagPlan, block: int, thread: int, B: int,
+             L: int) -> list[tuple[int, int]]:
+    """The (bag, item) pairs that thread ``thread`` of block ``block``
+    scales and adds in, in its order, as the kernel of ``p.route`` takes
+    them."""
+    if p.route == "gather":
+        bag_threads = p.bag_warps * 32
+        b = block * p.bags_per_block + thread // bag_threads
+        if b >= B:
+            return []
+        return [(b, l) for l in range(thread % bag_threads, L, bag_threads)]
+    b = block * p.bags_per_block + thread // SHARED_GROUP
+    if b >= B:
+        return []
+    return [(b, l) for l0 in range(0, L, SHARED_ITEMS)
+            for l in range(l0 + thread % SHARED_GROUP,
+                           min(l0 + SHARED_ITEMS, L), SHARED_GROUP)]
+
+
+def columns_of(p: BagPlan, block: int, thread: int, B: int,
+               d: int) -> list[tuple[int, int]]:
+    """The (bag, column) outputs that thread ``thread`` of block ``block``
+    writes. Route G: lane c of a bag's first warp, column c0 + c of each
+    32-column pass c0. Route S: a pass's dc columns padded to C, a multiple
+    of 8; lane g of a group, columns c0 + g * C / 8 + j for j < C / 8."""
+    warp, lane = divmod(thread, 32)
+    if p.route == "gather":
+        if warp % p.bag_warps:
+            return []
+        b = block * p.bags_per_block + warp // p.bag_warps
+        return [(b, c0 + lane) for c0 in range(0, d, COLUMNS)
+                if b < B and c0 + lane < d]
+    b = block * p.bags_per_block + thread // SHARED_GROUP
+    g = thread % SHARED_GROUP
+    out = []
+    for c0 in range(0, d, COLUMNS):
+        dc = min(COLUMNS, d - c0)
+        per = -(-dc // SHARED_GROUP)
+        out += [(b, c0 + g * per + j) for j in range(per)
+                if b < B and g * per + j < dc]
+    return out
+
+
+def unit_width(table: torch.Tensor) -> int:
+    """Floats a route-G row load moves: 2 where d is even and the table
+    8-byte aligned, else 1."""
+    return 2 if table.shape[1] % 2 == 0 and table.data_ptr() % 8 == 0 else 1
 
 
 def embedding_bag_cuda(table: torch.Tensor, ids: torch.Tensor,
@@ -63,7 +170,8 @@ def embedding_bag_cuda(table: torch.Tensor, ids: torch.Tensor,
     package's ``embedding_bag_ref`` reads them, on the card as in the plain
     version: an id in [-V, 0) is row id + V, and a bag holding an id
     outside [-V, V) comes out NaN in every column. They are not checked on
-    the host, which would cost a synchronisation a call."""
+    the host, which would cost a synchronisation a call. The route follows
+    :func:`route`, the geometry :func:`plan` with the card's SM count."""
     dev = table.device
     if dev.type != "cuda":
         raise ValueError(f"table must be a CUDA tensor, got {dev}")
@@ -92,15 +200,21 @@ def embedding_bag_cuda(table: torch.Tensor, ids: torch.Tensor,
         if t.stride(1) != 1 and L > 1:
             raise ValueError(f"{name}'s rows must be contiguous, strides "
                              f"{t.stride()}")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    p = plan(B, L, ids.stride(0), sms)
+    if p.blocks > _INT32_MAX:
+        raise ValueError(f"shapes out of range: {p.blocks} blocks")
     out = torch.empty((B, d), dtype=torch.float32, device=dev)
     lib = _lib()
     stream = torch.cuda.current_stream(dev.index).cuda_stream
     err = lib.embedding_bag_launch(
         table.data_ptr(), ids.data_ptr(), weights.data_ptr(), out.data_ptr(),
-        B, L, V, d, ids.stride(0), weights.stride(0), stream)
+        B, L, V, d, ids.stride(0), weights.stride(0), _ROUTE_CODE[p.route],
+        unit_width(table), p.blocks, p.bag_warps, p.bags_per_block, stream)
     if err != 0:
         msg = lib.embedding_bag_error_string(err).decode()
         raise RuntimeError(f"embedding_bag launch failed: CUDA error {err} "
                            f"({msg})")
     LAUNCHES["embedding_bag"] += 1
+    LAUNCHES[f"embedding_bag_{p.route}"] += 1
     return out

@@ -127,7 +127,9 @@ def test_dispatch_routes_by_device_and_wrappers_refuse_cpu():
     assert flash_attention.LAUNCHES == {"flash_attention": 0,
                                         "flash_attention_mma": 0,
                                         "flash_attention_split": 0}
-    assert embedding_bag.LAUNCHES == {"embedding_bag": 0}
+    assert embedding_bag.LAUNCHES == {"embedding_bag": 0,
+                                      "embedding_bag_gather": 0,
+                                      "embedding_bag_shared": 0}
 
 
 # (B, Hkv, rows = Sq * Hq / Hkv, kv_end, SMs): gemma-2b's decode on an H100

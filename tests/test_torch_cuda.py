@@ -387,25 +387,73 @@ def test_flash_attention_reads_strided_keys_and_values(card):
         _within(got, want, _attn_limit(q, k, v, want, True, 41))
 
 
+def _bag_route(call):
+    """The K5 routes whose launch count ``call()`` raised, and its
+    result."""
+    before = dict(embedding_bag.LAUNCHES)
+    out = call()
+    return [name[len("embedding_bag_"):] for name, n
+            in embedding_bag.LAUNCHES.items()
+            if n != before[name] and name != "embedding_bag"], out
+
+
+def _bag_check(table, ids, w, route) -> torch.Tensor:
+    """K5 on the given route against its float64 plain version, and a
+    second launch's bits."""
+    taken, got = _bag_route(
+        lambda: embedding_bag.embedding_bag_cuda(table, ids, w))
+    assert taken == [route]
+    want = ref.embedding_bag_ref(table.double(), ids, w.double())
+    # each of at most L float32 roundings on a term's way into the sum is
+    # at most 2^-24 of sum_l |w| |row|
+    limit = ids.shape[1] * 2.0**-24 * ref.embedding_bag_ref(
+        table.double().abs(), ids, w.double().abs())
+    _within(got, want, limit)
+    assert torch.equal(got, embedding_bag.embedding_bag_cuda(table, ids, w))
+    return got
+
+
+# the sweep of test_kernels.py, DIN's widths, odd d (7, 33), d > 32 (64),
+# L = 1, B below the SM count, B = 8,192, a history above a staged pass
 @pytest.mark.parametrize("V,d,B,L", [(100, 8, 16, 5), (1000, 18, 64, 100),
                                      (64, 32, 300, 7), (50_000, 16, 128, 64),
-                                     (100_000, 18, 512, 100)])
+                                     (100_000, 18, 512, 100),
+                                     (1000, 7, 64, 100), (1000, 33, 64, 100),
+                                     (1000, 64, 64, 100), (1000, 18, 64, 1),
+                                     (1000, 18, 5, 100),
+                                     (100_000, 18, 8192, 100),
+                                     (1000, 18, 40, 600)])
 def test_embedding_bag_matches_plain_and_repeats_bitwise(card, V, d, B, L):
     g = torch.Generator(device=card).manual_seed(V + L)
     table = torch.randn((V, d), generator=g, device=card)
     ids = torch.randint(0, V, (B, L), generator=g, device=card,
                         dtype=torch.int32)
     w = torch.rand((B, L), generator=g, device=card)
-    for bag_ids in (ids, ids[:1].expand(B, L)):      # own and shared history
-        got = embedding_bag.embedding_bag_cuda(table, bag_ids, w)
-        want = ref.embedding_bag_ref(table.double(), bag_ids, w.double())
-        # sequential float32 multiply-adds: each of L roundings is at most
-        # 2^-24 of sum_l |w| |row|
-        limit = L * 2.0**-24 * ref.embedding_bag_ref(
-            table.double().abs(), bag_ids, w.double().abs())
-        _within(got, want, limit)
-        assert torch.equal(got, embedding_bag.embedding_bag_cuda(
-            table, bag_ids, w))
+    _bag_check(table, ids, w, "gather")                   # own histories
+    _bag_check(table, ids[:1].expand(B, L), w, "shared")  # one history
+
+
+@pytest.mark.parametrize("d,offset", [(18, 0), (18, 18), (18, 1), (7, 3)])
+def test_embedding_bag_on_strided_weights_and_table_views(card, d, offset):
+    """Weights with row stride 0 (one weight row for every bag) and tables
+    that are views of a larger buffer, ``offset`` floats in: 72 bytes
+    (8-byte aligned, not 16: float2 loads) and 4 or 12 bytes (one float a
+    load), on both routes."""
+    V, B, L = 5000, 300, 100
+    g = torch.Generator(device=card).manual_seed(d + offset)
+    buf = torch.randn(V * d + offset, generator=g, device=card)
+    table = buf[offset:].view(V, d)
+    assert table.data_ptr() % 16 != 0 or offset == 0
+    assert embedding_bag.unit_width(table) == (
+        2 if d % 2 == 0 and offset % 2 == 0 else 1)
+    ids = torch.randint(-V, V, (B, L), generator=g, device=card,
+                        dtype=torch.int32)
+    w = torch.rand((B, L), generator=g, device=card)
+    w_one = w[:1].expand(B, L)
+    for bag_ids, route in ((ids, "gather"),
+                           (ids[:1].expand(B, L), "shared")):
+        for weights in (w, w_one):
+            _bag_check(table, bag_ids, weights, route)
 
 
 @pytest.mark.parametrize("n,K", [(64, 4), (100, 7), (512, 16), (300, 130),
@@ -534,17 +582,25 @@ def test_dense_plan_on_a_graph_table_is_its_live_count(card):
 @pytest.mark.parametrize("ids", [[[0, -1]], [[0, 5]], [[-4, 3], [1, -5]]])
 def test_embedding_bag_reads_ids_as_the_plain_version(card, ids):
     """K5 on ids outside [0, V): [-V, 0) wraps to id + V, a bag with an id
-    outside [-V, V) is NaN in every column, as in the plain version."""
+    outside [-V, V) is NaN in every column, as in the plain version; on
+    route G as given, and on route S with each row as every bag's
+    history."""
     table = torch.randn((4, 3), generator=torch.Generator(
         device=card).manual_seed(1), device=card)
     ids = torch.tensor(ids, dtype=torch.int32, device=card)
-    w = torch.rand(ids.shape, device=card)
-    got = embedding_bag.embedding_bag_cuda(table, ids, w)
-    want = ref.embedding_bag_ref(table.double(), ids, w.double())
-    torch.testing.assert_close(got.double(), want, rtol=1e-6, atol=1e-7,
-                               equal_nan=True)
-    bad = ((ids < -4) | (ids >= 4)).any(dim=1)
-    assert torch.equal(torch.isnan(got).all(dim=1), bad)
+    cases = [(ids, "gather")] + [(row[None].expand(3, -1), "shared")
+                                 for row in ids]
+    for bag_ids, route in cases:
+        w = torch.rand(bag_ids.shape, device=card)
+        taken, got = _bag_route(
+            lambda: embedding_bag.embedding_bag_cuda(table, bag_ids, w))
+        assert taken == [route]
+        want = ref.embedding_bag_ref(table.double(), bag_ids, w.double())
+        torch.testing.assert_close(got.double(), want, rtol=1e-6, atol=1e-7,
+                                   equal_nan=True)
+        bad = ((bag_ids < -4) | (bag_ids >= 4)).any(dim=1)
+        assert torch.equal(torch.isnan(got).all(dim=1), bad)
+        assert not bool(torch.isnan(got[~bad]).any())
 
 
 def test_power_iteration_through_k4_equals_coo(card):
