@@ -30,9 +30,11 @@ drives the port's main path, in phases:
    ignores the budget, drops a lane per cell or the last lane of each K3
    fold block's range; an SpMV that ignores the mask or drops each row's
    last cell; K1 and K4 reading each row one cell short of its extent, K1
-   reading the threshold at the row instead of the source, and K1's
-   frontier route losing one word of its bitmap), and a second launch must
-   give the same bits. Then the lane
+   reading the threshold at the row instead of the source, K1's frontier
+   route losing one word of its bitmap, and, in phase 9, a live endpoint
+   fold that drops each cell's last lane, ignores the weights or drops
+   each tile's last 32-lane chunk), and a second launch must give the same
+   bits. Then the lane
    streams drawn on the card must equal those drawn on the CPU;
 2. the dense path: ``fora_fused`` on ``small_test_graph(n=2000)``, against
    exact PPR whose every step is one K4 launch a source;
@@ -110,7 +112,33 @@ drives the port's main path, in phases:
    (Lemma 1's core count), and the straggler re-issue over the measured
    per-query times of the slot with the longest lane, one lane stalled by
    20 t_hat: the lanes over t_hat (2 - d) must be re-issued and the slot
-   cut to its first finishers.
+   cut to its first finishers;
+9. the continuous-batching engine on the paper path at full size: the live
+   endpoint fold (``csrc/endpoint_fold.cu``) against its float64 plain
+   version (rtol 1e-5 + 1e-6 * max, the check of phase 1) on real walk
+   endpoints of the paper path's queries at its calibrated 2^20 lanes and
+   B in {1, 3, 8}, on random weights, and with every lane at one hub,
+   bits repeating; the limit must refuse the three broken folds above.
+   Then 256 queries through an 8-lane ``QueryEngine`` (K2 at B = 8, the
+   fold on each walking group), launches by kernel counted; a second run
+   with the same insertion schedule must give the same bits; each row
+   must lie within the sliced push's rtol 1e-4 of its ``answer_chunk``
+   row but for at most ``2 * MOVED_MAX`` entries, each within MOVED_MAX
+   walkers' weight r_sum / w_eff (a walk start that a push at another
+   batch width put across a CDF boundary); within eps of power iteration
+   on 3 sources; no row short of its walks without ``walks_short``. Per
+   query ms, the insert-to-harvest latency, a profile of 16 queries with
+   its idle share, the fold's time at B = 1 and 8 beside its bound, its
+   plain version and ``index_add_``; and Monte Carlo PPR on the dense path
+   within eps of K4's oracle;
+10. dynamic graphs on the same graph: 8 seeded ``MutationLog`` batches of
+   256 edges applied by ``DynamicGraph`` on the card, each timed; after
+   each, the walk view's live prefix must equal a fresh build's arrays and
+   the push on the mutated residency (K2 with the fold rebuilt from the
+   new ``row_map``) a fresh build's within rtol 1e-4 + 1e-6 * max; K2 must
+   give the same bits with the spare rows (``row_map == n``) filled with
+   live cells; ``compact()`` must equal a fresh build, every array and the
+   fold.
 
 The launch counts of each path are zeroed just before it and read just
 after. Any failed phase exits non-zero; without a card, or without the
@@ -191,7 +219,9 @@ REPLACES = {"ell_spmm": "src/repro/kernels/ell_spmv.py:141",
             "ell_spmv": "src/repro/kernels/ell_spmv.py:71",
             "walk_endpoint_gather": "src/repro/kernels/walk_gather.py:57",
             "flash_attention": "src/repro/kernels/flash_attention.py:83",
-            "embedding_bag": "src/repro/kernels/embedding_bag.py:40"}
+            "embedding_bag": "src/repro/kernels/embedding_bag.py:40",
+            # XLA's segment_sum of the live walks, not a Pallas kernel
+            "endpoint_fold": "src/repro/ppr/random_walk.py:213"}
 SOURCES = {"ell_spmm": "src/repro_torch/kernels/csrc/ell_spmm.cu",
            "ell_spmm_sliced":
                "src/repro_torch/kernels/csrc/ell_spmm_sliced.cu",
@@ -200,7 +230,8 @@ SOURCES = {"ell_spmm": "src/repro_torch/kernels/csrc/ell_spmm.cu",
                "src/repro_torch/kernels/csrc/walk_gather.cu",
            "flash_attention":
                "src/repro_torch/kernels/csrc/flash_attention.cu",
-           "embedding_bag": "src/repro_torch/kernels/csrc/embedding_bag.cu"}
+           "embedding_bag": "src/repro_torch/kernels/csrc/embedding_bag.cu",
+           "endpoint_fold": "src/repro_torch/kernels/csrc/endpoint_fold.cu"}
 # every TPU kernel of the JAX package has its counterpart
 NOT_PORTED: list[dict] = []
 # phase 8: a dense graph at Pokec's order and size (paper Table I)
@@ -222,6 +253,21 @@ LOOP_SLACK = 0.25
 LOOP_D = 0.9
 STALL_LANE = 1
 STALL = 20
+# phase 9: the engine on the paper path at full size, the fold's checks
+ENGINE_LANES = 8
+ENGINE_QUERIES = 256
+ENGINE_SWEEPS = 4
+ENGINE_PROFILED = 16           # queries of the profiled engine run
+FOLD_BS = (1, 3, 8)
+# engine row against its chunked answer: the sliced push's rtol, and at
+# most MOVED_MAX walkers' weight r_sum / w_eff on each entry above it (a
+# walk start that a push at another batch width put across a CDF boundary)
+ENGINE_RTOL = 1e-4
+MOVED_MAX = 4
+# phase 10: seeded edge batches on the same graph
+DYN_BATCHES = 8
+DYN_BATCH_EDGES = 256
+DYN_RTOL = 1e-4                # the sliced push's tolerance
 # tests/test_kernels.py::test_ell_spmv_sweep's shapes (n, K)
 SPMV_SWEEP = [(64, 4), (100, 7), (512, 16), (300, 130), (1000, 33)]
 # K1 and K4 on non-left-packed tables: EDGE_N rows (not a multiple of the
@@ -1626,6 +1672,399 @@ def phase8_pokec(pokec, dg, dev, card: str) -> int:
     return k4
 
 
+def fold_cost(B: int, W: int, n: int) -> tuple[float, str]:
+    """Least time (ms) for one endpoint fold on these shapes: endpoints and
+    weights read once (8 bytes a lane), the (B, n) output written once; one
+    add per lane."""
+    t_bytes = (B * W * 8 + B * n * 4) / HBM_BYTES_PER_S
+    t_ops = B * W / FP32_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else \
+        "operations"
+
+
+def last_lane_of_cell(pos, weights):
+    """``weights`` with the highest lane of each (row, cell) zeroed: a fold
+    that drops a cell's last lane."""
+    import torch
+
+    B, W = pos.shape
+    key = pos.long() * W + torch.arange(W, device=pos.device)[None]
+    order = torch.argsort(key, dim=1)
+    cells = torch.gather(pos, 1, order)
+    last = torch.ones_like(cells, dtype=torch.bool)
+    last[:, :-1] = cells[:, 1:] != cells[:, :-1]
+    drop = torch.zeros_like(last)
+    drop.scatter_(1, order, last)
+    return torch.where(drop, 0.0, weights)
+
+
+def run_engine(ex, lanes: int, qids) -> tuple[dict, dict, int]:
+    """Every query of ``qids`` through a ``QueryEngine`` of ``lanes``
+    lanes, inserted in order as lanes free up, stepped and harvested until
+    the pool drains. Returns ({qid: HarvestedQuery}, {qid: seconds from
+    insertion to harvest}, steps)."""
+    from repro_torch.serving import QueryEngine
+
+    eng = QueryEngine(ex, lanes, sweeps=ENGINE_SWEEPS)
+    pending = list(qids)
+    rows, t_in, latency = {}, {}, {}
+    while pending or eng.busy:
+        while pending and eng.free:
+            qid = pending.pop(0)
+            eng.insert(qid)
+            t_in[qid] = time.perf_counter()
+        eng.step()
+        for h in eng.harvest():
+            rows[h.qid] = h
+            latency[h.qid] = time.perf_counter() - t_in[h.qid]
+    return rows, latency, eng.steps
+
+
+def phase9_engine(web, small, dev, gen, card: str) -> dict:
+    """The fold kernel against its plain version, the continuous-batching
+    engine on the paper path at full size, and Monte Carlo PPR on the dense
+    path. Returns the fold kernel's row of the kernels line."""
+    import torch
+
+    from repro_torch.kernels import (endpoint_fold, ell_spmv, ref,
+                                     walk_gather)
+    from repro_torch.ppr import (ForaExecutor, ForaParams, PprWorkload,
+                                 QueryDraws, monte_carlo_ppr, forward_push,
+                                 ppr_power_iteration, sample_walk_starts,
+                                 walk_endpoints, walk_length_for_tail)
+    from repro_torch.ppr.forward_push import one_hot_seeds
+    from repro_torch.ppr.random_walk import lane_weights
+
+    print(f"phase 9: continuous-batching engine on the paper path, the live "
+          f"endpoint fold, Monte Carlo PPR on the dense path, card {card}")
+    params = ForaParams(epsilon=0.5)
+    ex = ForaExecutor(workload=PprWorkload(web, ENGINE_QUERIES, seed=0),
+                      params=params, device=dev)
+    ex.warmup()
+    W = ex.current_walk_budget()
+    dg = ex.device_graph
+    rp = params.resolve(dg)
+    L = walk_length_for_tail(rp.alpha, rp.walk_tail)
+    print(f"  web-stanford n={web.n} layout {dg.layout}, calibrated walk "
+          f"lanes {W}, {ENGINE_LANES} engine lanes, {ENGINE_SWEEPS} sweeps a "
+          f"step")
+
+    # the fold against its float64 plain version, on real walk endpoints of
+    # the paper path's first queries at its lane count
+    seeds = one_hot_seeds(ex.workload.sources[:max(FOLD_BS)], web.n, dev)
+    push = forward_push(dg.in_neighbors, dg.in_mask, dg.in_weights,
+                        dg.out_degree, seeds, alpha=rp.alpha, rmax=rp.rmax,
+                        row_map=dg.in_row_map, fold=dg.in_fold)
+    residual = push.r.contiguous()
+    draws = QueryDraws(0, range(max(FOLD_BS)), W, dev)
+    starts, r_sum = sample_walk_starts(residual, draws.start_uniforms())
+    pos = walk_endpoints(dg.edge_dst, dg.out_offsets, dg.out_degree, starts,
+                         (draws.step(t) for t in range(L)),
+                         alpha=rp.alpha).contiguous()
+    need = torch.clamp(torch.ceil(r_sum * rp.omega), min=1.0)
+    w_eff = torch.clamp(torch.exp2(torch.ceil(torch.log2(need))), 1.0,
+                        float(W)).to(torch.int32)
+    path_w = lane_weights(r_sum, W, w_eff).contiguous()
+    stats = {"max_abs_err": 0.0, "ratio": 0.0}
+
+    def fold_check(label, p, w, broken=()):
+        torch.cuda.synchronize()
+        out = endpoint_fold.endpoint_fold_cuda(p, w, web.n)
+        torch.cuda.synchronize()
+        want = ref.endpoint_fold_ref(p, w.double(), web.n)
+        check(out.shape == want.shape and bool(torch.isfinite(out).all()),
+              f"endpoint_fold {label}: bad output")
+        err, ratio = err_ratio(out, want, RTOL)
+        stats["max_abs_err"] = max(stats["max_abs_err"], err)
+        stats["ratio"] = max(stats["ratio"], ratio)
+        check(bool(torch.equal(out, endpoint_fold.endpoint_fold_cuda(
+            p, w, web.n))), f"endpoint_fold {label}: a second launch gave "
+              "other bits")
+        print(f"  endpoint_fold {label:44s} max_abs_err={err:.3e} "
+              f"max|want|={float(want.abs().max()):.3e} err/limit="
+              f"{ratio:.4f} {'ok' if ratio <= 1 else 'FAIL'}")
+        check(ratio <= 1.0, f"endpoint_fold {label}: error {err} above the "
+              f"limit (ratio {ratio})")
+        for bad, bw in broken:
+            _, r = err_ratio(ref.endpoint_fold_ref(p, bw.double(), web.n),
+                             want, RTOL)
+            print(f"  endpoint_fold {'broken: ' + bad:44s} err/limit="
+                  f"{r:.4g} {'refused' if r > 1 else 'PASSED'}")
+            check(r > 1.0, f"endpoint_fold: the check passes a broken fold "
+                  f"({bad})")
+
+    for B in FOLD_BS:
+        fold_check(f"paper path B={B} W={W} (r_sum/w_eff)",
+                   pos[:B].contiguous(), path_w[:B].contiguous())
+    rand_w = torch.rand(pos.shape, generator=gen, device=dev)
+    tile = endpoint_fold.TILE
+    lane = torch.arange(W, device=dev)
+    fold_check(f"paper path B={max(FOLD_BS)} random weights", pos, rand_w,
+               broken=(("last lane of each cell dropped",
+                        last_lane_of_cell(pos, rand_w)),
+                       ("weights ignored (row mean)",
+                        rand_w.mean(dim=1, keepdim=True).expand_as(rand_w)),
+                       (f"each {tile}-lane tile's last chunk dropped",
+                        torch.where((lane % tile >= tile - 32)[None], 0.0,
+                                    rand_w))))
+    hub = torch.full((1, W), web.n // 2, dtype=torch.int32, device=dev)
+    fold_check(f"hub: every lane at node {web.n // 2}, B=1", hub,
+               rand_w[:1].contiguous())
+    print(f"  endpoint_fold: max_abs_err {stats['max_abs_err']:.3e}, largest "
+          f"err/limit {stats['ratio']:.4f}")
+
+    # the engine at full size: the main path of this phase
+    for mod in (ell_spmv, walk_gather, endpoint_fold):
+        mod.reset_launches()
+    qids = list(range(ENGINE_QUERIES))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows, latency, steps = run_engine(ex, ENGINE_LANES, qids)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {**ell_spmv.LAUNCHES, **walk_gather.LAUNCHES,
+                **endpoint_fold.LAUNCHES}
+    lat = np.array([latency[q] for q in qids]) * 1e3
+    print(f"  engine: {ENGINE_QUERIES} queries through {ENGINE_LANES} lanes "
+          f"in {steps} steps, wall {wall:.3f}s = {wall / ENGINE_QUERIES * 1e3:.3f}"
+          f" ms a query; insert to harvest mean {lat.mean():.3f} ms, p50 "
+          f"{np.percentile(lat, 50):.3f}, max {lat.max():.3f}; launches "
+          f"{launches}")
+    check(sorted(rows) == qids, "the engine lost queries")
+    check(launches["ell_spmm_sliced"] > 0, "the engine never launched K2")
+    check(launches["endpoint_fold"] > 0,
+          "the engine never launched the endpoint fold")
+    check(launches["ell_spmm"] == 0 and launches["walk_endpoint_gather"] == 0,
+          "the engine on the sliced table launched K1 or K3")
+    fold_launches = launches["endpoint_fold"]
+    # a second run with the same insertion schedule: the same bits
+    again, _, steps2 = run_engine(ex, ENGINE_LANES, qids)
+    same = sum(bool(np.array_equal(again[q].pi, rows[q].pi)) for q in qids)
+    print(f"  second engine run: {same} of {ENGINE_QUERIES} rows have the "
+          f"same bits ({steps2} steps)")
+    check(same == ENGINE_QUERIES and steps2 == steps,
+          "a second engine run gave other bits")
+    # each row against its chunked answer: the pushes run at other batch
+    # widths, so a walk start may cross a CDF boundary; such a walker moves
+    # its weight r_sum / w_eff between two entries
+    worst_over, worst_ratio = 0, 0.0
+    for lo in range(0, ENGINE_QUERIES, ENGINE_LANES):
+        chunk = qids[lo:lo + ENGINE_LANES]
+        want = ex.answer_chunk(chunk)
+        for i, q in enumerate(chunk):
+            h = rows[q]
+            diff = np.abs(h.pi.astype(np.float64) - want[i])
+            limit = ENGINE_RTOL * np.abs(want[i]) + ATOL_FRAC * float(
+                np.abs(want[i]).max())
+            over = diff > limit
+            weight = h.residual_mass / h.walks_effective
+            worst_over = max(worst_over, int(over.sum()))
+            if over.any():
+                worst_ratio = max(worst_ratio, float(
+                    (diff[over] / (MOVED_MAX * weight + limit[over])).max()))
+    print(f"  engine rows vs answer_chunk (rtol {ENGINE_RTOL} + "
+          f"{ATOL_FRAC} * max): at most {worst_over} entries a row over, "
+          f"each within {worst_ratio:.4f} of {MOVED_MAX} walkers' weight")
+    check(worst_over <= 2 * MOVED_MAX and worst_ratio <= 1.0,
+          "engine rows differ from their chunked answers")
+    # FORA's guarantee against power iteration, and the lane cap's flags
+    srcs = ex.workload.sources[:CHECK_SOURCES]
+    exact = ppr_power_iteration(web, srcs, device=dev)
+    mask = exact >= 1.0 / web.n
+    pis = np.stack([rows[q].pi for q in range(CHECK_SOURCES)])
+    rel = float((np.abs(pis - exact)[mask] / exact[mask]).max())
+    short = [q for q in qids if rows[q].walks_short]
+    unflagged = [q for q in qids if not rows[q].walks_short and float(
+        np.ceil(np.float32(rows[q].residual_mass) * np.float32(rp.omega)))
+        > rows[q].walks_effective]
+    print(f"  FORA max rel err {rel:.4f} over {CHECK_SOURCES} sources "
+          f"(eps 0.5); rows flagged walks_short {len(short)}, unflagged "
+          f"short rows {len(unflagged)}")
+    check(rel < 0.5, f"engine rows: FORA rel err {rel} >= eps")
+    check(not unflagged, f"short rows without the flag: {unflagged[:8]}")
+    # where the time goes: a short engine run under the profiler
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_engine(ex, ENGINE_LANES, qids[:ENGINE_PROFILED])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_name = device_us(prof)
+    busy = sum(sum(v) for v in by_name.values())
+    print(f"  profile engine: {ENGINE_PROFILED} queries, wall "
+          f"{wall_us / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms, idle "
+          f"share {1 - busy / wall_us:.3f}")
+    for name, ts in sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:10]:
+        print(f"    {sum(ts) / 1e3:9.3f} ms {len(ts):7d}x "
+              f"{sum(ts) / len(ts):8.2f} us  {name[:90]}")
+
+    # the fold's time at the paper path's shape, beside index_add_
+    def timed_fold(B, reps=100):
+        p, w = pos[:B].contiguous(), path_w[:B].contiguous()
+        flat = (p.long() + torch.arange(B, device=dev)[:, None]
+                * web.n).reshape(-1)
+        wf = w.reshape(-1)
+        kern = lambda: endpoint_fold.endpoint_fold_cuda(  # noqa: E731
+            p, w, web.n)
+        plain = lambda: ref.endpoint_fold_ref(p, w, web.n)  # noqa: E731
+        lib = lambda: torch.zeros(  # noqa: E731
+            B * web.n, device=dev).index_add_(0, flat, wf)
+        _, lib_ratio = err_ratio(lib().view(B, web.n), ref.endpoint_fold_ref(
+            p, w.double(), web.n), LIBRARY_RTOL)
+        check(lib_ratio <= 1.0, "library yardstick disagrees for the fold")
+        split = device_split_us(kern, reps)
+        ms = sum(split.values()) / 1e3
+        plain_ms = device_ms(plain, max(5, reps // 10))
+        lib_ms = device_ms(lib, reps)
+        ev_ms = events_ms(kern, reps)
+        bound, by = fold_cost(B, W, web.n)
+        print("    fold device time by kernel: " + ", ".join(
+            f"{k[:40]} {us:.2f} us" for k, us in split.items()))
+        print(f"  {'endpoint_fold':16s} paper path B={B} W={W}"
+              f"{'':12s} kernel {ms * 1e3:9.2f} us (events {ev_ms * 1e3:9.2f}"
+              f" us)  bound {bound * 1e3:8.2f} us ({by})  plain "
+              f"{plain_ms * 1e3:10.2f} us  index_add_ {lib_ms * 1e3:9.2f} us"
+              f"  [{card}]")
+        return ms, plain_ms, bound, by, lib_ms
+
+    ms, plain_ms, bound, by, lib_ms = timed_fold(1)
+    timed_fold(max(FOLD_BS), reps=30)
+
+    # pure Monte Carlo PPR on the dense path against K4's oracle
+    endpoint_fold.reset_launches()
+    ell_spmv.reset_launches()
+    msrcs = np.array(DENSE_SOURCES)
+    mexact = ppr_power_iteration(small, msrcs, device=dev)
+    k4 = ell_spmv.LAUNCHES["ell_spmv"]
+    t0 = time.perf_counter()
+    mc = monte_carlo_ppr(small, msrcs, ForaParams(epsilon=0.5), seed=0,
+                         device=dev)
+    t_mc = time.perf_counter() - t0
+    mmask = mexact >= 1.0 / small.n
+    mrel = float((np.abs(mc - mexact)[mmask] / mexact[mmask]).max())
+    print(f"  Monte Carlo PPR, dense path, {len(msrcs)} sources: "
+          f"{t_mc:.3f}s, max rel err {mrel:.4f} against K4's oracle ({k4} "
+          f"K4 launches), row sums {np.round(mc.sum(axis=1), 5).tolist()}, "
+          f"fold launches {endpoint_fold.LAUNCHES['endpoint_fold']}")
+    check(np.isfinite(mc).all() and np.allclose(mc.sum(axis=1), 1.0,
+                                                 atol=1e-4),
+          "Monte Carlo PPR: bad rows")
+    check(mrel < 0.5, f"Monte Carlo PPR rel err {mrel} >= eps")
+    check(k4 > 0 and endpoint_fold.LAUNCHES["endpoint_fold"] == len(msrcs),
+          "Monte Carlo PPR: K4 or the fold not launched")
+    return {"name": "endpoint_fold", "launches": fold_launches,
+            "max_abs_err": stats["max_abs_err"], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": lib_ms}
+
+
+def phase10_dyn(web, dev, card: str) -> None:
+    """Seeded edge batches applied to the paper path's graph on the card:
+    the walk view against a fresh build after every batch, the push on the
+    mutated residency against a fresh build's, spare rows that K2 must not
+    read, and compaction equal to a fresh build."""
+    import torch
+
+    from repro_torch.dyn import DynamicGraph, MutationLog
+    from repro_torch.kernels import ell_spmv
+    from repro_torch.ppr import ForaParams, PprWorkload, forward_push
+    from repro_torch.ppr.forward_push import one_hot_seeds
+    from repro_torch.ppr.graph import DeviceGraph
+
+    print(f"phase 10: dynamic graphs on the full-size web-stanford stand-in, "
+          f"{DYN_BATCHES} seeded batches of {DYN_BATCH_EDGES} edges, card "
+          f"{card}")
+    t0 = time.perf_counter()
+    dyn = DynamicGraph(web, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    log = MutationLog.seeded(web, DYN_BATCHES, seed=0,
+                             batch_edges=DYN_BATCH_EDGES)
+    t_log = time.perf_counter() - t0
+    print(f"  residency: width {dyn.width}, push rows "
+          f"{int(dyn._push_rm.shape[0])} (capacity), walk slots "
+          f"{int(dyn._walk_src.shape[0])}; set-up {t_init:.2f}s, log "
+          f"{t_log:.2f}s")
+    rp = ForaParams(epsilon=0.5).resolve(web)
+    srcs = PprWorkload(web, ENGINE_QUERIES, seed=0).sources[:CHECK_SOURCES]
+    seeds = one_hot_seeds(srcs, web.n, dev)
+
+    def push_pi(dg):
+        return forward_push(dg.in_neighbors, dg.in_mask, dg.in_weights,
+                            dg.out_degree, seeds, alpha=rp.alpha,
+                            rmax=rp.rmax, row_map=dg.in_row_map,
+                            fold=dg.in_fold).pi
+
+    ell_spmv.reset_launches()
+    apply_s, worst = [], 0.0
+    for batch in log:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        info = dyn.apply(batch)
+        torch.cuda.synchronize()
+        apply_s.append(time.perf_counter() - t0)
+        fresh_g = dyn.graph()
+        m = fresh_g.m
+        walk_ok = (dyn.dg.m == m and all(np.array_equal(
+            getattr(dyn.dg, f)[:m].cpu().numpy(), getattr(fresh_g, f))
+            for f in ("edge_src", "edge_dst")) and np.array_equal(
+            dyn.dg.out_offsets.cpu().numpy(), fresh_g.out_offsets)
+            and np.array_equal(dyn.dg.out_degree.cpu().numpy(),
+                               fresh_g.out_degree))
+        check(walk_ok, f"version {info.version}: the walk view's live "
+              "prefix differs from a fresh build")
+        fresh = DeviceGraph.from_graph(fresh_g, layout="sliced", device=dev)
+        got, want = push_pi(dyn.dg), push_pi(fresh).double()
+        _, ratio = err_ratio(got, want, DYN_RTOL)
+        worst = max(worst, ratio)
+        print(f"  version {info.version}: +{info.adds_applied} "
+              f"-{info.removes_applied} edges, {info.push_rows} delta rows, "
+              f"{len(info.affected)} sources affected, live {m}; apply "
+              f"{apply_s[-1] * 1e3:.2f} ms; walk view = fresh build; push "
+              f"err/limit {ratio:.4f}")
+        check(ratio <= 1.0, f"version {info.version}: push on the mutated "
+              f"residency differs from a fresh build (ratio {ratio})")
+    k2 = ell_spmv.LAUNCHES["ell_spmm_sliced"]
+    check(k2 > 0, "the mutated residency's push never launched K2")
+    # spare rows (row_map == n) lie past the fold's row_ptr[n]: K2 must
+    # not read them, whatever they hold
+    dg = dyn.dg
+    spare = dg.in_row_map == web.n
+    x = seeds / seeds.sum(dim=1, keepdim=True)
+    clean = ell_spmv.ell_spmm_sliced_cuda(dg.in_neighbors, dg.in_mask,
+                                          dg.in_weights, dg.in_row_map, x,
+                                          None, dg.in_fold)
+    nbr = torch.where(spare[:, None], web.n - 1, dg.in_neighbors)
+    poisoned = ell_spmv.ell_spmm_sliced_cuda(
+        nbr, dg.in_mask | spare[:, None], torch.where(
+            spare[:, None], 1.0, dg.in_weights), dg.in_row_map, x, None,
+        dg.in_fold)
+    print(f"  {int(spare.sum())} spare rows past row_ptr[n] = "
+          f"{int(dg.in_fold.row_ptr[-1])}: K2 with them filled gives the "
+          f"same bits: {bool(torch.equal(clean, poisoned))}")
+    check(bool(torch.equal(clean, poisoned)), "K2 read the spare rows")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    compacted = dyn.compact()
+    torch.cuda.synchronize()
+    t_compact = time.perf_counter() - t0
+    fresh = DeviceGraph.from_graph(dyn.graph(), layout="sliced", device=dev)
+    same = all(bool(torch.equal(getattr(compacted, f), getattr(fresh, f)))
+               for f in DeviceGraph.ARRAY_FIELDS) and all(
+        bool(torch.equal(getattr(compacted.in_fold, f),
+                         getattr(fresh.in_fold, f)))
+        for f in ("row_ptr", "items", "hubs", "hub_chunks"))
+    print(f"  apply ms: mean {np.mean(apply_s) * 1e3:.2f}, max "
+          f"{np.max(apply_s) * 1e3:.2f}; compact {t_compact:.2f}s, equal to a "
+          f"fresh build: {same}; push err/limit at most {worst:.4f} (rtol "
+          f"{DYN_RTOL}); K2 launches {k2}")
+    check(same, "compact() differs from a fresh build")
+
+
 def main() -> int:
     # the port must not need JAX or the JAX package
     sys.modules["jax"] = None
@@ -2544,6 +2983,14 @@ def main() -> int:
     print(f"  phase 8 wall {time.perf_counter() - t0:.1f}s (graph and "
           f"table built before phase 1 in {pokec_graph_s + pokec_table_s:.1f}"
           f"s)")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    fold_row = phase9_engine(web, small, dev, gen, card)
+    print(f"  phase 9 wall {time.perf_counter() - t0:.1f}s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase10_dyn(web, dev, card)
+    print(f"  phase 10 wall {time.perf_counter() - t0:.1f}s")
 
     summary = []
     for name, (ms, plain_ms, bound, by, lib_ms) in (
@@ -2555,7 +3002,7 @@ def main() -> int:
             "max_abs_err": stats[name]["max_abs_err"], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
             "library_ms": lib_ms})
-    for row in (k6, k5):
+    for row in (k6, k5, fold_row):
         summary.append({"name": row["name"], "route": "cuda",
                         "source": SOURCES[row["name"]],
                         "replaces": REPLACES[row["name"]],

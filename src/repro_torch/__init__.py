@@ -6,6 +6,7 @@ run on the card (``device="cuda"``) unless the caller asks for the CPU, and
 raise when asked for a card that is not there.
 """
 
-from . import configs, core, ft, index, kernels, models, ppr
+from . import configs, core, dyn, ft, index, kernels, models, ppr, serving
 
-__all__ = ["configs", "core", "ft", "index", "kernels", "models", "ppr"]
+__all__ = ["configs", "core", "dyn", "ft", "index", "kernels", "models",
+           "ppr", "serving"]

@@ -13,6 +13,7 @@ from . import ref
 from .ell_spmv import (DensePlan, SlicedFold, ell_spmm_cuda,
                        ell_spmm_sliced_cuda, ell_spmv_cuda)
 from .embedding_bag import embedding_bag_cuda
+from .endpoint_fold import endpoint_fold_cuda
 from .flash_attention import flash_attention_cuda
 from .walk_gather import walk_endpoint_gather_cuda
 
@@ -75,6 +76,18 @@ def walk_endpoint_gather(endpoints: torch.Tensor, budget: torch.Tensor,
     return ref.walk_endpoint_gather_ref(endpoints, budget, starts, weights)
 
 
+def endpoint_fold(pos: torch.Tensor, weights: torch.Tensor,
+                  n: int) -> torch.Tensor:
+    """The live walk phase's fold: each lane's weight added at its endpoint
+    ``pos``, (B, n) from pos and weights (B, W). On the card in one
+    summation order, fixed by the lanes, so a second call gives the same
+    bits."""
+    if _on_cuda(weights):
+        return endpoint_fold_cuda(pos.to(torch.int32).contiguous(),
+                                  weights.contiguous(), n)
+    return ref.endpoint_fold_ref(pos, weights, n)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, q_offset: int = 0) -> torch.Tensor:
     """Attention of q (B, Sq, Hq, Dh) over k, v (B, Skv, Hkv, Dh) with GQA
@@ -92,3 +105,108 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
     if _on_cuda(table):
         return embedding_bag_cuda(table, ids, weights)
     return ref.embedding_bag_ref(table, ids, weights)
+
+
+# ---------------------------------------------------------------------------
+# dynamic-graph delta application: plain torch on the residency's device,
+# as the JAX package leaves them to XLA (no Pallas kernel). The host hands
+# over only the small per-batch delta arrays; the O(table) rewrite happens
+# where the table lives. Free and padding slots carry the sentinel row_map
+# or src value n, which every consumer drops: K2 reads rows only up to its
+# fold's row_ptr[n], the plain sliced version drops row_map >= n, and the
+# walks read the CSR view through out_offsets.
+
+
+def _pair_keys(a: torch.Tensor, b: torch.Tensor, n: int) -> torch.Tensor:
+    """int64 key a * (n + 1) + b of each pair: ascending in (a, b) for a, b
+    in [0, n], negative for a pair holding -1."""
+    return a.long() * (n + 1) + b.long()
+
+
+def _member(keys: torch.Tensor, sorted_keys: torch.Tensor) -> torch.Tensor:
+    """``keys`` found in the ascending ``sorted_keys`` (bool, keys' shape)."""
+    if sorted_keys.numel() == 0:
+        return torch.zeros(keys.shape, dtype=torch.bool, device=keys.device)
+    at = torch.searchsorted(sorted_keys, keys.reshape(-1))
+    at = at.clamp(max=sorted_keys.numel() - 1)
+    return (sorted_keys[at] == keys.reshape(-1)).reshape(keys.shape)
+
+
+def push_delta_apply(neighbors: torch.Tensor, mask: torch.Tensor,
+                     row_map: torch.Tensor, inv_out: torch.Tensor,
+                     add_nbr: torch.Tensor, add_mask: torch.Tensor,
+                     add_rm: torch.Tensor, rem_src: torch.Tensor,
+                     rem_dst: torch.Tensor, deg_nodes: torch.Tensor,
+                     deg_inv: torch.Tensor, cursor: int):
+    """Apply one edge-update batch to the sliced pull-form push table.
+
+    State (capacity C >= used rows, ascending ``row_map`` with sentinel-n
+    free rows at the tail): ``neighbors``/``mask`` (C, W), ``row_map``
+    (C,), ``inv_out`` (n,) float32 = 1/max(deg_out, 1). Delta: ``add_*``
+    (A, W)/(A,) new virtual rows written at row ``cursor`` (padding rows:
+    mask False, row_map n); ``rem_src``/``rem_dst`` (R,) removed edges
+    (padding -1); ``deg_nodes``/``deg_inv`` (R2,) the host's new inverse
+    out-degrees (padding index n). A removed edge (u, v) clears every cell
+    of row v that names u, found by a sorted-key lookup of each cell's
+    (row, neighbour) pair; the added rows are written; a stable sort by
+    ``row_map`` restores the ascending contract; and the weights are
+    re-derived as ``inv_out[neighbors] * mask``, the gather-multiply the
+    host's table build runs, so unchanged cells keep their bits. Returns
+    (neighbors, mask, weights, row_map, inv_out), new tensors."""
+    n = inv_out.shape[0]
+    ext = torch.cat([inv_out, inv_out.new_zeros(1)])
+    ext.index_copy_(0, deg_nodes.long().clamp(0, n), deg_inv)
+    inv_out = ext[:n]
+    gone = torch.sort(_pair_keys(rem_dst, rem_src, n)).values
+    mask = mask & ~_member(_pair_keys(row_map[:, None], neighbors, n), gone)
+    neighbors = neighbors.clone()
+    row_map = row_map.clone()
+    A = add_rm.shape[0]
+    neighbors[cursor:cursor + A] = add_nbr
+    mask[cursor:cursor + A] = add_mask
+    row_map[cursor:cursor + A] = add_rm
+    order = torch.argsort(row_map, stable=True)
+    neighbors = neighbors[order]
+    mask = mask[order]
+    row_map = row_map[order]
+    weights = inv_out[neighbors.long()] * mask
+    return neighbors, mask, weights, row_map, inv_out
+
+
+def walk_delta_apply(edge_src: torch.Tensor, edge_dst: torch.Tensor,
+                     alive: torch.Tensor, add_src: torch.Tensor,
+                     add_dst: torch.Tensor, add_alive: torch.Tensor,
+                     rem_src: torch.Tensor, rem_dst: torch.Tensor,
+                     cursor: int, n: int):
+    """Apply one edge-update batch to the CSR walk view.
+
+    State (capacity E >= live edges): ``edge_src``/``edge_dst`` (E,) int32
+    and the ``alive`` (E,) mask. Removed edges are tombstoned in place
+    (sorted-key lookup of each slot's (src, dst) pair), additions written
+    at slot ``cursor`` (padding slots: src n, alive False). One stable sort
+    by (src, or n for a dead slot; dst) regroups the live edges exactly as
+    ``Graph.from_edges`` lays them out, grouped by source and
+    destination-ascending within it, with dead and spare slots past the
+    live prefix: the live (src, dst) pairs are distinct, so that order is
+    unique and the live prefix equals a fresh build's arrays. Returns
+    (edge_src, edge_dst, alive, out_offsets (n+1,), out_degree (n,))."""
+    gone = torch.sort(_pair_keys(rem_src, rem_dst, n)).values
+    alive = alive & ~_member(_pair_keys(edge_src, edge_dst, n), gone)
+    edge_src = edge_src.clone()
+    edge_dst = edge_dst.clone()
+    A = add_src.shape[0]
+    edge_src[cursor:cursor + A] = add_src
+    edge_dst[cursor:cursor + A] = add_dst
+    alive[cursor:cursor + A] = add_alive
+    key_src = torch.where(alive, edge_src, n)
+    order = torch.argsort(_pair_keys(key_src, edge_dst, n), stable=True)
+    edge_src = edge_src[order]
+    edge_dst = edge_dst[order]
+    alive = alive[order]
+    degree = torch.zeros(n + 1, dtype=torch.int32, device=edge_src.device)
+    degree.index_add_(0, edge_src.long().clamp(0, n), alive.to(torch.int32))
+    out_degree = degree[:n]
+    out_offsets = torch.zeros(n + 1, dtype=torch.int32,
+                              device=edge_src.device)
+    out_offsets[1:] = torch.cumsum(out_degree, 0)
+    return edge_src, edge_dst, alive, out_offsets, out_degree

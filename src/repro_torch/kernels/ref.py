@@ -94,6 +94,20 @@ def walk_endpoint_gather_ref(endpoints: torch.Tensor, budget: torch.Tensor,
     return out.index_add_(0, flat.reshape(-1), w.reshape(-1)).view(B, n)
 
 
+def endpoint_fold_ref(pos: torch.Tensor, weights: torch.Tensor,
+                      n: int) -> torch.Tensor:
+    """The live walk-endpoint fold: ``out[b, t] = sum_i w[b,i] *
+    [pos[b,i] == t]``, each lane's weight added at its endpoint. pos and
+    weights (B, W); returns (B, n) in the weights' dtype. ``index_add_``,
+    as the JAX package's ``segment_sum``; on the CPU it adds a row's lanes
+    in lane order."""
+    B = pos.shape[0]
+    flat = pos.long() + torch.arange(B, device=pos.device)[:, None] * n
+    out = torch.zeros(B * n, dtype=weights.dtype, device=weights.device)
+    out.index_add_(0, flat.reshape(-1), weights.reshape(-1))
+    return out.view(B, n)
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True,
                         q_offset: int = 0) -> torch.Tensor:

@@ -197,7 +197,10 @@ def fora_fused(dg: DeviceGraph, sources, params: ForaParams = ForaParams(),
                         dg.out_degree, seeds, alpha=rp.alpha, rmax=rp.rmax,
                         max_iters=MAX_PUSH_ITERS, row_map=dg.in_row_map,
                         fold=dg.in_fold, plan=dg.in_plan)
-    r_sum = push.r.sum(dim=1)                                # (B,)
+    # the residual rows contiguous: a row's sum then adds in one order at
+    # any batch width (the push leaves them strided by B)
+    residual = push.r.contiguous()
+    r_sum = residual.sum(dim=1)                              # (B,)
     need = torch.clamp(torch.ceil(r_sum * rp.omega), min=1.0)
     w_eff = torch.exp2(torch.ceil(torch.log2(need)))
     w_eff = torch.clamp(w_eff, 1.0, float(num_walks)).to(torch.int32)
@@ -207,12 +210,12 @@ def fora_fused(dg: DeviceGraph, sources, params: ForaParams = ForaParams(),
             raise ValueError(f"{len(qids)} query ids for {B} sources")
         draws = QueryDraws(seed, qids, num_walks, dev)
     if index is not None:
-        endpoint = _index_walks(dg, index, push.r, draws, w_eff,
+        endpoint = _index_walks(dg, index, residual, draws, w_eff,
                                 alpha=rp.alpha, num_walks=num_walks,
                                 num_steps=steps)
     else:
         endpoint = residual_walks(dg.edge_dst, dg.out_offsets, dg.out_degree,
-                                  push.r, draws, alpha=rp.alpha,
+                                  residual, draws, alpha=rp.alpha,
                                   num_walks=num_walks, num_steps=steps,
                                   active_walks=w_eff)
     return FusedForaResult(pi=push.pi + endpoint, residual_mass=r_sum,

@@ -289,25 +289,32 @@ class _PushLayout(NamedTuple):
     width: int              # K of the resident table
 
 
-def _resolve_push_layout(graph: Graph, layout: str) -> _PushLayout:
+def _resolve_push_layout(graph: Graph, layout: str,
+                         width: int | None = None,
+                         pad_multiple: int | None = None) -> _PushLayout:
     """``"auto"`` slices only when the dense table would hold at least
     ``AUTO_SLICE_RATIO`` times the sliced table's cells: power-law graphs
-    slice, near-uniform graphs keep the dense table."""
+    slice, near-uniform graphs keep the dense table. ``width`` pins the
+    slice width and ``pad_multiple`` the tables' pad multiple (default
+    ``PAD_MULTIPLE``), as the JAX package's table build takes them."""
     if layout not in ("auto", "dense", "sliced"):
         raise ValueError(f"layout must be auto|dense|sliced, got {layout!r}")
-    width = None
+    if pad_multiple is None:
+        pad_multiple = PAD_MULTIPLE
     if layout == "auto":
-        width, sliced_cells = graph._sliced_width_cells()
+        sl_width, sliced_cells = graph._sliced_width_cells(pad_multiple)
         dense_cells = graph.n * _round_up(
-            graph.max_in_degree if graph.m else 1, PAD_MULTIPLE)
+            graph.max_in_degree if graph.m else 1, pad_multiple)
         layout = "sliced" if dense_cells >= DeviceGraph.AUTO_SLICE_RATIO * \
             max(1, sliced_cells) else "dense"
+        if width is None:
+            width = sl_width
     if layout == "sliced":
-        sl = graph.ell_in_sliced(width=width)
+        sl = graph.ell_in_sliced(width=width, pad_multiple=pad_multiple)
         return _PushLayout(layout="sliced", neighbors=sl.neighbors,
                            mask=sl.mask, weights=sl.weights,
                            row_map=sl.row_map, width=sl.width)
-    nbr, mask, weights = graph.ell_in()
+    nbr, mask, weights = graph.ell_in(pad_multiple)
     return _PushLayout(layout="dense", neighbors=nbr, mask=mask,
                        weights=weights, row_map=None,
                        width=int(nbr.shape[1]))
@@ -366,8 +373,9 @@ class DeviceGraph:
 
     @classmethod
     def from_graph(cls, graph: Graph, *, layout: str = "auto",
+                   width: int | None = None, pad_multiple: int | None = None,
                    device: str | torch.device = "cuda") -> "DeviceGraph":
-        lay = _resolve_push_layout(graph, layout)
+        lay = _resolve_push_layout(graph, layout, width, pad_multiple)
         arrays = {"edge_src": graph.edge_src, "edge_dst": graph.edge_dst,
                   "out_offsets": graph.out_offsets,
                   "out_degree": graph.out_degree,

@@ -27,17 +27,24 @@ given (L, W) table (the tests feed the JAX package's ``lane_streams``).
 
 Estimate: endpoints accumulate weight r_sum / W, which gives FORA's
 unbiased estimator pi_hat = pi_push + sum_v r(v) * (MC endpoint dist).
-The endpoint fold is ``index_add_``, which sums with atomics on a card:
-the order of those float sums, and so the last bits, vary between runs.
+The endpoint fold is ``ops.endpoint_fold``: on the card a kernel with one
+summation order a cell, fixed by the lanes, so a query's row has the same
+bits on every run; on the CPU ``index_add_``, lane by lane.
 """
 
 from __future__ import annotations
 
 from collections.abc import Iterable, Iterator, Sequence
-from typing import Protocol
+from typing import TYPE_CHECKING, NamedTuple, Protocol
 
 import numpy as np
 import torch
+
+from .._device import resolve_device
+from ..kernels import ops
+
+if TYPE_CHECKING:
+    from .graph import Graph
 
 STEP_DRAW_BOUND = 1 << 30
 
@@ -247,6 +254,31 @@ def walk_endpoints(edge_dst: torch.Tensor, out_offsets: torch.Tensor,
     return pos
 
 
+def scan_prefix_sums(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sums along the last dim of ``x`` by a Hillis-Steele
+    scan: log2(n) rounds of elementwise adds, ``out[i] += out[i - d]`` for
+    d = 1, 2, 4, ..., so every sum has one order, fixed by the positions."""
+    out = x.contiguous()
+    d = 1
+    while d < out.shape[-1]:
+        nxt = out.clone()
+        nxt[..., d:] += out[..., :-d]
+        out = nxt
+        d *= 2
+    return out
+
+
+def cumulative_residual(residual: torch.Tensor) -> torch.Tensor:
+    """The cumulative residual of each row (..., n), the walks' start CDF.
+    On the CPU ``torch.cumsum``, which adds in order. On the card
+    :func:`scan_prefix_sums`: ``torch.cumsum`` there may combine a row's
+    blocks in an order that changes from run to run, and a start at a CDF
+    boundary would then move between runs of one query."""
+    if residual.device.type == "cuda":
+        return scan_prefix_sums(residual)
+    return torch.cumsum(residual, dim=-1)
+
+
 def starts_from_cdf(csum: torch.Tensor, u: torch.Tensor, r_sum: torch.Tensor,
                     n: int) -> torch.Tensor:
     """Inverse-CDF walk starts: for uniforms ``u`` (..., W) the first node
@@ -259,9 +291,12 @@ def starts_from_cdf(csum: torch.Tensor, u: torch.Tensor, r_sum: torch.Tensor,
 def sample_walk_starts(residual: torch.Tensor, u: torch.Tensor
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """Starts (..., W) int32 sampled proportional to each row of
-    ``residual`` (..., n) from the uniforms ``u``; and the rows' r_sum."""
+    ``residual`` (..., n) from the uniforms ``u``; and the rows' r_sum,
+    summed over contiguous rows so that a row's bits do not depend on the
+    layout or the batch it comes in."""
+    residual = residual.contiguous()
     r_sum = residual.sum(dim=-1)
-    csum = torch.cumsum(residual, dim=-1)
+    csum = cumulative_residual(residual)
     return starts_from_cdf(csum, u, r_sum, residual.shape[-1]), r_sum
 
 
@@ -305,9 +340,122 @@ def lane_weights(r_sum: torch.Tensor, num_walks: int,
 def fold_endpoints(pos: torch.Tensor, weights: torch.Tensor,
                    n: int) -> torch.Tensor:
     """(B, n) endpoint mass: each lane's weight added at its endpoint
-    ``pos`` (B, W'), by ``index_add_``."""
-    B = pos.shape[0]
-    flat = pos.long() + torch.arange(B, device=pos.device)[:, None] * n
-    out = torch.zeros(B * n, dtype=weights.dtype, device=weights.device)
-    out.index_add_(0, flat.reshape(-1), weights.reshape(-1))
-    return out.view(B, n)
+    ``pos`` (B, W'), through ``ops.endpoint_fold``: on the card in one
+    summation order, fixed by the lanes; on the CPU by ``index_add_``."""
+    return ops.endpoint_fold(pos, weights, n)
+
+
+class WalkResult(NamedTuple):
+    endpoint_mass: torch.Tensor   # (B, n) estimated sum_v r(v) * pi(v, .)
+    walks: int                    # lane count W
+
+
+def residual_walks_batched(graph: "Graph", residual: torch.Tensor,
+                           draws: WalkDraws | None = None, *, alpha: float,
+                           num_walks: int, tail: float = 1e-4, seed: int = 0,
+                           device: str | torch.device = "cuda"
+                           ) -> WalkResult:
+    """:func:`residual_walks` over each row of ``residual`` (B, n) or (n,)
+    on ``graph``'s upload-once residency on ``device``, every lane active.
+    The walks draw from ``draws`` when given (the tests replay the JAX
+    package's draws), else from one generator per row seeded from
+    (``seed``, row)."""
+    dev = resolve_device(device)
+    dg = graph.device(dev)
+    residual = torch.as_tensor(residual, dtype=torch.float32, device=dev)
+    if residual.dim() == 1:
+        residual = residual[None, :]
+    if draws is None:
+        draws = QueryDraws(seed, range(residual.shape[0]), num_walks, dev)
+    mass = residual_walks(dg.edge_dst, dg.out_offsets, dg.out_degree,
+                          residual, draws, alpha=alpha, num_walks=num_walks,
+                          num_steps=walk_length_for_tail(alpha, tail))
+    return WalkResult(endpoint_mass=mass, walks=num_walks)
+
+
+class SourceDraws(Protocol):
+    """Random numbers of pure Monte Carlo walks: B sources by W walks. A
+    step draws a float stop uniform and an int next draw per walk, as the
+    JAX package's ``source_walks`` does (one key split a step)."""
+
+    def step(self, t: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """(B, W) float32 stop uniforms in [0, 1) and (B, W) int32 next
+        draws in [0, 2^30) for step ``t``."""
+
+
+class TableSourceDraws:
+    """Source draws replayed from given tables: ``stops`` (L, B, W) float32
+    and ``nexts`` (L, B, W) int32."""
+
+    def __init__(self, stops: torch.Tensor, nexts: torch.Tensor) -> None:
+        if stops.dim() != 3 or nexts.shape != stops.shape:
+            raise ValueError("need stops and nexts of one (L, B, W) shape")
+        self.stops = stops
+        self.nexts = nexts
+
+    def step(self, t: int) -> tuple[torch.Tensor, torch.Tensor]:
+        return self.stops[t], self.nexts[t]
+
+
+def source_generator_seed(seed: int, index: int) -> int:
+    """64-bit generator seed of the ``index``-th source's Monte Carlo
+    walks (a stream apart from every query's :func:`query_generator_seed`
+    stream)."""
+    return int(np.random.SeedSequence([seed, index, 1]).generate_state(
+        1, dtype=np.uint64)[0])
+
+
+class SourceGenerators:
+    """One ``torch.Generator`` per source on ``device``, seeded from
+    (``seed``, source index): each step draws the (W,) stop uniforms, then
+    the (W,) next draws, so a source's walks are the same in any batch."""
+
+    def __init__(self, seed: int, count: int, num_walks: int,
+                 device: torch.device, first: int = 0) -> None:
+        self.num_walks = num_walks
+        self.device = device
+        self.generators = [
+            torch.Generator(device=device).manual_seed(
+                source_generator_seed(seed, first + i)) for i in range(count)]
+
+    def step(self, t: int) -> tuple[torch.Tensor, torch.Tensor]:
+        stops, nexts = [], []
+        for g in self.generators:
+            stops.append(torch.rand((self.num_walks,), generator=g,
+                                    device=self.device))
+            nexts.append(torch.randint(0, STEP_DRAW_BOUND, (self.num_walks,),
+                                       generator=g, device=self.device,
+                                       dtype=torch.int32))
+        return torch.stack(stops), torch.stack(nexts)
+
+
+def source_walk_endpoints(edge_dst: torch.Tensor, out_offsets: torch.Tensor,
+                          out_degree: torch.Tensor, sources: torch.Tensor,
+                          draws: SourceDraws, *, alpha: float, num_walks: int,
+                          num_steps: int) -> torch.Tensor:
+    """Endpoints (B, W) int32 of W alpha-terminated walks from each of the
+    B ``sources``: a walk stops at a step where its stop uniform is below
+    alpha, else moves to out-neighbour ``next % deg``."""
+    deg = torch.clamp(out_degree, min=1).to(torch.int32)
+    pos = sources.to(torch.int32)[:, None].expand(-1, num_walks).contiguous()
+    alive = torch.ones(pos.shape, dtype=torch.bool, device=pos.device)
+    for t in range(num_steps):
+        stop_u, u_next = draws.step(t)
+        nxt = edge_dst[out_offsets[pos] + (u_next % deg[pos])]
+        alive = alive & ~(stop_u < alpha)
+        pos = torch.where(alive, nxt, pos)
+    return pos
+
+
+def source_walks(edge_dst: torch.Tensor, out_offsets: torch.Tensor,
+                 out_degree: torch.Tensor, sources: torch.Tensor,
+                 draws: SourceDraws, *, alpha: float, n: int, num_walks: int,
+                 num_steps: int) -> torch.Tensor:
+    """Pure Monte Carlo PPR from each of the B ``sources``: (B, n), the
+    share of its W walks that end at each node."""
+    pos = source_walk_endpoints(edge_dst, out_offsets, out_degree, sources,
+                                draws, alpha=alpha, num_walks=num_walks,
+                                num_steps=num_steps)
+    weights = torch.full(pos.shape, 1.0 / num_walks, dtype=torch.float32,
+                         device=pos.device)
+    return fold_endpoints(pos, weights, n)

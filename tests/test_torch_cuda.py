@@ -1,8 +1,9 @@
 """The port's CUDA kernels on a card: each against its plain version, the
 fused query on the card against the same query on the CPU, with and
-without the walk index, exact PPR through K4 against the COO loop, and the
+without the walk index, exact PPR through K4 against the COO loop, the
 model serving paths (K5, K6) on the card against the same paths on the
-CPU. Every test
+CPU, the live endpoint fold, the continuous-batching engine, Monte Carlo
+PPR and a dynamic graph's residency on the card. Every test
 here needs an NVIDIA card and ``nvcc`` and skips without them; this file
 imports neither JAX nor ``repro``, so it runs where only torch is
 installed:
@@ -18,12 +19,15 @@ import torch
 
 from repro_torch.configs import get_arch
 from repro_torch.index import WalkIndex
-from repro_torch.kernels import (embedding_bag, ell_spmv, flash_attention,
-                                 ops, ref, walk_gather)
+from repro_torch.dyn import DynamicGraph, MutationLog
+from repro_torch.kernels import (embedding_bag, ell_spmv, endpoint_fold,
+                                 flash_attention, ops, ref, walk_gather)
 from repro_torch.ppr import (ForaExecutor, ForaParams, LaneStreams,
                              PprWorkload, TableDraws, fora_fused, load,
-                             ppr_power_iteration, ppr_single_pair,
-                             small_test_graph, walk_length_for_tail)
+                             monte_carlo_ppr, ppr_power_iteration,
+                             ppr_single_pair, small_test_graph,
+                             walk_length_for_tail)
+from repro_torch.serving import QueryEngine
 from repro_torch.ppr.graph import Graph
 from repro_torch.ppr.power_iteration import (default_iters,
                                              power_iteration_coo)
@@ -625,6 +629,11 @@ def test_cuda_tensors_reach_the_kernels(card, monkeypatch):
     monkeypatch.setattr(ref, "flash_attention_ref", no_plain)
     monkeypatch.setattr(ref, "embedding_bag_ref", no_plain)
     monkeypatch.setattr(ref, "ell_spmv_ref", no_plain)
+    monkeypatch.setattr(ref, "endpoint_fold_ref", no_plain)
+    endpoint_fold.reset_launches()
+    ops.endpoint_fold(torch.zeros((2, 9), dtype=torch.int64, device=card),
+                      torch.ones((2, 9), device=card)[:, ::1], 4)
+    assert endpoint_fold.LAUNCHES["endpoint_fold"] == 1
     flash_attention.reset_launches()
     embedding_bag.reset_launches()
     ell_spmv.reset_launches()
@@ -656,3 +665,121 @@ def test_infer_run_on_card_matches_cpu(card, arch_id):
     assert on_card.keys() == on_cpu.keys()
     for key, value in on_card.items():
         assert value == pytest.approx(on_cpu[key], rel=1e-4, abs=1e-5), key
+
+
+@pytest.mark.parametrize("B,W,n", [(1, 1, 5), (3, 9000, 2000),
+                                   (1, 1 << 20, 281_903),
+                                   (8, 1 << 20, 281_903)])
+@pytest.mark.parametrize("case", ["uniform", "active", "hub", "skew"])
+def test_endpoint_fold_matches_plain_and_repeats_bitwise(card, B, W, n,
+                                                         case):
+    g = torch.Generator(device=card).manual_seed(B * 31 + W)
+    pos = torch.randint(0, n, (B, W), generator=g, device=card,
+                        dtype=torch.int32)
+    w = torch.rand((B, W), generator=g, device=card)
+    if case == "active":                  # lanes past a row's count weigh 0
+        act = torch.randint(1, W + 1, (B, 1), generator=g, device=card)
+        w = torch.where(torch.arange(W, device=card)[None] < act, w, 0.0)
+    elif case == "hub":
+        pos.fill_(n // 2)
+    elif case == "skew":                  # a fifth of the lanes at node 7
+        at = torch.rand((B, W), generator=g, device=card) < 0.2
+        pos = torch.where(at, min(7, n - 1), pos).to(torch.int32)
+    pos, w = pos.contiguous(), w.contiguous()
+    got = endpoint_fold.endpoint_fold_cuda(pos, w, n)
+    want = ref.endpoint_fold_ref(pos, w.double(), n)
+    torch.testing.assert_close(got.double(), want, rtol=1e-5,
+                               atol=1e-6 * float(want.abs().max()))
+    assert torch.equal(got, endpoint_fold.endpoint_fold_cuda(pos, w, n))
+
+
+@pytest.mark.parametrize("B", [1, 8])
+def test_start_cdf_on_card_repeats_bitwise(card, B):
+    from repro_torch.ppr.random_walk import cumulative_residual
+
+    x = _x(281_903, B, seed=B, device=card)
+    got = cumulative_residual(x)
+    assert torch.equal(got, cumulative_residual(x.clone()))
+    want = torch.cumsum(x.double(), dim=-1)
+    torch.testing.assert_close(got.double(), want, rtol=1e-5,
+                               atol=1e-6 * float(want.abs().max()))
+
+
+def test_endpoint_fold_drops_lanes_outside_the_graph(card):
+    pos = torch.tensor([[0, 4, -1, 2, 9, 4]], dtype=torch.int32, device=card)
+    w = torch.tensor([[1.0, 2.0, 4.0, 8.0, 16.0, 32.0]], device=card)
+    got = endpoint_fold.endpoint_fold_cuda(pos, w, 5)
+    assert got.cpu().tolist() == [[1.0, 0.0, 8.0, 0.0, 34.0]]
+
+
+def test_engine_on_card_repeats_bitwise_and_meets_the_guarantee(card):
+    g = load("web-stanford", scale=64)
+    ex = ForaExecutor(PprWorkload(g, 24, seed=0), ForaParams(epsilon=0.5),
+                      device=card)
+    runs = []
+    for _ in range(2):
+        eng = QueryEngine(ex, 8)
+        pending, got = list(range(24)), {}
+        endpoint_fold.reset_launches()
+        while pending or eng.busy:
+            while pending and eng.free:
+                eng.insert(pending.pop(0))
+            eng.step()
+            got.update({h.qid: h for h in eng.harvest()})
+        assert endpoint_fold.LAUNCHES["endpoint_fold"] > 0
+        runs.append(got)
+    for q in range(24):
+        assert np.array_equal(runs[0][q].pi, runs[1][q].pi)
+    exact = ppr_power_iteration(g, ex.workload.sources[:3], device=card)
+    pi = np.stack([runs[0][q].pi for q in range(3)])
+    mask = exact >= 1.0 / g.n
+    assert float((np.abs(pi - exact)[mask] / exact[mask]).max()) < 0.5
+    chunk = ex.answer_chunk(list(range(8)))
+    for q in range(8):
+        np.testing.assert_allclose(runs[0][q].pi.sum(), chunk[q].sum(),
+                                   rtol=1e-4)
+
+
+def test_monte_carlo_ppr_on_card(card):
+    g = small_test_graph(n=2000)
+    sources = np.array([0, 7, 42])
+    endpoint_fold.reset_launches()
+    mc = monte_carlo_ppr(g, sources, ForaParams(epsilon=0.5), device=card)
+    assert endpoint_fold.LAUNCHES["endpoint_fold"] == sources.size
+    exact = ppr_power_iteration(g, sources, device=card)
+    mask = exact >= 1.0 / g.n
+    np.testing.assert_allclose(mc.sum(axis=1), 1.0, atol=1e-4)
+    assert float((np.abs(mc - exact)[mask] / exact[mask]).max()) < 0.5
+
+
+def test_dynamic_graph_on_card_equals_cpu_and_k2_skips_spare_rows(card):
+    g = load("web-stanford", scale=64)
+    log = MutationLog.seeded(g, 4, seed=1, batch_edges=64)
+    on_card, on_cpu = DynamicGraph(g, device=card), DynamicGraph(g,
+                                                                device="cpu")
+    for batch in log:
+        on_card.apply(batch)
+        on_cpu.apply(batch)
+    for f in ("edge_src", "edge_dst", "out_offsets", "out_degree",
+              "in_neighbors", "in_mask", "in_weights", "in_row_map"):
+        assert torch.equal(getattr(on_card.dg, f).cpu(),
+                           getattr(on_cpu.dg, f)), f
+    dg = on_card.dg
+    x = _x(g.n, 3, seed=4, device=card)
+    ell_spmv.reset_launches()
+    clean = ell_spmv.ell_spmm_sliced_cuda(dg.in_neighbors, dg.in_mask,
+                                          dg.in_weights, dg.in_row_map, x,
+                                          None, dg.in_fold)
+    assert ell_spmv.LAUNCHES["ell_spmm_sliced"] == 1
+    want = ref.ell_spmm_sliced_ref(dg.in_neighbors, dg.in_mask, x.double(),
+                                   dg.in_weights.double(), None,
+                                   dg.in_row_map)
+    torch.testing.assert_close(clean.double(), want, rtol=1e-5,
+                               atol=1e-6 * float(want.abs().max()))
+    spare = (dg.in_row_map == g.n)[:, None]
+    assert bool(spare.any())
+    poisoned = ell_spmv.ell_spmm_sliced_cuda(
+        torch.where(spare, g.n - 1, dg.in_neighbors), dg.in_mask | spare,
+        torch.where(spare, 1.0, dg.in_weights), dg.in_row_map, x, None,
+        dg.in_fold)
+    assert torch.equal(clean, poisoned)

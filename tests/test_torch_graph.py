@@ -190,6 +190,12 @@ def test_import_without_jax_loads_no_repro():
             "import repro_torch.kernels.embedding_bag\n"
             "import repro_torch.core.allocator, repro_torch.ft.elastic\n"
             "import repro_torch.deadline_serving\n"
+            "import repro_torch.serving, repro_torch.dyn\n"
+            "import repro_torch.serving.engine, repro_torch.serving.lanes\n"
+            "import repro_torch.dyn.dynamic_graph\n"
+            "import repro_torch.dyn.mutation_log\n"
+            "import repro_torch.kernels.endpoint_fold\n"
+            "import repro_torch.ppr.montecarlo\n"
             "from repro_torch.kernels.ell_spmv import ell_spmv_cuda\n"
             "from repro_torch.ppr import ppr_single_pair\n"
             "bad = [m for m, v in sys.modules.items() if v is not None "
