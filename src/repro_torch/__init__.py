@@ -6,7 +6,8 @@ run on the card (``device="cuda"``) unless the caller asks for the CPU, and
 raise when asked for a card that is not there.
 """
 
-from . import configs, core, dyn, ft, index, kernels, models, ppr, serving
+from . import (checkpoint, configs, core, dyn, ft, index, kernels, models,
+               ppr, serving)
 
-__all__ = ["configs", "core", "dyn", "ft", "index", "kernels", "models",
-           "ppr", "serving"]
+__all__ = ["checkpoint", "configs", "core", "dyn", "ft", "index", "kernels",
+           "models", "ppr", "serving"]

@@ -14,7 +14,7 @@ processing times: ``t_max`` (Alg. 1), ``t_pre = sum t_i`` and ``t_avg``
   terms, for admission where nothing can be measured.
 
 A copy of ``repro.core.estimator``; its ``t_avg`` is clamped to ``t_max``
-(see there), and ``CacheAwareCostModel`` has no ``seeded_from_tuning`` yet.
+(see there).
 """
 
 from __future__ import annotations
@@ -191,10 +191,6 @@ class CacheAwareCostModel:
     estimate admission may shave even at a perfect observed hit rate, so a
     sudden traffic shift (hit rate collapsing) degrades into the runtime's
     replan/degrade ladder instead of into SLA misses.
-
-    The JAX package also seeds ``walk_share`` from measured kernel times
-    (``seeded_from_tuning``); that waits for the port of the autotuning
-    cache, so here ``walk_share`` is given or left at its 0.5 default.
     """
 
     decay: float = 0.7           # EWMA weight kept on the PAST estimate
@@ -250,6 +246,47 @@ class CacheAwareCostModel:
         """The sample under the per-query time discount (identity cold)."""
         d = self.time_discount()
         return stats if d == 1.0 else stats.scaled(d)
+
+    @classmethod
+    def seeded_from_tuning(cls, cache, *, backend: str | None = None,
+                           bucket: str | None = None,
+                           **kwargs) -> "CacheAwareCostModel":
+        """Seed ``walk_share`` from measured kernel device times instead of
+        the 0.5 guess.
+
+        ``cache`` is a ``kernels.autotune.TuningCache`` (or None). For every
+        shape bucket (or just ``bucket``) that has BOTH a push entry
+        (layout 'sliced' or 'dense') and a 'walk' entry on ``backend``
+        (default: the process's, ``autotune.current_backend()``),
+        walk_share = walk_us / (walk_us + push_us); buckets average. Steady-
+        state ``device_us`` only — ``compile_us`` never prices a query. An
+        empty/cold cache returns the default model unchanged, and an
+        explicit ``walk_share`` kwarg always wins (caller knows best)."""
+        if cache is None or "walk_share" in kwargs:
+            return cls(**kwargs)
+        if backend is None:
+            from ..kernels import autotune
+
+            backend = autotune.current_backend()
+        pushes: dict[str, float] = {}
+        walks: dict[str, float] = {}
+        for key, cfg in cache.entries.items():
+            be, layout, bkt = key.split("|", 2)
+            if be != backend or (bucket is not None and bkt != bucket):
+                continue
+            if cfg.device_us <= 0.0:
+                continue
+            if layout in ("sliced", "dense"):
+                # keep the faster push config if a bucket has both layouts
+                pushes[bkt] = min(pushes.get(bkt, float("inf")),
+                                  cfg.device_us)
+            elif layout == "walk":
+                walks[bkt] = cfg.device_us
+        shares = [walks[b] / (walks[b] + pushes[b])
+                  for b in pushes.keys() & walks.keys()]
+        if shares:
+            kwargs["walk_share"] = sum(shares) / len(shares)
+        return cls(**kwargs)
 
 
 @dataclass(frozen=True)

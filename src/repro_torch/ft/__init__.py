@@ -1,6 +1,8 @@
-"""Fault tolerance: failure detection, elastic rescale, straggler re-issue.
+"""Fault tolerance: failure detection, elastic rescale, straggler re-issue
+(``elastic``), and the serving runtime's chaos harness (``chaos``).
 
-A copy of ``repro.ft.elastic`` (host numpy, no device work).
+Copies of ``repro.ft.elastic`` and ``repro.ft.chaos`` (host numpy, no
+device work).
 """
 
 from .elastic import (ElasticController, FailureInjector, HeartbeatMonitor,

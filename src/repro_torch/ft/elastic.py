@@ -5,8 +5,8 @@ from the last checkpoint; (2) losing devices re-triggers admission (the
 paper's Lemma-1 check) rather than killing the job; (3) stragglers are
 re-issued speculatively from the paper's own fluctuation statistics
 (core/allocator.py). This module is the control loop tying those together.
-A copy of ``repro.ft.elastic``; the port has no serving runtime yet, so the
-``metrics`` sink stays an untyped object with an ``emit(kind, **fields)``.
+A copy of ``repro.ft.elastic``; its ``metrics`` sink is anything with an
+``emit(kind, **fields)``, such as ``repro_torch.serving.metrics``' sinks.
 
 Hardware failure signals are injectable (``FailureInjector`` for tests/CPU;
 a real deployment wires device health RPCs into the same interface).

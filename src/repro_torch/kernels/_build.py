@@ -67,6 +67,13 @@ def log_path(name: str) -> Path:
     return library_path(name).with_suffix(".log")
 
 
+def built(names: Iterable[str] | None = None) -> bool:
+    """Whether every named source (default: all) already has its library
+    for the current sources and flags, so that no ``nvcc`` would run."""
+    return all(library_path(name).exists()
+               for name in (SOURCES if names is None else names))
+
+
 def build(names: Iterable[str] | None = None) -> dict[str, Path]:
     """Compile every named source that has no library yet, one ``nvcc``
     each, all started together. Returns name -> library path."""

@@ -1,0 +1,2 @@
+"""Entry points: ``python -m repro_torch.launch.serve`` (the one-shot D&A
+pipeline and the serving daemon)."""

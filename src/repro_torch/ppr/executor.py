@@ -80,6 +80,8 @@ class ForaExecutor:
     params: ForaParams = field(default_factory=ForaParams)
     block_size: int = 1            # 1 = paper-faithful
     device: str | torch.device = "cuda"
+    walk_safety: float = 1.0       # calibration headroom on the probe r_sum
+    ell_layout: str = "auto"       # auto|dense|sliced push table
     index_budget: int = 0          # >0: pre-draw a WalkIndex of this many
     #                                lanes per node and serve covered walk
     #                                lanes from it
@@ -103,6 +105,11 @@ class ForaExecutor:
             raise ValueError("block_size must be >= 1")
         if self.index_budget < 0:
             raise ValueError("index_budget must be >= 0")
+        if self.walk_safety <= 0:
+            raise ValueError("walk_safety must be > 0")
+        if self.ell_layout not in ("auto", "dense", "sliced"):
+            raise ValueError(f"ell_layout must be auto|dense|sliced, got "
+                             f"{self.ell_layout!r}")
         if self.walk_index is not None:
             if self.index_budget not in (0, self.walk_index.width):
                 raise ValueError(
@@ -145,14 +152,15 @@ class ForaExecutor:
     def _calibrate_walk_budget(self) -> int:
         """One walk lane count for the whole workload: push a probe block
         (during warmup, never in measured time), read the worst residual
-        mass, and budget pow2(ceil(r_max * omega)). Rows that would need
-        more lanes stay unbiased (weight r_sum/W), only noisier."""
+        mass, and budget pow2(ceil(r_max * omega * walk_safety)). Rows
+        that would need more lanes stay unbiased (weight r_sum/W), only
+        noisier."""
         rp = self.params.resolve(self.workload.graph)
         sources = self._block_sources(self._calibration_qids())
         push = forward_push_np(self.workload.graph, sources, alpha=rp.alpha,
                                rmax=rp.rmax, device=self._dev)
         r_max = float(push.r.sum(dim=1).max())
-        need = max(1, math.ceil(r_max * rp.omega))
+        need = max(1, math.ceil(r_max * rp.omega * self.walk_safety))
         return min(_pow2_ceil_host(need), default_walk_budget(rp))
 
     def _probe_qids(self) -> list[int]:
@@ -167,7 +175,11 @@ class ForaExecutor:
         if self._warmed:
             return
         if self._device_graph is None:
-            self._device_graph = self.workload.graph.device(self._dev)
+            graph = self.workload.graph
+            self._device_graph = (
+                graph.device(self._dev) if self.ell_layout == "auto" else
+                DeviceGraph.from_graph(graph, layout=self.ell_layout,
+                                       device=self._dev))
         if self._num_walks is None:
             self._num_walks = self._calibrate_walk_budget()
         if self.index_budget and self.walk_index is None:
@@ -217,14 +229,14 @@ class ForaExecutor:
 
     def _recalibrate_block(self) -> None:
         """Adaptive walk budget (opt-in): the lane count becomes
-        pow2(ceil(ewma_rmax * omega)), capped by the worst-case default,
-        the same host integer the JAX package picks for the same sequence
-        of observations."""
+        pow2(ceil(ewma_rmax * omega * walk_safety)), capped by the
+        worst-case default, the same host integer the JAX package picks
+        for the same sequence of observations."""
         if (not self.adaptive_budget or self._obs_rmax is None
                 or self._num_walks is None):
             return
         rp = self.params.resolve(self.workload.graph)
-        need = max(1, math.ceil(self._obs_rmax * rp.omega))
+        need = max(1, math.ceil(self._obs_rmax * rp.omega * self.walk_safety))
         self._num_walks = min(_pow2_ceil_host(need), default_walk_budget(rp))
 
     def answer_chunk(self, query_ids: Sequence[int]) -> np.ndarray:

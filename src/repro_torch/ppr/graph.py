@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..kernels import autotune
 from ..kernels.ell_spmv import (DensePlan, SlicedFold, dense_plan,
                                sliced_fold)
 
@@ -178,13 +179,22 @@ class Graph:
         best = min(candidates, key=lambda W: (costs[W], W))
         return best, costs[best]
 
-    def sliced_ell_width(self, pad_multiple: int = PAD_MULTIPLE) -> int:
+    def sliced_ell_width(self, pad_multiple: int | None = None) -> int:
         """Slice width W minimising the padded sliced-table area.
 
         Candidates are ``pad_multiple * 2^j`` plus the dense width itself;
         cost(W) = sum_i ceil(deg_in(i)/W) * W, the cell count of the
         resulting (n_virtual, W) table. Ties go to the smaller W.
+        ``pad_multiple=None`` takes ``PAD_MULTIPLE``, unless the active
+        tuning cache (``kernels.autotune``) holds a measured width for the
+        process's backend and this graph's shape bucket: then that width.
+        A cold cache keeps the heuristic's answer.
         """
+        if pad_multiple is None:
+            tuned = _tuned_push_config(self, "sliced")
+            if tuned is not None and tuned.width is not None:
+                return tuned.width
+            pad_multiple = PAD_MULTIPLE
         return self._sliced_width_cells(pad_multiple)[0]
 
     def ell_in_sliced(self, width: int | None = None,
@@ -233,11 +243,19 @@ class Graph:
 
     def device(self, device: str | torch.device = "cuda") -> "DeviceGraph":
         """Upload-once device mirror; repeated calls for one device return
-        the same object."""
+        the same object while the active tuning cache's entry for this
+        graph stays the same. The cache is read when a mirror is built: a
+        cache set before the first upload shapes it, and one that changes
+        the entry afterwards makes the next call build a new mirror (the
+        old object is left as it was)."""
         dev = resolve_device(device)
-        if dev not in self._devices:
-            self._devices[dev] = DeviceGraph.from_graph(self, device=dev)
-        return self._devices[dev]
+        tuned = _tuned_push_config(self, "sliced",
+                                   autotune.current_backend(dev))
+        held = self._devices.get(dev)
+        if held is None or held[0] != tuned:
+            held = (tuned, DeviceGraph.from_graph(self, device=dev))
+            self._devices[dev] = held
+        return held[1]
 
     # -- constructors ----------------------------------------------------------
     @staticmethod
@@ -289,16 +307,33 @@ class _PushLayout(NamedTuple):
     width: int              # K of the resident table
 
 
+def _tuned_push_config(graph: Graph, layout: str, backend: str | None = None):
+    """The active tuning cache's entry for this graph's shape bucket under
+    ``layout`` on ``backend`` (default: the process's), or None when the
+    cache is cold. Read only when a residency is built, on the host before
+    upload, so a query never looks it up."""
+    cache = autotune.get_cache()
+    if cache is None:
+        return None
+    return cache.lookup(backend or autotune.current_backend(), layout,
+                        autotune.shape_bucket(graph.n, graph.m))
+
+
 def _resolve_push_layout(graph: Graph, layout: str,
                          width: int | None = None,
-                         pad_multiple: int | None = None) -> _PushLayout:
+                         pad_multiple: int | None = None,
+                         backend: str | None = None) -> _PushLayout:
     """``"auto"`` slices only when the dense table would hold at least
     ``AUTO_SLICE_RATIO`` times the sliced table's cells: power-law graphs
     slice, near-uniform graphs keep the dense table. ``width`` pins the
     slice width and ``pad_multiple`` the tables' pad multiple (default
-    ``PAD_MULTIPLE``), as the JAX package's table build takes them."""
+    ``PAD_MULTIPLE``), as the JAX package's table build takes them. An
+    active tuning cache's entry for ``backend`` refines the sliced table's
+    width and pad multiple when the caller pinned neither; a cold cache
+    leaves every value, and so the residency, as it was."""
     if layout not in ("auto", "dense", "sliced"):
         raise ValueError(f"layout must be auto|dense|sliced, got {layout!r}")
+    pinned = width is not None or pad_multiple is not None
     if pad_multiple is None:
         pad_multiple = PAD_MULTIPLE
     if layout == "auto":
@@ -309,6 +344,12 @@ def _resolve_push_layout(graph: Graph, layout: str,
             max(1, sliced_cells) else "dense"
         if width is None:
             width = sl_width
+    if layout == "sliced" and not pinned:
+        tuned = _tuned_push_config(graph, layout, backend)
+        if tuned is not None and tuned.width is not None:
+            width = tuned.width
+            if tuned.pad_multiple is not None:
+                pad_multiple = tuned.pad_multiple
     if layout == "sliced":
         sl = graph.ell_in_sliced(width=width, pad_multiple=pad_multiple)
         return _PushLayout(layout="sliced", neighbors=sl.neighbors,
@@ -375,7 +416,9 @@ class DeviceGraph:
     def from_graph(cls, graph: Graph, *, layout: str = "auto",
                    width: int | None = None, pad_multiple: int | None = None,
                    device: str | torch.device = "cuda") -> "DeviceGraph":
-        lay = _resolve_push_layout(graph, layout, width, pad_multiple)
+        lay = _resolve_push_layout(
+            graph, layout, width, pad_multiple,
+            autotune.current_backend(resolve_device(device)))
         arrays = {"edge_src": graph.edge_src, "edge_dst": graph.edge_dst,
                   "out_offsets": graph.out_offsets,
                   "out_degree": graph.out_degree,

@@ -255,7 +255,18 @@ def test_cache_aware_cost_model_matches_jax():
             tcore.CacheAwareCostModel(**bad)
     with pytest.raises(ValueError):
         t.observe(3, 2)
-    assert not hasattr(tcore.CacheAwareCostModel, "seeded_from_tuning")
+    # seeded_from_tuning came with the port of the tuning cache: it seeds
+    # the walk share as the JAX model does
+    from repro.kernels import autotune as jtune
+    from repro_torch.kernels import autotune as ttune
+
+    jc, tc = jtune.TuningCache(), ttune.TuningCache()
+    for cache, cfg in ((jc, jtune.TunedConfig), (tc, ttune.TunedConfig)):
+        cache.record("cpu", "sliced", "n512_d4", cfg(device_us=300.0))
+        cache.record("cpu", "walk", "n512_d4", cfg(device_us=100.0))
+    assert tcore.CacheAwareCostModel.seeded_from_tuning(
+        tc, backend="cpu").walk_share == jcore.CacheAwareCostModel \
+        .seeded_from_tuning(jc, backend="cpu").walk_share == 0.25
 
 
 def test_deadline_serving_prints_the_jax_example(capsys):

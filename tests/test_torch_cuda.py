@@ -783,3 +783,71 @@ def test_dynamic_graph_on_card_equals_cpu_and_k2_skips_spare_rows(card):
         torch.where(spare, 1.0, dg.in_weights), dg.in_row_map, x, None,
         dg.in_fold)
     assert torch.equal(clean, poisoned)
+
+
+def test_autotune_sweeps_time_k2_and_the_walk_on_card(card):
+    """The autotune sweep launches K2 on every swept table and records a
+    ``cuda`` key; a residency built under the cache on the card takes the
+    tuned table and pushes as the default one does, within the sliced
+    tolerance."""
+    from repro_torch.kernels import autotune
+    from repro_torch.ppr.graph import DeviceGraph
+
+    web = load("web-stanford", scale=64)
+    cache = autotune.TuningCache()
+    trials: list = []
+    ell_spmv.reset_launches()
+    best = autotune.sweep_sliced(web, B=8, pad_multiples=(8, 32), repeats=2,
+                                 device=card, cache=cache, trials=trials)
+    walk = autotune.sweep_walk(web, num_walks=1024, repeats=2, device=card,
+                               cache=cache)
+    assert ell_spmv.LAUNCHES["ell_spmm_sliced"] == 2 * 3
+    bucket = autotune.shape_bucket(web.n, web.m)
+    assert cache.lookup("cuda", "sliced", bucket) == best
+    assert cache.lookup("cuda", "walk", bucket) == walk
+    assert all(t.device_us > 0.0 for t in trials) and walk.device_us > 0.0
+    wide = trials[-1]
+    tuned = autotune.TuningCache()
+    tuned.record("cuda", "sliced", bucket, wide)
+    try:
+        autotune.set_cache(tuned)
+        dg = DeviceGraph.from_graph(web, device=card)
+    finally:
+        autotune.clear_cache()
+    cold = DeviceGraph.from_graph(web, device=card)
+    assert dg.ell_width == wide.width != cold.ell_width
+    x = _x(web.n, 3, 5, card)
+    got = ops.ell_spmm_sliced(dg.in_neighbors, dg.in_mask, dg.in_weights,
+                              dg.in_row_map, x, fold=dg.in_fold)
+    want = ops.ell_spmm_sliced(cold.in_neighbors, cold.in_mask,
+                               cold.in_weights, cold.in_row_map, x,
+                               fold=cold.in_fold)
+    torch.testing.assert_close(got, want, rtol=1e-4,
+                               atol=1e-6 * float(want.abs().max()))
+
+
+def test_serving_daemon_on_card_runs_its_queries_through_the_kernels(card,
+                                                                     tmp_path):
+    """A small PPR daemon as ``serve --daemon`` builds it, on the card:
+    every job completes, its queries launch K2 and the fold, and recovery
+    from its WAL gives the same records."""
+    from repro_torch.launch import serve
+    from repro_torch.serving import ServingRuntime
+
+    args = serve.build_parser().parse_args([
+        "--daemon", "--workload", "ppr", "--scale", "64", "--num-jobs", "3",
+        "--queries", "16", "--deadline", "0.5", "--arrival-rate", "4",
+        "--max-cores", "8", "--cache-size", "64", "--wal-dir",
+        str(tmp_path), "--snapshot-every", "5", "--device", "cuda"])
+    serve.prepare(args)
+    rt, factory, _ = serve._build_daemon_runtime(args)
+    rt.submit_poisson(args.num_jobs, args.arrival_rate, queries=args.queries,
+                      deadline=args.deadline, seed=args.seed)
+    ell_spmv.reset_launches()
+    endpoint_fold.reset_launches()
+    report = rt.run()
+    assert report.completed == 3
+    assert ell_spmv.LAUNCHES["ell_spmm_sliced"] > 0
+    assert endpoint_fold.LAUNCHES["endpoint_fold"] > 0
+    rt2, _ = ServingRuntime.recover(tmp_path, factory, fsync=False)
+    assert rt2.run().records == report.records

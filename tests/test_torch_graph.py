@@ -196,6 +196,12 @@ def test_import_without_jax_loads_no_repro():
             "import repro_torch.dyn.mutation_log\n"
             "import repro_torch.kernels.endpoint_fold\n"
             "import repro_torch.ppr.montecarlo\n"
+            "import repro_torch.launch.serve, repro_torch.serving.runtime\n"
+            "import repro_torch.serving.job, repro_torch.serving.pool\n"
+            "import repro_torch.serving.metrics, repro_torch.serving.wal\n"
+            "import repro_torch.kernels.autotune, repro_torch.ft.chaos\n"
+            "import repro_torch.checkpoint.store\n"
+            "import repro_torch.index.result_cache\n"
             "from repro_torch.kernels.ell_spmv import ell_spmv_cuda\n"
             "from repro_torch.ppr import ppr_single_pair\n"
             "bad = [m for m, v in sys.modules.items() if v is not None "
