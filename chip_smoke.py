@@ -157,7 +157,25 @@ drives the port's main path, in phases:
    edges through the mutation hook; no job may be lost, and the push on
    the mutated residency must equal a fresh build's. Last, a crash leg on
    the simulated workload: ``drive_with_crashes`` at 2 crash points must
-   give the uncrashed run's records.
+   give the uncrashed run's records;
+12. the node-sharded residency on the one card (a mesh may repeat a
+   device, so four shards run one after another on it): the paper path at
+   full size on a 4-shard mesh (4 x 97,024 virtual rows) and a 1-shard
+   mesh, 64 queries one at a time at 2^20 lanes against the DeviceGraph's
+   answers on the same per-query draws (sweeps, walk budgets and flags
+   equal, residual mass within rtol 1e-5, pi within rtol 1e-4 + 1e-6 *
+   max), the 1-shard mesh and a repeated 4-shard run bit for bit; every
+   shard's K2 (a block may start inside a row another shard holds) and
+   the combined sweep against float64 plain at B = 1 and 8; a 3-shard
+   mesh (lanes rounded up to a multiple of 3) within eps of phase 4's
+   power iteration on phase 3's sources. Then phase 8's Pokec-order table
+   in 4 row blocks of 408,201: each shard's K1 against float64 plain with
+   the route it took, 8 queries at phase 8's threshold against the
+   DeviceGraph's, no row short of its walks. Then ``ForaExecutor(devices=1)``
+   takes the DeviceGraph, and on one card ``ForaExecutor(devices=2)`` and
+   ``serve --devices 2`` are refused as over capacity. Printed, not gated:
+   ms a query by mesh, device us of K1 and K2 on a shard's block and on the
+   whole table, and of the combine a sweep.
 
 The launch counts of each path are zeroed just before it and read just
 after. Any failed phase exits non-zero; without a card, or without the
@@ -271,6 +289,12 @@ DAEMON_CHAOS = "seed=7,failures=1,slowdowns=2,horizon=1.0"
 DAEMON_MUTATIONS = 4
 DAEMON_MUTATION_EDGES = 256
 DAEMON_MUTATION_RATE = 8.0
+SHARD_K = 4                    # phase 12: shards of one mesh on the card
+SHARD_QUERIES = 64
+SHARD_LANES = 1 << 20          # the paper path's calibrated lane count
+SHARD_POKEC_QUERIES = 8
+SHARD_RTOL = 1e-4              # sharded pi against one device's
+SHARD_REPS = 20
 CRASH_CHAOS = ("seed=7,failures=1,slowdowns=2,crashes=2,horizon=3,"
                "crash_span=300")
 # phase 8: a dense graph at Pokec's order and size (paper Table I)
@@ -2393,6 +2417,319 @@ def phase11_daemon(web, dev, gen, card: str) -> float:
     return k2_err
 
 
+def phase12_sharded(web, pokec, small, dev, gen, card: str, psrcs,
+                    pexact) -> dict[str, float]:
+    """The node-sharded residency on the one card: the paper path at full
+    size on a 4-shard and a 1-shard mesh against the DeviceGraph, every
+    shard's K2 against float64 plain, a 3-shard mesh against phase 3's
+    power-iteration oracle; the Pokec-order dense table in 4 row blocks,
+    each shard's K1 against float64 plain with its route; the executor and
+    ``serve`` with ``devices=2`` refused over capacity. Times are printed,
+    not gated. Returns K1's and K2's largest errors of the phase."""
+    import os
+
+    import torch
+
+    from repro_torch.kernels import ell_spmv, endpoint_fold, ops, ref
+    from repro_torch.ppr import (DeviceGraph, DeviceMesh, ForaExecutor,
+                                 ForaParams, PprWorkload, ShardedDeviceGraph,
+                                 fora_fused)
+
+    print(f"phase 12: the node-sharded residency, {SHARD_K} shards on one "
+          f"card, card {card}")
+    t_phase = time.perf_counter()
+    errs = {"ell_spmm": 0.0, "ell_spmm_sliced": 0.0}
+    meshes = {k: DeviceMesh((dev,) * k) for k in (1, 3, SHARD_K)}
+
+    def hold(name, kernel, plain, label):
+        """One kernel launch against its float64 plain version, a second
+        launch with the same bits."""
+        torch.cuda.synchronize()
+        got = kernel()
+        again = kernel()
+        torch.cuda.synchronize()
+        want = plain()
+        check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+              f"{name} {label}: shape {tuple(got.shape)} or non-finite")
+        err, ratio = err_ratio(got, want, RTOL)
+        errs[name] = max(errs[name], err)
+        print(f"  {name:16s} {label:34s} max_abs_err={err:.3e} "
+              f"err/limit={ratio:.4f} {'ok' if ratio <= 1 else 'FAIL'}")
+        check(ratio <= 1.0, f"{name} {label}: error {err} above rtol {RTOL} "
+              f"+ {ATOL_FRAC} * max|want| (ratio {ratio})")
+        check(bool(torch.equal(got, again)),
+              f"{name} {label}: a second launch gave other bits")
+
+    def threshold(graph, params):
+        return (params.resolve(graph).rmax * torch.clamp(
+            torch.from_numpy(graph.out_degree).to(dev).float(), min=1.0))
+
+    def queries(dg, workload, params, count, lanes):
+        """``count`` queries one at a time, each timed to its sync."""
+        res, times = [], []
+        for q in range(count):
+            t0 = time.perf_counter()
+            r = fora_fused(dg, workload.sources[q:q + 1], params, 0,
+                           num_walks=lanes, query_ids=[q], device=dev)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            res.append(r)
+        return res, float(np.mean(times)) * 1e3
+
+    def held(got, want, label):
+        """A sharded query's answer against the single-device one."""
+        worst = 0.0
+        for q, (a, b) in enumerate(zip(got, want)):
+            check(int(a.push_iters) == int(b.push_iters),
+                  f"{label} query {q}: {int(a.push_iters)} sweeps, one "
+                  f"device {int(b.push_iters)}")
+            _, r_ratio = err_ratio(a.residual_mass,
+                                   b.residual_mass.double(), 1e-5)
+            check(r_ratio <= 1.0, f"{label} query {q}: residual mass off")
+            check(bool(torch.equal(a.walks_effective, b.walks_effective))
+                  and bool(torch.equal(a.walks_short, b.walks_short)),
+                  f"{label} query {q}: another walk budget")
+            _, ratio = err_ratio(a.pi, b.pi.double(), SHARD_RTOL)
+            worst = max(worst, ratio)
+        check(worst <= 1.0, f"{label}: pi off the single device's by "
+              f"{worst} of rtol {SHARD_RTOL} + {ATOL_FRAC} * max")
+        return worst
+
+    # 1. the paper path at full size
+    params = ForaParams(epsilon=0.5)
+    t0 = time.perf_counter()
+    single = web.device(dev)
+    sg = {k: web.device(mesh=meshes[k]) for k in (1, SHARD_K)}
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    sg4 = sg[SHARD_K]
+    rows = int(single.in_neighbors.shape[0])
+    print(f"  paper path: web-stanford n={web.n}, sliced {rows} x "
+          f"{single.ell_width}; {SHARD_K} shards of {sg4.rows_per_shard} "
+          f"virtual rows ({sg4.ell_nbytes} bytes), built in {build_s:.2f}s")
+    check(sg4.layout == "sliced" and sg4.num_shards == SHARD_K
+          and sg4.rows_per_shard == -(-rows // SHARD_K),
+          "the paper path's shards are not its virtual-row blocks")
+    thr = threshold(web, params)
+    for B in (1, 8):
+        x = mass_rows(gen, B, web.n, dev)
+        for s in range(SHARD_K):
+            tab = (sg4.in_neighbors[s], sg4.in_mask[s], sg4.in_weights[s],
+                   sg4.in_row_map[s])
+            first = int(tab[3][0])
+            cont = s > 0 and first == int(sg4.in_row_map[s - 1][-1])
+            hold("ell_spmm_sliced",
+                 lambda t=tab, s=s, x=x: ell_spmv.ell_spmm_sliced_cuda(
+                     *t, x, thr, sg4.in_fold[s]),
+                 lambda t=tab, x=x: ref.ell_spmm_sliced_ref(
+                     t[0], t[1], x.double(), t[2].double(), thr.double(),
+                     t[3]),
+                 f"shard {s}/{SHARD_K} B={B}"
+                 f"{' (continues row ' + str(first) + ')' if cont else ''}")
+        hold("ell_spmm_sliced",
+             lambda x=x: ops.ell_spmm_sliced_shard(
+                 sg4.in_neighbors, sg4.in_mask, sg4.in_weights,
+                 sg4.in_row_map, x, threshold=thr, folds=sg4.in_fold),
+             lambda x=x: ref.ell_spmm_sliced_ref(
+                 single.in_neighbors, single.in_mask, x.double(),
+                 single.in_weights.double(), thr.double(),
+                 single.in_row_map),
+             f"{SHARD_K} shards combined B={B}")
+    workload = PprWorkload(web, SHARD_QUERIES, seed=0)
+    ell_spmv.reset_launches()
+    endpoint_fold.reset_launches()
+    one_dev, ms_single = queries(single, workload, params, SHARD_QUERIES,
+                                 SHARD_LANES)
+    one_launches = {**ell_spmv.LAUNCHES, **endpoint_fold.LAUNCHES}
+    ell_spmv.reset_launches()
+    endpoint_fold.reset_launches()
+    four, ms_four = queries(sg4, workload, params, SHARD_QUERIES,
+                            SHARD_LANES)
+    four_launches = {**ell_spmv.LAUNCHES, **endpoint_fold.LAUNCHES}
+    sweeps = sum(int(r.push_iters) for r in four)
+    four_again, _ = queries(sg4, workload, params, SHARD_QUERIES,
+                            SHARD_LANES)
+    one_mesh, ms_one_mesh = queries(sg[1], workload, params, SHARD_QUERIES,
+                                    SHARD_LANES)
+    worst = held(four, one_dev, f"paper path {SHARD_K} shards")
+    check(all(bool(torch.equal(a.pi, b.pi)) for a, b in
+              zip(four, four_again)),
+          "paper path: a repeated 4-shard query gave other bits")
+    check(all(bool(torch.equal(a.pi, b.pi))
+              and bool(torch.equal(a.residual_mass, b.residual_mass))
+              for a, b in zip(one_mesh, one_dev)),
+          "paper path: the 1-shard mesh differs from the DeviceGraph")
+    print(f"  paper path, {SHARD_QUERIES} queries at {SHARD_LANES} lanes: "
+          f"{SHARD_K} shards {ms_four:.3f} ms a query, 1 shard "
+          f"{ms_one_mesh:.3f}, DeviceGraph {ms_single:.3f} [{card}]; pi "
+          f"err/limit {worst:.4f} (rtol {SHARD_RTOL}); repeat and 1-shard "
+          f"bit-equal; launches {SHARD_K} shards {four_launches}, "
+          f"DeviceGraph {one_launches}")
+    # a push launches K2 on every shard each sweep, and up to
+    # CHECK_EVERY - 1 sweeps past convergence move nothing
+    k2 = four_launches["ell_spmm_sliced"]
+    check(k2 % SHARD_K == 0 and k2 >= SHARD_K * sweeps > 0
+          and four_launches["endpoint_fold"] == SHARD_K * SHARD_QUERIES
+          and four_launches["ell_spmm"] == 0,
+          f"paper path: {SHARD_K} shards launched {four_launches} for "
+          f"{sweeps} sweeps and {SHARD_QUERIES} queries")
+    del one_dev, four, four_again, one_mesh
+    sg3 = web.device(mesh=meshes[3])
+    res3 = fora_fused(sg3, psrcs, params, 0, num_walks=SHARD_LANES,
+                      device=dev)
+    pi3 = res3.pi.cpu().numpy()
+    mask = pexact >= 1.0 / web.n
+    rel3 = float((np.abs(pi3 - pexact)[mask] / pexact[mask]).max())
+    print(f"  3 shards of {sg3.rows_per_shard} rows: lanes "
+          f"{res3.walks_budget}, max rel err {rel3:.4f} against phase 3's "
+          f"power iteration over {len(psrcs)} sources, row sums "
+          f"{np.round(pi3.sum(axis=1), 5).tolist()}")
+    check(res3.walks_budget % 3 == 0 and res3.walks_budget >= SHARD_LANES,
+          f"3 shards: lane count {res3.walks_budget}")
+    check(np.allclose(pi3.sum(axis=1), 1.0, atol=1e-3) and rel3 < 0.5,
+          f"3 shards: rel err {rel3} or rows off 1")
+    del sg3, res3
+
+    # device time of K2 on a shard's block against the whole table, and of
+    # the combine a sweep
+    x = mass_rows(gen, 1, web.n, dev)
+    k2_block = device_ms(lambda: ell_spmv.ell_spmm_sliced_cuda(
+        sg4.in_neighbors[0], sg4.in_mask[0], sg4.in_weights[0],
+        sg4.in_row_map[0], x, thr, sg4.in_fold[0]), SHARD_REPS)
+    k2_whole = device_ms(lambda: ell_spmv.ell_spmm_sliced_cuda(
+        single.in_neighbors, single.in_mask, single.in_weights,
+        single.in_row_map, x, thr, single.in_fold), SHARD_REPS)
+    parts = [ell_spmv.ell_spmm_sliced_cuda(
+        sg4.in_neighbors[s], sg4.in_mask[s], sg4.in_weights[s],
+        sg4.in_row_map[s], x, thr, sg4.in_fold[s]) for s in range(SHARD_K)]
+
+    def frame_sum():
+        total = parts[0]
+        for p in parts[1:]:
+            total = total + p
+        return total
+
+    sum_ms = device_ms(frame_sum, SHARD_REPS)
+    print(f"  K2 device time, B=1: shard block 0 ({sg4.rows_per_shard} "
+          f"rows) {k2_block * 1e3:.2f} us, whole table ({rows} rows) "
+          f"{k2_whole * 1e3:.2f} us; the combine (sum of {SHARD_K} (1, n) "
+          f"frames) {sum_ms * 1e3:.2f} us a sweep [{card}]")
+
+    # 2. the Pokec-order dense table in 4 row blocks
+    pparams = ForaParams(epsilon=0.5, rmax_scale=POKEC_RMAX_SCALE)
+    pdg = pokec.device(dev)
+    t0 = time.perf_counter()
+    psg = ShardedDeviceGraph.from_graph(pokec, meshes[SHARD_K])
+    torch.cuda.synchronize()
+    pbuild_s = time.perf_counter() - t0
+    print(f"  pokec order: dense {tuple(pdg.in_neighbors.shape)} in "
+          f"{SHARD_K} row blocks of {psg.rows_per_shard} ({psg.ell_nbytes} "
+          f"bytes), built in {pbuild_s:.2f}s; row plan lanes "
+          f"{psg.in_plan[0].lanes} (DeviceGraph {pdg.in_plan.lanes})")
+    check(psg.layout == "dense"
+          and psg.rows_per_shard == -(-pokec.n // SHARD_K),
+          "the Pokec-order shards are not its row blocks")
+    pthr = threshold(pokec, pparams)
+    x = mass_rows(gen, 1, pokec.n, dev)
+    routes = []
+    for s in range(SHARD_K):
+        tab = (psg.in_neighbors[s], psg.in_mask[s], psg.in_weights[s])
+        before = ell_spmv.ROUTES["ell_spmm_frontier"]
+        ell_spmv.ell_spmm_cuda(*tab, x, pthr, psg.in_plan[s])
+        routes.append("frontier" if ell_spmv.ROUTES["ell_spmm_frontier"]
+                      > before else "plain")
+        hold("ell_spmm",
+             lambda t=tab, s=s: ell_spmv.ell_spmm_cuda(*t, x, pthr,
+                                                       psg.in_plan[s]),
+             lambda t=tab: ref.ell_spmm_ref(t[0], t[1], x.double(),
+                                            t[2].double(), pthr.double()),
+             f"pokec shard {s}/{SHARD_K} B=1 ({routes[-1]} route)")
+    print(f"  K1 routes on the row blocks at B = 1: {routes} "
+          f"(frontier_group(n={pokec.n}, 1) = "
+          f"{ell_spmv.frontier_group(pokec.n, 1)})")
+    k1_block = device_ms(lambda: ell_spmv.ell_spmm_cuda(
+        psg.in_neighbors[0], psg.in_mask[0], psg.in_weights[0], x, pthr,
+        psg.in_plan[0]), SHARD_REPS)
+    k1_whole = device_ms(lambda: ell_spmv.ell_spmm_cuda(
+        pdg.in_neighbors, pdg.in_mask, pdg.in_weights, x, pthr,
+        pdg.in_plan), SHARD_REPS)
+    blocks = [ell_spmv.ell_spmm_cuda(psg.in_neighbors[s], psg.in_mask[s],
+                                     psg.in_weights[s], x, pthr,
+                                     psg.in_plan[s])
+              for s in range(SHARD_K)]
+    cat_ms = device_ms(lambda: torch.cat([b.t() for b in blocks])[
+        :pokec.n].t(), SHARD_REPS)
+    print(f"  K1 device time, B=1 on mass rows ({routes[0]} route): row "
+          f"block 0 ({psg.rows_per_shard} rows) {k1_block * 1e3:.2f} us, "
+          f"whole table ({pokec.n} rows) {k1_whole * 1e3:.2f} us; the "
+          f"combine (blocks put together) {cat_ms * 1e3:.2f} us a sweep "
+          f"[{card}]")
+    del blocks, parts
+    lanes = ForaExecutor(workload=PprWorkload(pokec, POKEC_QUERIES, seed=0),
+                         params=pparams, device=dev)._calibrate_walk_budget()
+    pwork = PprWorkload(pokec, POKEC_QUERIES, seed=0)
+    ell_spmv.reset_launches()
+    pone, pms_one = queries(pdg, pwork, pparams, SHARD_POKEC_QUERIES, lanes)
+    ell_spmv.reset_launches()
+    pfour, pms_four = queries(psg, pwork, pparams, SHARD_POKEC_QUERIES,
+                              lanes)
+    p_launch = dict(ell_spmv.LAUNCHES)
+    p_front = ell_spmv.ROUTES["ell_spmm_frontier"]
+    psweeps = sum(int(r.push_iters) for r in pfour)
+    pworst = held(pfour, pone, f"pokec {SHARD_K} shards")
+    short = sum(int(r.walks_short.sum()) for r in pfour + pone)
+    print(f"  pokec order, {SHARD_POKEC_QUERIES} queries at {lanes} lanes: "
+          f"{SHARD_K} shards {pms_four:.3f} ms a query, DeviceGraph "
+          f"{pms_one:.3f} [{card}]; pi err/limit {pworst:.4f}; rows "
+          f"walks_short {short}; K1 launches {p_launch['ell_spmm']} "
+          f"({p_front} on the frontier route) for {psweeps} sweeps")
+    check(short == 0, "pokec: a sharded row ran short of its walks")
+    check(p_launch["ell_spmm"] % SHARD_K == 0
+          and p_launch["ell_spmm"] >= SHARD_K * psweeps > 0,
+          "pokec: the shards' K1 launches do not match the sweeps")
+    del pone, pfour, psg
+
+    # 3. the executor and serve with devices = 2 on one card
+    ex1 = ForaExecutor(workload=PprWorkload(small, 8, seed=0), params=params,
+                       device=dev, devices=1)
+    ex1.warmup()
+    check(isinstance(ex1.device_graph, DeviceGraph),
+          "ForaExecutor(devices=1) did not take the DeviceGraph")
+    count = torch.cuda.device_count()
+    ex2 = ForaExecutor(workload=PprWorkload(small, 8, seed=0), params=params,
+                       device=dev, devices=2)
+    if count >= 2:
+        ex2(list(range(2)))
+        check(isinstance(ex2.device_graph, ShardedDeviceGraph),
+              "ForaExecutor(devices=2) on two cards is not sharded")
+        print(f"  {count} cards: ForaExecutor(devices=2) ran sharded")
+    else:
+        try:
+            ex2(list(range(2)))
+            refused = ""
+        except ValueError as e:
+            refused = str(e)
+        print(f"  ForaExecutor(devices=2) on {count} card: {refused!r}")
+        check(f"devices=2 requested but only {count} present" in refused,
+              "ForaExecutor(devices=2) on one card was not refused")
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            [str(ROOT / "src")] + ([env["PYTHONPATH"]]
+                                   if env.get("PYTHONPATH") else []))
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", "--workload",
+             "ppr", "--devices", "2", "--scale", "512"], cwd=ROOT, env=env,
+            capture_output=True, text=True, timeout=300)
+        said = (proc.stdout + proc.stderr).strip().splitlines()
+        print(f"  serve --devices 2: exit {proc.returncode}, "
+              f"{said[-1] if said else ''!r}")
+        check(proc.returncode != 0 and any(
+            f"--devices 2 but only {count} device(s) present" in line
+            for line in said), "serve --devices 2 was not refused")
+    print(f"  phase 12 wall {time.perf_counter() - t_phase:.1f}s")
+    return errs
+
+
 def main() -> int:
     # the port must not need JAX or the JAX package
     sys.modules["jax"] = None
@@ -3323,6 +3660,10 @@ def main() -> int:
     stats["ell_spmm_sliced"]["max_abs_err"] = max(
         stats["ell_spmm_sliced"]["max_abs_err"],
         phase11_daemon(web, dev, gen, card))
+    torch.cuda.empty_cache()
+    for name, err in phase12_sharded(web, pokec, small, dev, gen, card,
+                                     psrcs, pexact).items():
+        stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
 
     summary = []
     for name, (ms, plain_ms, bound, by, lib_ms) in (

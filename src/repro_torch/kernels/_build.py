@@ -17,8 +17,11 @@ import os
 import re
 import shutil
 import subprocess
-from collections.abc import Iterable, Mapping
+from collections.abc import Iterable, Iterator, Mapping
+from contextlib import contextmanager
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -114,3 +117,14 @@ def load(name: str,
             getattr(lib, fn).restype = restype
         _loaded[name] = lib
     return lib
+
+
+@contextmanager
+def on_card(device: torch.device) -> Iterator[int]:
+    """Launch through one of these libraries on ``device``: a library with
+    a plain C interface launches on the thread's current card, and its
+    stream handle 0 is that card's default stream, so ``device`` is made
+    the current card for the call (as it was before on exit), and the
+    handle of its current stream is yielded."""
+    with torch.cuda.device(device):
+        yield torch.cuda.current_stream(device).cuda_stream

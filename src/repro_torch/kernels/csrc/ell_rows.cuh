@@ -28,8 +28,11 @@
 // same bits on every launch.
 //
 // The frontier route (K1 at B = 1, ell_rows_frontier): a first pass writes
-// xm = f(x) and a bitmap of the frontier, one bit for each group of g
-// nodes, set where any of them has xm != 0. Each block of the rows kernel
+// xm = f(x) and a bitmap of the frontier over x's n nodes, one bit for each
+// group of g nodes, set where any of them has xm != 0. The table may be a
+// block of rows (a shard of a node-sharded residency, rows != n): the
+// bitmap covers the n sources its cells gather, the rows loop its rows.
+// Each block of the rows kernel
 // loads the bitmap into shared memory and gathers no cell whose source's
 // bit is clear: a skipped term is w * 0, so the bits of the output are the
 // plain route's. Two blocks of 1024 threads an SM walk the rows' warps;
@@ -317,21 +320,23 @@ cudaError_t launch_frontier_rows(const int32_t* nbr, const uint8_t* mask,
   return cudaGetLastError();
 }
 
-// K1's frontier route at B = 1: prepare_frontier, then ell_rows_frontier.
-// words * 4 bytes must not exceed kFrontierBytes.
+// K1's frontier route at B = 1: prepare_frontier over x's n nodes, then
+// ell_rows_frontier over the table's rows. words * 4 bytes (the bitmap of
+// n nodes) must not exceed kFrontierBytes.
 inline cudaError_t launch_frontier(const int32_t* nbr, const uint8_t* mask,
                                    const float* w, const int32_t* extent,
                                    const float* x, const float* thr,
                                    float* xm, unsigned* bits, float* out,
-                                   long long si, int rows, int K,
+                                   long long si, int rows, int n, int K,
                                    int lg_lanes, int lg_g,
                                    cudaStream_t stream) {
-  const long long groups = (static_cast<long long>(rows) + (1 << lg_g) - 1)
+  if (lg_g < 0) return cudaErrorInvalidValue;
+  const long long groups = (static_cast<long long>(n) + (1 << lg_g) - 1)
                            >> lg_g;
   const long long words = (groups + 31) / 32;
-  if (lg_g < 0 || words * 4 > kFrontierBytes) return cudaErrorInvalidValue;
+  if (words * 4 > kFrontierBytes) return cudaErrorInvalidValue;
   prepare_frontier<<<static_cast<unsigned>((groups + kBlock - 1) / kBlock),
-                     kBlock, 0, stream>>>(x, thr, xm, bits, si, rows, lg_g);
+                     kBlock, 0, stream>>>(x, thr, xm, bits, si, n, lg_g);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   int lg_bl, lg_kg;

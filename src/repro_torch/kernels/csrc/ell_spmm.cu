@@ -50,10 +50,11 @@ extern "C" {
 // threshold). xm (n, B) f32 is caller-allocated scratch for x masked by the
 // threshold and laid out (n, B); when it is null, x is read as it lies and
 // must be (n, B) row-major (si == B, and sb == 1 or B == 1) with no
-// threshold. lg_lanes is log2 of the plan's lanes a row. lg_g >= 0 takes
-// the frontier route (B = 1, rows == n) with groups of 2^lg_g nodes a bit:
-// xm (n,) and bits (one bit a group, in 32-bit words) are then required.
-// Returns a cudaError_t.
+// threshold. The table may be a block of rows != n of a node-sharded
+// residency: its cells hold global node ids into x's n nodes. lg_lanes is
+// log2 of the plan's lanes a row. lg_g >= 0 takes the frontier route
+// (B = 1) with groups of 2^lg_g of x's nodes a bit: xm (n,) and bits (one
+// bit a group, in 32-bit words) are then required. Returns a cudaError_t.
 int ell_spmm_dense_launch(const void* nbr, const void* mask, const void* w,
                           const void* extent, const void* x, const void* thr,
                           void* xm, void* bits, void* yT, long long sb,
@@ -61,7 +62,7 @@ int ell_spmm_dense_launch(const void* nbr, const void* mask, const void* w,
                           int lg_lanes, int lg_g, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (lg_g >= 0) {
-    if (B != 1 || rows != n || xm == nullptr || bits == nullptr) {
+    if (B != 1 || xm == nullptr || bits == nullptr) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
     return static_cast<int>(launch_frontier(
@@ -69,7 +70,7 @@ int ell_spmm_dense_launch(const void* nbr, const void* mask, const void* w,
         static_cast<const float*>(w), static_cast<const int32_t*>(extent),
         static_cast<const float*>(x), static_cast<const float*>(thr),
         static_cast<float*>(xm), static_cast<unsigned*>(bits),
-        static_cast<float*>(yT), si, rows, K, lg_lanes, lg_g, s));
+        static_cast<float*>(yT), si, rows, n, K, lg_lanes, lg_g, s));
   }
   const float* xT = static_cast<const float*>(x);
   if (xm != nullptr) {

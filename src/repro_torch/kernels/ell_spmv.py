@@ -309,15 +309,17 @@ def ell_spmm_cuda(neighbors: torch.Tensor, mask: torch.Tensor,
                   threshold: torch.Tensor | None = None,
                   plan: DensePlan | None = None) -> torch.Tensor:
     """K1: dense pull-form SpMM on the card. neighbors/mask/weights are the
-    (n, K) table (int32/bool/float32), x is (B, n) float32, ``threshold``
-    (n,) fuses FORA's push condition. ``plan`` is the table's
-    :func:`dense_plan`; without it the call derives it first (one
-    reduction over the mask and a read back), so a sweep loop passes it.
-    Returns (B, n), a transposed view of the kernel's (n, B) output."""
+    (rows, K) table (int32/bool/float32): all n rows, or a block of them
+    (a shard of a node-sharded residency) whose cells hold global node
+    ids. x is (B, n) float32, ``threshold`` (n,) fuses FORA's push
+    condition. ``plan`` is the table's :func:`dense_plan`; without it the
+    call derives it first (one reduction over the mask and a read back),
+    so a sweep loop passes it. The route follows (n, B) alone
+    (:func:`frontier_group`): the frontier route's bitmap covers x's n
+    nodes, its rows loop the table's rows. Returns (B, rows), a transposed
+    view of the kernel's (rows, B) output."""
     B, n, thr = _check_x(x, threshold)
     rows, width = _check_table(neighbors, mask, weights, x.device)
-    if rows != n:
-        raise ValueError(f"dense table has {rows} rows for n={n}")
     plan = _check_plan(plan, mask)
     # x masked by the threshold and laid out (n, B) by the kernel's first
     # pass, unless x lies (n, B) already (an (n, B) tensor's transpose, as
@@ -331,12 +333,12 @@ def ell_spmm_cuda(neighbors: torch.Tensor, mask: torch.Tensor,
                        device=x.device) if group else None
     yT = torch.empty((rows, B), dtype=torch.float32, device=x.device)
     lib = _lib()
-    stream = torch.cuda.current_stream(x.device.index).cuda_stream
-    err = lib.ell_spmm_dense_launch(
-        _ptr(neighbors), _ptr(mask), _ptr(weights), _ptr(plan.extent),
-        _ptr(x), _ptr(thr), _ptr(xm), _ptr(bits), _ptr(yT), x.stride(0),
-        x.stride(1), rows, n, width, B, plan.lanes.bit_length() - 1,
-        group.bit_length() - 1, stream)
+    with _build.on_card(x.device) as stream:
+        err = lib.ell_spmm_dense_launch(
+            _ptr(neighbors), _ptr(mask), _ptr(weights), _ptr(plan.extent),
+            _ptr(x), _ptr(thr), _ptr(xm), _ptr(bits), _ptr(yT), x.stride(0),
+            x.stride(1), rows, n, width, B, plan.lanes.bit_length() - 1,
+            group.bit_length() - 1, stream)
     _raise_on(err, lib.ell_spmm_error_string, "ell_spmm")
     LAUNCHES["ell_spmm"] += 1
     ROUTES["ell_spmm_frontier"] += bool(group)
@@ -386,14 +388,14 @@ def ell_spmm_sliced_cuda(neighbors: torch.Tensor, mask: torch.Tensor,
                            device=x.device) if fold.hub_items else None
     yT = torch.empty((n, B), dtype=torch.float32, device=x.device)
     lib = _sliced_lib()
-    stream = torch.cuda.current_stream(x.device.index).cuda_stream
-    err = lib.ell_spmm_sliced_launch(
-        _ptr(neighbors), _ptr(mask), _ptr(weights), _ptr(row_map),
-        _ptr(fold.row_ptr), _ptr(fold.items), _ptr(fold.hubs),
-        _ptr(fold.hub_chunks), _ptr(x), _ptr(thr), _ptr(xm),
-        _ptr(partials), _ptr(yT), x.stride(0), x.stride(1), n, width, B,
-        fold.items.shape[0], fold.hub_items, fold.hubs.shape[0],
-        fold.short_slices, fold.chunk_slices, stream)
+    with _build.on_card(x.device) as stream:
+        err = lib.ell_spmm_sliced_launch(
+            _ptr(neighbors), _ptr(mask), _ptr(weights), _ptr(row_map),
+            _ptr(fold.row_ptr), _ptr(fold.items), _ptr(fold.hubs),
+            _ptr(fold.hub_chunks), _ptr(x), _ptr(thr), _ptr(xm),
+            _ptr(partials), _ptr(yT), x.stride(0), x.stride(1), n, width, B,
+            fold.items.shape[0], fold.hub_items, fold.hubs.shape[0],
+            fold.short_slices, fold.chunk_slices, stream)
     _raise_on(err, lib.ell_spmm_sliced_error_string, "ell_spmm_sliced")
     LAUNCHES["ell_spmm_sliced"] += 1
     return yT.t()
@@ -421,10 +423,10 @@ def ell_spmv_cuda(neighbors: torch.Tensor, mask: torch.Tensor,
     plan = _check_plan(plan, mask)
     y = torch.empty((rows,), dtype=torch.float32, device=x.device)
     lib = _spmv_lib()
-    stream = torch.cuda.current_stream(x.device.index).cuda_stream
-    err = lib.ell_spmv_launch(_ptr(neighbors), _ptr(mask), _ptr(weights),
-                              _ptr(plan.extent), _ptr(x), _ptr(y), rows,
-                              width, plan.lanes.bit_length() - 1, stream)
+    with _build.on_card(x.device) as stream:
+        err = lib.ell_spmv_launch(_ptr(neighbors), _ptr(mask), _ptr(weights),
+                                  _ptr(plan.extent), _ptr(x), _ptr(y), rows,
+                                  width, plan.lanes.bit_length() - 1, stream)
     _raise_on(err, lib.ell_spmv_error_string, "ell_spmv")
     LAUNCHES["ell_spmv"] += 1
     return y

@@ -206,11 +206,12 @@ def embedding_bag_cuda(table: torch.Tensor, ids: torch.Tensor,
         raise ValueError(f"shapes out of range: {p.blocks} blocks")
     out = torch.empty((B, d), dtype=torch.float32, device=dev)
     lib = _lib()
-    stream = torch.cuda.current_stream(dev.index).cuda_stream
-    err = lib.embedding_bag_launch(
-        table.data_ptr(), ids.data_ptr(), weights.data_ptr(), out.data_ptr(),
-        B, L, V, d, ids.stride(0), weights.stride(0), _ROUTE_CODE[p.route],
-        unit_width(table), p.blocks, p.bag_warps, p.bags_per_block, stream)
+    with _build.on_card(dev) as stream:
+        err = lib.embedding_bag_launch(
+            table.data_ptr(), ids.data_ptr(), weights.data_ptr(),
+            out.data_ptr(), B, L, V, d, ids.stride(0), weights.stride(0),
+            _ROUTE_CODE[p.route], unit_width(table), p.blocks, p.bag_warps,
+            p.bags_per_block, stream)
     if err != 0:
         msg = lib.embedding_bag_error_string(err).decode()
         raise RuntimeError(f"embedding_bag launch failed: CUDA error {err} "

@@ -111,11 +111,11 @@ def endpoint_fold_cuda(pos: torch.Tensor, weights: torch.Tensor,
     sums = torch.empty((B, tiles * TILE), dtype=torch.float32, device=dev)
     starts = torch.empty((B, nb + 1, tiles), dtype=torch.int32, device=dev)
     out = torch.empty((B, n), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev.index).cuda_stream
-    err = lib.endpoint_fold_launch(
-        pos.data_ptr(), weights.data_ptr(), cells.data_ptr(),
-        sums.data_ptr(), starts.data_ptr(), out.data_ptr(), n, W, B, tiles,
-        nb, stream)
+    with _build.on_card(dev) as stream:
+        err = lib.endpoint_fold_launch(
+            pos.data_ptr(), weights.data_ptr(), cells.data_ptr(),
+            sums.data_ptr(), starts.data_ptr(), out.data_ptr(), n, W, B, tiles,
+            nb, stream)
     if err != 0:
         msg = lib.endpoint_fold_error_string(err).decode()
         raise RuntimeError(f"endpoint_fold launch failed: CUDA error {err} "

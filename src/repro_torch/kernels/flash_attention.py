@@ -181,13 +181,13 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"shapes out of range: {blocks} blocks")
     out = torch.empty((B, Sq, Hq, Dh), dtype=q.dtype, device=dev)
     lib = _lib()
-    stream = torch.cuda.current_stream(dev.index).cuda_stream
-    err = lib.flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _DTYPES[q.dtype], B, Sq, Skv, Hq, Hkv, Dh, *q.stride()[:3],
-        *k.stride()[:3], *v.stride()[:3], int(bool(causal)), q_offset,
-        1.0 / math.sqrt(Dh), _ROUTE_CODE[way], splits, kv_end,
-        None if scratch is None else scratch.data_ptr(), stream)
+    with _build.on_card(dev) as stream:
+        err = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            _DTYPES[q.dtype], B, Sq, Skv, Hq, Hkv, Dh, *q.stride()[:3],
+            *k.stride()[:3], *v.stride()[:3], int(bool(causal)), q_offset,
+            1.0 / math.sqrt(Dh), _ROUTE_CODE[way], splits, kv_end,
+            None if scratch is None else scratch.data_ptr(), stream)
     if err != 0:
         msg = lib.flash_attention_error_string(err).decode()
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err} "

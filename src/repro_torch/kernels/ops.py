@@ -7,6 +7,8 @@ a CUDA call whose kernel does not build or launch raises.
 
 from __future__ import annotations
 
+from collections.abc import Sequence
+
 import torch
 
 from . import ref
@@ -63,6 +65,76 @@ def ell_spmm_sliced(neighbors: torch.Tensor, mask: torch.Tensor,
                                     threshold, fold)
     return ref.ell_spmm_sliced_ref(neighbors, mask, x, weights, threshold,
                                    row_map)
+
+
+def replicate(t: torch.Tensor | None, devices: Sequence[torch.device]
+              ) -> tuple[torch.Tensor | None, ...]:
+    """``t`` on each of ``devices`` (a shard's device each): ``t`` itself
+    where it lies, else one copy a distinct device; None stays None."""
+    on = {d: t if t is None or t.device == d else t.to(d)
+          for d in dict.fromkeys(devices)}
+    return tuple(on[d] for d in devices)
+
+
+def ell_spmm_shard(neighbors: Sequence[torch.Tensor],
+                   mask: Sequence[torch.Tensor],
+                   weights: Sequence[torch.Tensor], x: torch.Tensor, *,
+                   threshold: torch.Tensor | None = None,
+                   plans: Sequence[DensePlan] | None = None) -> torch.Tensor:
+    """Node-sharded dense SpMM, one process driving every shard: shard s
+    holds the (rows_local, K) block s of the destination rows on its own
+    device, with global gather ids. Each block is one :func:`ell_spmm` on
+    its shard's device (x and ``threshold`` copied there once a call where
+    they lie elsewhere), then the (B, rows_local) blocks are put together
+    in shard order, the JAX package's tiled all-gather, and the row
+    padding is cut off. Returns (B, n) on x's device; each row has the sum
+    its shard computed, so the call repeats bit for bit."""
+    n = x.shape[1]
+    if not len(neighbors) == len(mask) == len(weights) or \
+            (plans is not None and len(plans) != len(neighbors)):
+        raise ValueError("one table block (and plan) a shard")
+    devs = [nbr.device for nbr in neighbors]
+    xs, ts = replicate(x, devs), replicate(threshold, devs)
+    blocks = []
+    for s, nbr in enumerate(neighbors):
+        y = ell_spmm(nbr, mask[s], weights[s], xs[s], threshold=ts[s],
+                     plan=None if plans is None else plans[s])
+        blocks.append(y.to(x.device).t())              # (rows_local, B)
+    if sum(b.shape[0] for b in blocks) < n:
+        raise ValueError(f"the blocks hold {sum(b.shape[0] for b in blocks)}"
+                         f" rows for n={n}")
+    return torch.cat(blocks)[:n].t()
+
+
+def ell_spmm_sliced_shard(neighbors: Sequence[torch.Tensor],
+                          mask: Sequence[torch.Tensor],
+                          weights: Sequence[torch.Tensor],
+                          row_map: Sequence[torch.Tensor], x: torch.Tensor,
+                          *, threshold: torch.Tensor | None = None,
+                          folds: Sequence[SlicedFold] | None = None
+                          ) -> torch.Tensor:
+    """Node-sharded sliced SpMM, one process driving every shard: shard s
+    holds a block of the virtual rows with its own ascending ``row_map``
+    block (and fold structure) on its own device. Each block is one
+    :func:`ell_spmm_sliced` onto the full (B, n) frame on its shard's
+    device (x and ``threshold`` copied there once a call where they lie
+    elsewhere), and the frames are summed in shard order on x's device,
+    the JAX package's psum. A real row whose slices two shards hold is
+    summed in two parts; every sum has one order, so the call repeats bit
+    for bit. Returns (B, n)."""
+    if not len(neighbors) == len(mask) == len(weights) == len(row_map) or \
+            (folds is not None and len(folds) != len(neighbors)):
+        raise ValueError("one table block, row_map (and fold) a shard")
+    devs = [nbr.device for nbr in neighbors]
+    xs, ts = replicate(x, devs), replicate(threshold, devs)
+    total = None
+    for s, nbr in enumerate(neighbors):
+        part = ell_spmm_sliced(nbr, mask[s], weights[s], row_map[s], xs[s],
+                               threshold=ts[s],
+                               fold=None if folds is None else folds[s])
+        part = part.to(x.device)
+        total = part if total is None else total + part
+    return total
 
 
 def walk_endpoint_gather(endpoints: torch.Tensor, budget: torch.Tensor,

@@ -132,11 +132,11 @@ def walk_endpoint_gather_cuda(endpoints: torch.Tensor, budget: torch.Tensor,
     cells = torch.empty((B, L), dtype=torch.int32, device=dev)
     values = torch.empty((B, L), dtype=torch.float32, device=dev)
     out = torch.empty((B, n), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev.index).cuda_stream
-    err = lib.walk_gather_launch(
-        endpoints.data_ptr(), budget.data_ptr(), starts.data_ptr(),
-        weights.data_ptr(), cells.data_ptr(), values.data_ptr(),
-        out.data_ptr(), n, W, B, L, cells_per_block, stream)
+    with _build.on_card(dev) as stream:
+        err = lib.walk_gather_launch(
+            endpoints.data_ptr(), budget.data_ptr(), starts.data_ptr(),
+            weights.data_ptr(), cells.data_ptr(), values.data_ptr(),
+            out.data_ptr(), n, W, B, L, cells_per_block, stream)
     if err != 0:
         msg = lib.walk_gather_error_string(err).decode()
         raise RuntimeError(f"walk_endpoint_gather launch failed: CUDA error "

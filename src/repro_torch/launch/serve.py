@@ -5,7 +5,9 @@ Given X independent requests and a deadline T, D&A_REAL decides how many
 "cores" the job needs, slots the requests, executes them (PPR: FORA
 queries through ``ForaExecutor`` on ``--device``, timed on the card), and
 reports the Lemma-2 comparison. The core count is then mapped onto the
-cards present (``plan_core_mesh``: cores = devices x lanes).
+cards present (``plan_core_mesh``: cores = devices x lanes); ``--devices
+k`` additionally runs every slot as a node-sharded mesh of k devices
+(``ForaExecutor(devices=k)``).
 
     python -m repro_torch.launch.serve --workload ppr \\
         --dataset web-stanford --scale 1 --queries 512 --deadline 30 \\
@@ -27,8 +29,9 @@ streaming edge updates applied to a ``DynamicGraph`` on the card
 The daemon defaults to the continuous-batching lane engine (per-lane
 occupancy accounting instead of slot grants); ``--no-engine`` restores the
 slot-granted chunked path. Entry points run on ``--device cuda`` and raise
-without a card unless ``--device cpu`` is given. ``--devices > 1`` (a
-node-sharded residency) is refused until the port has one. The JAX
+without a card unless ``--device cpu`` is given. ``--devices k`` makes
+each slot's mesh the first k cards, refused above the cards present; on
+``--device cpu`` it is k shards of the CPU. The JAX
 package's ``--compilation-cache`` (XLA's persistent cache) has no
 counterpart: the port's cold start is the ``nvcc`` build of its kernels,
 and ``--warm-start`` defaults to whether those are already built.
@@ -48,30 +51,35 @@ import torch
 from .._device import resolve_device
 
 
-def _device_count(device: torch.device) -> int:
-    """Cards present for the mesh mapping (the CPU counts as one)."""
-    return torch.cuda.device_count() if device.type == "cuda" else 1
+def _device_count(device: torch.device, devices: int = 1) -> int:
+    """Devices present for the mesh mapping: the cards on CUDA; on the CPU
+    the ``devices`` shards a slot's CPU mesh holds (the CPU repeats)."""
+    if device.type == "cuda":
+        return torch.cuda.device_count()
+    return max(1, devices)
 
 
 def _refuse_devices(args) -> None:
-    if args.devices > 1:
-        raise SystemExit(f"REJECTED: --devices {args.devices}: the port has "
-                         "no node-sharded residency yet; run one card a "
-                         "slot (--devices 1)")
     if not args.fused:
         raise SystemExit("REJECTED: --no-fused: the port has only the "
-                         "fused query path")
+                         "fused hot path (drop --no-fused)")
+    present = _device_count(args.device, args.devices)
+    if args.device.type == "cuda":
+        present -= args.device.index      # a slot's cards start at --device
+    if args.devices > present:
+        raise SystemExit(f"REJECTED: --devices {args.devices} but only "
+                         f"{present} device(s) present")
 
 
-def _print_mesh_plan(cores: int, max_lanes: int,
-                     device: torch.device) -> None:
+def _print_mesh_plan(cores: int, max_lanes: int, device: torch.device,
+                     devices: int = 1) -> None:
     """cores -> devices x lanes on the hardware actually present (the paper
     stops at an integer; lanes time-multiplex a device when the demand
     exceeds the card count)."""
     from ..core import InfeasibleDeadline, plan_core_mesh
 
     try:
-        plan = plan_core_mesh(cores, _device_count(device),
+        plan = plan_core_mesh(cores, _device_count(device, devices),
                               max_lanes_per_device=max_lanes or None)
     except InfeasibleDeadline as e:
         raise SystemExit(f"REJECTED at mesh mapping: {e}") from e
@@ -87,6 +95,7 @@ def _fora_executor(args, workload):
                         device=args.device,
                         ell_layout=args.ell_layout,
                         walk_safety=args.walk_safety,
+                        devices=args.devices,
                         index_budget=args.index_budget)
 
 
@@ -106,8 +115,8 @@ def serve_ppr(args) -> None:
     # rejected by the up-front Lemma-1 admission, not after the workload ran
     max_cores = args.max_cores
     if args.max_lanes:
-        max_cores = min(max_cores,
-                        _device_count(args.device) * args.max_lanes)
+        max_cores = min(max_cores, _device_count(args.device, args.devices)
+                        * args.max_lanes)
     try:
         res = dna_real(args.queries, args.deadline, executor,
                        max_cores=max_cores, sample_size=s,
@@ -121,8 +130,9 @@ def serve_ppr(args) -> None:
     print(f"  reduction          : {res.reduction_vs_lemma2_pct:.2f}%")
     print(f"  completion         : {res.completion_time:.3f}s "
           f"(accepted={res.accepted})")
-    _print_mesh_plan(res.cores, args.max_lanes, args.device)
-    print("  slot mesh          : single chip")
+    _print_mesh_plan(res.cores, args.max_lanes, args.device, args.devices)
+    mesh = f"{args.devices}-chip shard" if args.devices > 1 else "single chip"
+    print(f"  slot mesh          : {mesh}")
 
 
 def serve_sim(args) -> None:
@@ -144,7 +154,7 @@ def serve_sim(args) -> None:
     print(f"  Lemma-2 bound cores: {res.bounds.lemma2_cores}")
     print(f"  reduction          : {res.reduction_vs_lemma2_pct:.2f}%")
     # the grant becomes a mesh shape for the sim workloads too (was PPR-only)
-    _print_mesh_plan(res.cores, args.max_lanes, args.device)
+    _print_mesh_plan(res.cores, args.max_lanes, args.device, args.devices)
 
 
 def _daemon_factory(args):
@@ -463,8 +473,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--walk-safety", type=float, default=1.0,
                     help="walk-budget calibration headroom factor")
     ap.add_argument("--devices", type=int, default=1,
-                    help="cards per slot; >1 (a node-sharded residency) "
-                         "is refused until the port has one")
+                    help="devices per slot: >1 runs every slot as a "
+                         "node-sharded mesh of that many cards (of CPU "
+                         "shards with --device cpu)")
     ap.add_argument("--max-lanes", type=int, default=0,
                     help="admission cap on query lanes per device for the "
                          "cores->mesh mapping (0 = uncapped)")

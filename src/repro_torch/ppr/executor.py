@@ -16,7 +16,9 @@ from (workload seed, query id), so its answer does not depend on the block
 it runs in. With ``index_budget > 0`` a :class:`~repro_torch.index.WalkIndex`
 of that many lanes per node is built once, at warmup, and every block
 serves its covered walk lanes from it (the FORA+ mode); ``walk_index``
-hands the executor one already built instead.
+hands the executor one already built instead. With ``devices=k > 1`` a
+slot is a mesh of k devices (the first k cards, or k shards of the CPU)
+over one :class:`~repro_torch.ppr.graph.ShardedDeviceGraph`.
 
 The parts a continuous-batching engine calls are here too: ``run_chunk``
 (one chunk as one device call), ``answer_chunk`` (a chunk's PPR rows, the
@@ -39,9 +41,9 @@ import torch
 from .._device import resolve_device, synchronize
 from ..core.estimator import RuntimeStats
 from .fora import (FusedForaResult, ForaParams, _pow2_ceil_host,
-                   default_walk_budget, fora_fused)
+                   default_walk_budget, fora_fused, shard_lanes)
 from .forward_push import forward_push_np
-from .graph import DeviceGraph, Graph
+from .graph import DeviceGraph, DeviceMesh, Graph, ShardedDeviceGraph
 
 if TYPE_CHECKING:
     from ..index import WalkIndex
@@ -80,6 +82,8 @@ class ForaExecutor:
     params: ForaParams = field(default_factory=ForaParams)
     block_size: int = 1            # 1 = paper-faithful
     device: str | torch.device = "cuda"
+    fused: bool = True             # the port has the fused query only
+    devices: int = 1               # >1: a slot is a mesh of k devices
     walk_safety: float = 1.0       # calibration headroom on the probe r_sum
     ell_layout: str = "auto"       # auto|dense|sliced push table
     index_budget: int = 0          # >0: pre-draw a WalkIndex of this many
@@ -95,14 +99,20 @@ class ForaExecutor:
     calls: int = field(default=0, init=False)
     _dev: torch.device = field(init=False, repr=False)
     _warmed: bool = field(default=False, init=False)
-    _device_graph: DeviceGraph | None = field(default=None, init=False,
-                                              repr=False)
+    _device_graph: DeviceGraph | ShardedDeviceGraph | None = field(
+        default=None, init=False, repr=False)
     _num_walks: int | None = field(default=None, init=False)
     _obs_rmax: float | None = field(default=None, init=False)
 
     def __post_init__(self) -> None:
         if self.block_size < 1:
             raise ValueError("block_size must be >= 1")
+        if self.devices < 1:
+            raise ValueError("devices must be >= 1")
+        if not self.fused:
+            raise ValueError("the port's executor requires the fused hot "
+                             "path; the legacy fora() path is "
+                             "single-device only")
         if self.index_budget < 0:
             raise ValueError("index_budget must be >= 0")
         if self.walk_safety <= 0:
@@ -116,11 +126,30 @@ class ForaExecutor:
                     f"index_budget {self.index_budget} != the given walk "
                     f"index's width {self.walk_index.width}")
             self.index_budget = self.walk_index.width
+        if self.index_budget and self.devices > 1:
+            raise ValueError("index_budget requires the fused hot path on a "
+                             "single-device slot (the sharded residency "
+                             "draws walk lanes per shard)")
         self._dev = resolve_device(self.device)
 
     @property
-    def device_graph(self) -> DeviceGraph | None:
+    def device_graph(self) -> DeviceGraph | ShardedDeviceGraph | None:
         return self._device_graph
+
+    def _build_mesh(self) -> DeviceMesh:
+        """The slot's mesh of ``devices`` shards: on CUDA ``devices``
+        cards from the executor's own (the first ``devices`` cards for
+        ``"cuda"`` on card 0), on the CPU ``devices`` shards of the CPU."""
+        if self._dev.type == "cpu":
+            return DeviceMesh((self._dev,) * self.devices)
+        first = self._dev.index
+        present = torch.cuda.device_count() - first
+        if self.devices > present:
+            raise ValueError(f"devices={self.devices} requested but only "
+                             f"{present} present"
+                             + (f" from {self._dev}" if first else ""))
+        return DeviceMesh(tuple(torch.device("cuda", first + i)
+                                for i in range(self.devices)))
 
     def _block_sources(self, qids: Sequence[int]) -> np.ndarray:
         return np.array([self.workload.source_of(q) for q in qids],
@@ -161,7 +190,9 @@ class ForaExecutor:
                                rmax=rp.rmax, device=self._dev)
         r_max = float(push.r.sum(dim=1).max())
         need = max(1, math.ceil(r_max * rp.omega * self.walk_safety))
-        return min(_pow2_ceil_host(need), default_walk_budget(rp))
+        # the lane count the query runs: on k devices a multiple of k
+        return shard_lanes(min(_pow2_ceil_host(need),
+                               default_walk_budget(rp)), self.devices)
 
     def _probe_qids(self) -> list[int]:
         nq = self.workload.num_queries
@@ -176,10 +207,17 @@ class ForaExecutor:
             return
         if self._device_graph is None:
             graph = self.workload.graph
-            self._device_graph = (
-                graph.device(self._dev) if self.ell_layout == "auto" else
-                DeviceGraph.from_graph(graph, layout=self.ell_layout,
-                                       device=self._dev))
+            mesh = self._build_mesh() if self.devices > 1 else None
+            if mesh is not None:
+                self._device_graph = (
+                    graph.device(mesh=mesh) if self.ell_layout == "auto"
+                    else ShardedDeviceGraph.from_graph(
+                        graph, mesh, layout=self.ell_layout))
+            else:
+                self._device_graph = (
+                    graph.device(self._dev) if self.ell_layout == "auto"
+                    else DeviceGraph.from_graph(graph, layout=self.ell_layout,
+                                                device=self._dev))
         if self._num_walks is None:
             self._num_walks = self._calibrate_walk_budget()
         if self.index_budget and self.walk_index is None:
@@ -237,7 +275,9 @@ class ForaExecutor:
             return
         rp = self.params.resolve(self.workload.graph)
         need = max(1, math.ceil(self._obs_rmax * rp.omega * self.walk_safety))
-        self._num_walks = min(_pow2_ceil_host(need), default_walk_budget(rp))
+        self._num_walks = shard_lanes(min(_pow2_ceil_host(need),
+                                          default_walk_budget(rp)),
+                                      self.devices)
 
     def answer_chunk(self, query_ids: Sequence[int]) -> np.ndarray:
         """PPR rows (len(query_ids), n) for one chunk through the fused
@@ -270,7 +310,8 @@ class ForaExecutor:
     def degrade(self, factor: float) -> None:
         """Graceful degradation for the remaining queries: raise epsilon by
         1/factor (coarser guarantee, fewer pushes and walks) and cap the
-        calibrated walk lanes by ``factor`` (power-of-two floor). Answers
+        calibrated walk lanes by ``factor`` (power-of-two floor; on k
+        devices then up to a multiple of k). Answers
         stay unbiased, only noisier. The walk index stays: its endpoints
         depend on alpha and the truncation length, which this keeps."""
         if not 0.0 < factor < 1.0:
@@ -279,7 +320,8 @@ class ForaExecutor:
                               epsilon=self.params.epsilon / factor)
         if self._num_walks is not None and self._num_walks > 1:
             capped = max(1, int(self._num_walks * factor))
-            self._num_walks = 1 << (capped.bit_length() - 1)   # pow2 floor
+            self._num_walks = shard_lanes(              # pow2 floor
+                1 << (capped.bit_length() - 1), self.devices)
         self._warmed = False
 
     def __call__(self, query_ids: Sequence[int]) -> RuntimeStats:

@@ -13,7 +13,9 @@ the residual distribution, and adds their endpoint mass to the reserve.
 :func:`fora_fused` keeps the whole query block on the device: push, the
 power-of-two walk budget, the walks and the readout ``pi = push.pi +
 endpoint``; the host waits on it only at the push's convergence tests and
-at readout. With a :class:`~repro_torch.index.WalkIndex` it serves the
+at readout. On a :class:`~repro_torch.ppr.graph.ShardedDeviceGraph` the
+push runs one SpMM a shard each sweep and each shard walks its window of
+the lanes. With a :class:`~repro_torch.index.WalkIndex` it serves the
 walk lanes the index covers from its table (kernel K3) and walks the rest
 live on the index's lane streams. :func:`fora` is the legacy path that
 reads the residual mass back to choose the walk count on the host.
@@ -31,11 +33,13 @@ import torch
 
 from .._device import resolve_device
 from ..kernels import ops
-from .forward_push import forward_push, forward_push_np, one_hot_seeds
-from .graph import DeviceGraph, Graph
+from .forward_push import (forward_push, forward_push_np,
+                           forward_push_sharded, one_hot_seeds)
+from .graph import DeviceGraph, Graph, ShardedDeviceGraph
 from .random_walk import (QueryDraws, WalkDraws, fold_endpoints,
                           lane_weights, residual_walks, sample_walk_starts,
-                          walk_endpoints, walk_length_for_tail)
+                          walk_endpoints, walk_length_for_tail,
+                          window_walks)
 
 if TYPE_CHECKING:
     from ..index import WalkIndex
@@ -103,6 +107,22 @@ def _pow2_ceil_host(v: int) -> int:
     return 1 << (max(1, int(v)) - 1).bit_length()
 
 
+def shard_lanes(num_walks: int, shards: int = 1) -> int:
+    """The walk lane count of a query on ``shards`` shards: the power of
+    two at or above ``num_walks``, rounded up to a multiple of ``shards``
+    so that each shard walks an equal window of lanes (no change for a
+    power-of-two ``shards`` up to that count; one shard: the power of
+    two). A count this rounding gives is kept as it is, so a budget
+    rounded here once runs as it stands; the JAX package rounds such a
+    count again (only a non-power-of-two count it was not given can
+    differ)."""
+    def up(v: int) -> int:
+        return -(-v // shards) * shards
+
+    p = _pow2_ceil_host(num_walks)
+    return up(p // 2) if p > 1 and up(p // 2) >= num_walks else up(p)
+
+
 def default_walk_budget(rp: ResolvedFora) -> int:
     """Walk lane count when no calibrated budget is given: the worst case
     r_sum = 1 (pushes cannot increase the total residual mass)."""
@@ -158,14 +178,34 @@ def _index_walks(dg: DeviceGraph, index: "WalkIndex", residual: torch.Tensor,
     return endpoint + fold_endpoints(pos, w_live, dg.n)
 
 
-def fora_fused(dg: DeviceGraph, sources, params: ForaParams = ForaParams(),
-               seed: int = 0, *, num_walks: int | None = None,
+def _sharded_walks(sg: ShardedDeviceGraph, residual: torch.Tensor,
+                   draws: WalkDraws, w_eff: torch.Tensor, *, alpha: float,
+                   num_walks: int, num_steps: int) -> torch.Tensor:
+    """The walk phase on a node-sharded residency: shard s walks lanes
+    [s * W/k, (s + 1) * W/k) on its device's walk arrays and folds them
+    there, and the (B, n) frames are summed in shard order on the first
+    device."""
+    lanes = num_walks // sg.num_shards
+    frames = window_walks(
+        [sg.replicas[d] for d in sg.mesh.devices], residual, draws,
+        [(s * lanes, lanes) for s in range(sg.num_shards)], alpha=alpha,
+        num_walks=num_walks, num_steps=num_steps, active_walks=w_eff)
+    total = frames[0].to(sg.device)
+    for frame in frames[1:]:
+        total = total + frame.to(sg.device)
+    return total
+
+
+def fora_fused(dg: DeviceGraph | ShardedDeviceGraph, sources,
+               params: ForaParams = ForaParams(), seed: int = 0, *,
+               num_walks: int | None = None,
                query_ids: Sequence[int] | None = None,
                draws: WalkDraws | None = None,
                index: "WalkIndex | None" = None,
                device: str | torch.device = "cuda") -> FusedForaResult:
     """FORA for a block of B sources on a :class:`DeviceGraph` that lives
-    on ``device``.
+    on ``device``, or on a :class:`ShardedDeviceGraph` whose mesh starts
+    at ``device`` (the result lies there).
 
     ``num_walks`` is the walk lane count (a workload-calibrated budget from
     :class:`~repro_torch.ppr.executor.ForaExecutor`; by default the worst
@@ -181,22 +221,38 @@ def fora_fused(dg: DeviceGraph, sources, params: ForaParams = ForaParams(),
     lanes its budget covers are served from its table by K3, and the rest
     walk live on its lane streams; only the start uniforms then come from
     ``draws``.
+
+    On a sharded residency of k shards the lane count is rounded up to a
+    multiple of k after the power of two (:func:`shard_lanes`; a no-op
+    for k a power of two up to W, when the shards' windows together walk
+    the single-device lanes), each shard walks its window of W/k lanes,
+    and an index is refused, as in the JAX package.
     """
     dev = resolve_device(device)
     if dg.device != dev:
         raise ValueError(f"graph lives on {dg.device}, call asked for {dev}")
+    sharded = isinstance(dg, ShardedDeviceGraph)
+    if sharded and index is not None:
+        raise ValueError("walk index is single-device only; the sharded "
+                         "residency draws its walk lanes per shard")
     rp = params.resolve(dg)
-    num_walks = _pow2_ceil_host(default_walk_budget(rp) if num_walks is None
-                                else num_walks)
+    num_walks = shard_lanes(
+        default_walk_budget(rp) if num_walks is None else num_walks,
+        dg.num_shards if sharded else 1)
     steps = walk_length_for_tail(rp.alpha, rp.walk_tail)
     if index is not None:
         _check_index(index, dg, rp, steps)
     seeds = one_hot_seeds(sources, dg.n, dev)
     B = seeds.shape[0]
-    push = forward_push(dg.in_neighbors, dg.in_mask, dg.in_weights,
-                        dg.out_degree, seeds, alpha=rp.alpha, rmax=rp.rmax,
-                        max_iters=MAX_PUSH_ITERS, row_map=dg.in_row_map,
-                        fold=dg.in_fold, plan=dg.in_plan)
+    if sharded:
+        push = forward_push_sharded(dg, seeds, alpha=rp.alpha, rmax=rp.rmax,
+                                    max_iters=MAX_PUSH_ITERS)
+    else:
+        push = forward_push(dg.in_neighbors, dg.in_mask, dg.in_weights,
+                            dg.out_degree, seeds, alpha=rp.alpha,
+                            rmax=rp.rmax, max_iters=MAX_PUSH_ITERS,
+                            row_map=dg.in_row_map, fold=dg.in_fold,
+                            plan=dg.in_plan)
     # the residual rows contiguous: a row's sum then adds in one order at
     # any batch width (the push leaves them strided by B)
     residual = push.r.contiguous()
@@ -213,6 +269,9 @@ def fora_fused(dg: DeviceGraph, sources, params: ForaParams = ForaParams(),
         endpoint = _index_walks(dg, index, residual, draws, w_eff,
                                 alpha=rp.alpha, num_walks=num_walks,
                                 num_steps=steps)
+    elif sharded:
+        endpoint = _sharded_walks(dg, residual, draws, w_eff, alpha=rp.alpha,
+                                  num_walks=num_walks, num_steps=steps)
     else:
         endpoint = residual_walks(dg.edge_dst, dg.out_offsets, dg.out_degree,
                                   residual, draws, alpha=rp.alpha,

@@ -18,6 +18,9 @@ All index arrays are int32. ``DeviceGraph`` (via ``Graph.device()``) is the
 upload-once device mirror: CSR walk arrays and the push table go to the
 device once per graph and device, and every query of a workload reuses
 them. It picks the dense or sliced table from the degree distribution.
+``ShardedDeviceGraph`` (via ``Graph.device(mesh=...)``) is the node-sharded
+residency over a :class:`DeviceMesh`: the push table cut into row blocks,
+one a shard, and the walk arrays once a device of the mesh.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..kernels import autotune
+from ..kernels import autotune, ops
 from ..kernels.ell_spmv import (DensePlan, SlicedFold, dense_plan,
                                sliced_fold)
 
@@ -237,17 +240,34 @@ class Graph:
                          row_map=row_map, width=W, n=self.n)
 
     # -- device residency ----------------------------------------------------
+    # sharded residencies kept a graph, least recently used first out:
+    # elastic re-grants walk through mesh shapes over a long-lived graph, and
+    # an unbounded cache would pin every superseded copy of the graph
+    SHARDED_CACHE_MAX: ClassVar[int] = 2
+
     @cached_property
     def _devices(self) -> dict:
         return {}
 
-    def device(self, device: str | torch.device = "cuda") -> "DeviceGraph":
+    @cached_property
+    def _sharded_devices(self) -> dict:
+        return {}
+
+    def device(self, device: str | torch.device = "cuda", *,
+               mesh: "DeviceMesh | None" = None
+               ) -> "DeviceGraph | ShardedDeviceGraph":
         """Upload-once device mirror; repeated calls for one device return
         the same object while the active tuning cache's entry for this
         graph stays the same. The cache is read when a mirror is built: a
         cache set before the first upload shapes it, and one that changes
         the entry afterwards makes the next call build a new mirror (the
-        old object is left as it was)."""
+        old object is left as it was).
+
+        With ``mesh`` (then ``device`` is not read) it is the node-sharded
+        :class:`ShardedDeviceGraph` over that mesh, kept for the
+        ``SHARDED_CACHE_MAX`` most recently used meshes."""
+        if mesh is not None:
+            return self._sharded(mesh)
         dev = resolve_device(device)
         tuned = _tuned_push_config(self, "sliced",
                                    autotune.current_backend(dev))
@@ -255,6 +275,18 @@ class Graph:
         if held is None or held[0] != tuned:
             held = (tuned, DeviceGraph.from_graph(self, device=dev))
             self._devices[dev] = held
+        return held[1]
+
+    def _sharded(self, mesh: "DeviceMesh") -> "ShardedDeviceGraph":
+        tuned = _tuned_push_config(
+            self, "sliced", autotune.current_backend(mesh.devices[0]))
+        cache = self._sharded_devices
+        held = cache.pop(mesh, None)           # re-inserted: most recent
+        if held is None or held[0] != tuned:
+            held = (tuned, ShardedDeviceGraph.from_graph(self, mesh))
+        cache[mesh] = held
+        while len(cache) > self.SHARDED_CACHE_MAX:
+            cache.pop(next(iter(cache)))       # the least recently used
         return held[1]
 
     # -- constructors ----------------------------------------------------------
@@ -467,3 +499,168 @@ class DeviceGraph:
         return cls(n=n, m=int(tensors["edge_dst"].shape[0]),
                    ell_width=int(nbr.shape[1]), in_fold=fold, in_plan=plan,
                    **tensors)
+
+
+@dataclass(frozen=True)
+class DeviceMesh:
+    """The devices of a node-sharded residency, one a shard along the axis
+    ``axis``: shard s runs on ``devices[s]``. One process drives every
+    shard (the JAX package's single-controller mesh). A device may repeat:
+    several shards on one card run one after another there. The devices
+    are all CUDA or all the CPU; a bare ``"cuda"`` is the current card."""
+
+    devices: tuple[torch.device, ...]
+    axis: ClassVar[str] = "shard"
+
+    def __post_init__(self) -> None:
+        devs = tuple(torch.device(d) for d in self.devices)
+        if not devs:
+            raise ValueError("a mesh needs at least one device")
+        kinds = {d.type for d in devs}
+        if len(kinds) != 1 or not kinds <= {"cuda", "cpu"}:
+            raise ValueError(f"a mesh's devices must be all CUDA or all the "
+                             f"CPU, got {[str(d) for d in devs]}")
+        object.__setattr__(self, "devices",
+                           tuple(resolve_device(d) for d in devs))
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    @property
+    def distinct(self) -> tuple[torch.device, ...]:
+        """The mesh's devices, each once, in order of first appearance."""
+        return tuple(dict.fromkeys(self.devices))
+
+
+@dataclass(frozen=True, eq=False)
+class ShardedDeviceGraph:
+    """Node-sharded device residency over a :class:`DeviceMesh`.
+
+    The pull-form push table is cut along its rows into ``num_shards``
+    blocks of ``rows_per_shard`` rows (padded with empty rows to a
+    multiple of the shard count), block s on the mesh's device s:
+
+    * a **dense** table by destination row: shard s computes rows
+      [s * rows_per_shard, (s + 1) * rows_per_shard) of the product, and
+      the blocks are put together in shard order (``ops.ell_spmm_shard``).
+      Its row plan (``in_plan``) is the block's rows of the whole table's
+      plan, so each row is summed in the one order it has on one device;
+    * a **sliced** table by *virtual* row: shard s folds its slices onto
+      the full (B, n) frame through its own ``row_map`` block and fold
+      structure (``in_fold``), and the frames are summed in shard order
+      (``ops.ell_spmm_sliced_shard``). A row whose slices two shards share
+      is summed in two parts. Padding rows carry ``row_map`` n, which the
+      fold never reads (``sliced_fold``'s ``row_ptr[n]``).
+
+    Gather ids stay global node ids. The CSR walk arrays are kept once on
+    each distinct device of the mesh (``replicas``), so each shard walks
+    its own window of the walk lanes beside its table. ``edge_dst``,
+    ``out_offsets`` and ``out_degree`` are the first device's, where the
+    controller keeps the push's state and a query's result.
+
+    Built by ``Graph.device(mesh=...)`` (upload-once per graph and mesh);
+    ``uploads`` counts constructions as :class:`DeviceGraph`'s does.
+    """
+
+    n: int
+    m: int
+    mesh: DeviceMesh
+    num_shards: int
+    rows_per_shard: int
+    replicas: dict          # device -> (edge_dst, out_offsets, out_degree)
+    in_neighbors: tuple[torch.Tensor, ...]   # per shard (rows_per_shard, K)
+    in_mask: tuple[torch.Tensor, ...]
+    in_weights: tuple[torch.Tensor, ...]
+    in_row_map: tuple[torch.Tensor, ...] | None = None   # None: dense
+    ell_width: int = 0
+    in_fold: tuple[SlicedFold, ...] | None = None
+    in_plan: tuple[DensePlan, ...] | None = None
+
+    uploads: ClassVar[int] = 0
+
+    @property
+    def axis(self) -> str:
+        return self.mesh.axis
+
+    @property
+    def layout(self) -> str:
+        return "dense" if self.in_row_map is None else "sliced"
+
+    @property
+    def device(self) -> torch.device:
+        """The mesh's first device: the push's state and results lie here."""
+        return self.mesh.devices[0]
+
+    @property
+    def edge_dst(self) -> torch.Tensor:
+        return self.replicas[self.device][0]
+
+    @property
+    def out_offsets(self) -> torch.Tensor:
+        return self.replicas[self.device][1]
+
+    @property
+    def out_degree(self) -> torch.Tensor:
+        return self.replicas[self.device][2]
+
+    @property
+    def ell_nbytes(self) -> int:
+        """Resident bytes of the push table (+ row_map when sliced), summed
+        over the shards."""
+        arrays = (*self.in_neighbors, *self.in_mask, *self.in_weights,
+                  *(self.in_row_map or ()))
+        return int(sum(a.numel() * a.element_size() for a in arrays))
+
+    def replicate(self, x: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        """``x`` on each shard's device, one copy a device of the mesh
+        (``x`` itself where it lies already)."""
+        return ops.replicate(x, self.mesh.devices)
+
+    @classmethod
+    def from_graph(cls, graph: Graph, mesh: DeviceMesh, *,
+                   layout: str = "auto", width: int | None = None,
+                   pad_multiple: int | None = None) -> "ShardedDeviceGraph":
+        k = mesh.size
+        first = mesh.devices[0]
+        lay = _resolve_push_layout(graph, layout, width, pad_multiple,
+                                   autotune.current_backend(first))
+        nbr, mask, weights, row_map = (lay.neighbors, lay.mask, lay.weights,
+                                       lay.row_map)
+        rows = int(nbr.shape[0])
+        per = -(-rows // k)
+        pad = per * k - rows
+        if pad:
+            nbr = np.pad(nbr, ((0, pad), (0, 0)))
+            mask = np.pad(mask, ((0, pad), (0, 0)))
+            weights = np.pad(weights, ((0, pad), (0, 0)))
+            if row_map is not None:
+                row_map = np.concatenate(
+                    [row_map, np.full(pad, graph.n, np.int32)])
+        if row_map is None:
+            # the whole table's plan, built where one device would build it
+            whole = dense_plan(torch.from_numpy(mask).to(first))
+        blocks = {f: [] for f in ("in_neighbors", "in_mask", "in_weights",
+                                  "in_row_map", "in_fold", "in_plan")}
+        for s, dev in enumerate(mesh.devices):
+            lo, hi = s * per, (s + 1) * per
+            blocks["in_neighbors"].append(torch.tensor(nbr[lo:hi]).to(dev))
+            blocks["in_mask"].append(torch.tensor(mask[lo:hi]).to(dev))
+            blocks["in_weights"].append(
+                torch.tensor(weights[lo:hi], dtype=torch.float32).to(dev))
+            if row_map is None:
+                blocks["in_plan"].append(DensePlan(
+                    extent=whole.extent[lo:hi].contiguous().to(dev),
+                    lanes=whole.lanes, width=whole.width))
+            else:
+                rm = torch.tensor(row_map[lo:hi]).to(dev)
+                blocks["in_row_map"].append(rm)
+                blocks["in_fold"].append(sliced_fold(rm, graph.n, lay.width))
+        walk = [torch.tensor(a) for a in (graph.edge_dst, graph.out_offsets,
+                                           graph.out_degree)]
+        replicas = {d: tuple(t.to(d) for t in walk) for d in mesh.distinct}
+        ShardedDeviceGraph.uploads += 1
+        return cls(n=graph.n, m=graph.m, mesh=mesh, num_shards=k,
+                   rows_per_shard=per, replicas=replicas,
+                   ell_width=lay.width,
+                   **{f: tuple(v) if v else None for f, v in blocks.items()})

@@ -304,24 +304,70 @@ def residual_walks(edge_dst: torch.Tensor, out_offsets: torch.Tensor,
                    out_degree: torch.Tensor, residual: torch.Tensor,
                    draws: WalkDraws, *, alpha: float, num_walks: int,
                    num_steps: int,
-                   active_walks: torch.Tensor | None = None) -> torch.Tensor:
+                   active_walks: torch.Tensor | None = None,
+                   lanes: int | None = None,
+                   lane_offset: int = 0) -> torch.Tensor:
     """Monte-Carlo estimate of sum_v r(v) * pi(v, t) for each row of the
     (B, n) ``residual``; returns (B, n) endpoint mass.
 
     ``num_walks`` W is the lane count; ``active_walks`` (B,) int, in
     [1, W] after clipping, is each row's effective budget: lane i carries
     weight r_sum / active_walks iff i < active_walks, else 0.
+
+    ``lanes``/``lane_offset`` carve one shard's window [lane_offset,
+    lane_offset + lanes) out of the W lanes (the node-sharded walk phase):
+    the draws keep the global (B, W) shape and the window is sliced from
+    them, so the windows of W's shards together walk the lanes one device
+    walks, and the weights use global lane ids, so the ``active_walks``
+    cut falls on the same walkers. The caller sums the windows' masses.
     """
+    window = (lane_offset, num_walks if lanes is None else lanes)
+    return window_walks(((edge_dst, out_offsets, out_degree),), residual,
+                        draws, (window,), alpha=alpha, num_walks=num_walks,
+                        num_steps=num_steps, active_walks=active_walks)[0]
+
+
+def window_walks(walk_arrays: Sequence[tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor]],
+                 residual: torch.Tensor, draws: WalkDraws,
+                 windows: Sequence[tuple[int, int]], *, alpha: float,
+                 num_walks: int, num_steps: int,
+                 active_walks: torch.Tensor | None = None
+                 ) -> list[torch.Tensor]:
+    """The walks of :func:`residual_walks` in lane windows: window i =
+    (offset, lanes) walks lanes [offset, offset + lanes) of the W lanes on
+    ``walk_arrays[i]`` = (edge_dst, out_offsets, out_degree), on their
+    device, and folds them there (``ops.endpoint_fold`` on the card). The
+    starts and each step's (B, W) draws are made once for all windows,
+    and each window takes its slice. Returns the windows' (B, n) masses,
+    each on its arrays' device."""
     B, n = residual.shape
     starts, r_sum = sample_walk_starts(residual, draws.start_uniforms())
     if starts.shape != (B, num_walks):
         raise ValueError(f"draws give {tuple(starts.shape)} starts, "
                          f"need ({B}, {num_walks})")
-    pos = walk_endpoints(edge_dst, out_offsets, out_degree, starts,
-                         (draws.step(t) for t in range(num_steps)),
-                         alpha=alpha)
-    return fold_endpoints(pos, lane_weights(r_sum, num_walks, active_walks),
-                          n)
+    if len(walk_arrays) != len(windows) or any(
+            o < 0 or w < 1 or o + w > num_walks for o, w in windows):
+        raise ValueError(f"windows {list(windows)} do not fit "
+                         f"{num_walks} lanes and {len(walk_arrays)} arrays")
+    weights = lane_weights(r_sum, num_walks, active_walks)
+    bound = _stop_bound(alpha)
+    state = []
+    for (edge_dst, out_offsets, out_degree), (o, w) in zip(walk_arrays,
+                                                         windows):
+        dev = edge_dst.device
+        pos = starts[:, o:o + w].to(dev)
+        state.append([torch.clamp(out_degree, min=1).to(torch.int32), pos,
+                      torch.ones(pos.shape, dtype=torch.bool, device=dev)])
+    for t in range(num_steps):
+        u_step = draws.step(t)
+        for (edge_dst, out_offsets, _), (o, w), st in zip(walk_arrays,
+                                                          windows, state):
+            st[1], st[2] = _advance(edge_dst, out_offsets, st[0], bound,
+                                    st[1], st[2],
+                                    u_step[:, o:o + w].to(edge_dst.device))
+    return [fold_endpoints(st[1], weights[:, o:o + w].to(st[1].device), n)
+            for (o, w), st in zip(windows, state)]
 
 
 def lane_weights(r_sum: torch.Tensor, num_walks: int,

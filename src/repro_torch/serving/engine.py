@@ -104,6 +104,9 @@ class QueryEngine:
             raise ValueError("engine needs a lane pool of >= 1")
         if sweeps < 1:
             raise ValueError("sweeps must be >= 1")
+        if executor.devices > 1:
+            raise ValueError("QueryEngine requires a single-device fused "
+                             "ForaExecutor")
         if executor.index_budget or executor.walk_index is not None:
             raise ValueError("walk-index lanes are a chunked-path "
                              "acceleration; index and cache hits bypass "

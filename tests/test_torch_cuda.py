@@ -3,7 +3,8 @@ fused query on the card against the same query on the CPU, with and
 without the walk index, exact PPR through K4 against the COO loop, the
 model serving paths (K5, K6) on the card against the same paths on the
 CPU, the live endpoint fold, the continuous-batching engine, Monte Carlo
-PPR and a dynamic graph's residency on the card. Every test
+PPR, a dynamic graph's residency on the card, and the node-sharded
+residency's kernels and queries on one card. Every test
 here needs an NVIDIA card and ``nvcc`` and skips without them; this file
 imports neither JAX nor ``repro``, so it runs where only torch is
 installed:
@@ -22,8 +23,9 @@ from repro_torch.index import WalkIndex
 from repro_torch.dyn import DynamicGraph, MutationLog
 from repro_torch.kernels import (embedding_bag, ell_spmv, endpoint_fold,
                                  flash_attention, ops, ref, walk_gather)
-from repro_torch.ppr import (ForaExecutor, ForaParams, LaneStreams,
-                             PprWorkload, TableDraws, fora_fused, load,
+from repro_torch.ppr import (DeviceMesh, ForaExecutor, ForaParams,
+                             LaneStreams, PprWorkload, ShardedDeviceGraph,
+                             TableDraws, fora_fused, load,
                              monte_carlo_ppr, ppr_power_iteration,
                              ppr_single_pair, small_test_graph,
                              walk_length_for_tail)
@@ -851,3 +853,189 @@ def test_serving_daemon_on_card_runs_its_queries_through_the_kernels(card,
     assert endpoint_fold.LAUNCHES["endpoint_fold"] > 0
     rt2, _ = ServingRuntime.recover(tmp_path, factory, fsync=False)
     assert rt2.run().records == report.records
+
+
+# ---------------------------------------------------------------------------
+# the node-sharded residency on one card
+
+
+@pytest.mark.parametrize("route", ["plain", "frontier"])
+@pytest.mark.parametrize("k", [2, 3, 4])
+def test_k1_on_a_row_block_matches_plain(card, route, k, monkeypatch):
+    """K1 on each row block of a k-way cut of a dense table (global gather
+    ids, rows != n, the last block padded with empty rows) against the
+    float64 plain version of the block, bits repeating, at B = 1 on the
+    route asked for (the frontier route's bitmap covers x's n nodes) and
+    at B = 3 on the plain route; the blocks put together give the whole
+    table's product."""
+    monkeypatch.setattr(ell_spmv, "FRONTIER_MIN_N",
+                        0 if route == "frontier" else 1 << 30)
+    g = small_test_graph(n=3001, avg_deg=12, seed=k)
+    dense_mesh = DeviceMesh((card,) * k)
+    sg = ShardedDeviceGraph.from_graph(g, dense_mesh)
+    dg = g.device(card)
+    assert sg.layout == "dense" and sg.rows_per_shard * k > g.n
+    for B in (1, 3):
+        x = _x(g.n, B, seed=B, device=card)
+        thr = torch.quantile(x, 0.6).expand(g.n).contiguous()
+        blocks = []
+        for nbr, mask, w, plan in zip(sg.in_neighbors, sg.in_mask,
+                                      sg.in_weights, sg.in_plan):
+            before = ell_spmv.ROUTES["ell_spmm_frontier"]
+            got = ell_spmv.ell_spmm_cuda(nbr, mask, w, x, thr, plan)
+            took = ell_spmv.ROUTES["ell_spmm_frontier"] - before
+            assert took == (1 if route == "frontier" and B == 1 else 0)
+            assert got.shape == (B, sg.rows_per_shard)
+            _close_to_plain(got, ref.ell_spmm_ref(nbr, mask, x.double(),
+                                                  w.double(), thr.double()))
+            assert torch.equal(got, ell_spmv.ell_spmm_cuda(nbr, mask, w, x,
+                                                           thr, plan))
+            blocks.append(got)
+        whole = ell_spmv.ell_spmm_cuda(dg.in_neighbors, dg.in_mask,
+                                       dg.in_weights, x, thr, dg.in_plan)
+        # a row's sum has one order whatever block holds it
+        assert torch.equal(torch.cat(blocks, dim=1)[:, :g.n], whole)
+
+
+@pytest.mark.parametrize("B", [1, 8])
+def test_k2_on_a_block_that_continues_a_hub(card, B):
+    """K2 on a block of virtual rows that starts inside a hub's slices (the
+    hub split between two shards) and ends inside another row's: its own
+    fold from the block's row_map, against the float64 plain version of
+    the block, bits repeating; the two blocks' frames add up to the whole
+    table's product."""
+    web = load("web-stanford", scale=64)
+    sl = web.ell_in_sliced()
+    W = sl.width
+    counts = np.bincount(sl.row_map, minlength=web.n)
+    hub = int(np.argmax(counts))
+    chunk = max(1, ell_spmv.WARP_CELLS // W)
+    assert counts[hub] > 4 * chunk, "need a hub of several chunks"
+    first = int(np.searchsorted(sl.row_map, hub))
+    cut = first + counts[hub] // 2 + 1          # inside the hub, off a chunk
+    tables = [torch.from_numpy(a).to(card) for a in
+              (sl.neighbors, sl.mask, sl.weights, sl.row_map)]
+    x = _x(web.n, B, seed=B, device=card)
+    thr = torch.quantile(x, 0.5).expand(web.n).contiguous()
+    frames = []
+    for lo, hi in ((0, cut), (cut, sl.n_virtual)):
+        nbr, mask, w, rm = (t[lo:hi].contiguous() for t in tables)
+        fold = ell_spmv.sliced_fold(rm, web.n, W)
+        assert int(rm[0] if lo else rm[-1]) == hub
+        got = ell_spmv.ell_spmm_sliced_cuda(nbr, mask, w, rm, x, thr, fold)
+        _close_to_plain(got, ref.ell_spmm_sliced_ref(
+            nbr, mask, x.double(), w.double(), thr.double(), rm))
+        assert torch.equal(got, ell_spmv.ell_spmm_sliced_cuda(
+            nbr, mask, w, rm, x, thr, fold))
+        frames.append(got)
+    want = ref.ell_spmm_sliced_ref(tables[0], tables[1], x.double(),
+                                   tables[2].double(), thr.double(),
+                                   tables[3])
+    _close_to_plain(frames[0] + frames[1], want)
+
+
+@pytest.mark.parametrize("layout", ["dense", "sliced"])
+def test_four_shard_mesh_on_one_card_matches_device_graph(card, layout):
+    """fora_fused on a 4-shard mesh of the one card against the same query
+    on the card's DeviceGraph, with the same draws: the push's sweeps, the
+    residual mass and the budgets equal, pi within the sharded tolerance,
+    a repeated call bit for bit, a 1-shard mesh bit for bit with the
+    DeviceGraph; every shard launches its K1 or K2."""
+    g = (small_test_graph(n=3001, avg_deg=12, seed=2) if layout == "dense"
+         else load("web-stanford", scale=64))
+    params = ForaParams(epsilon=0.5)
+    W, B = 4096, 3
+    L = walk_length_for_tail(params.alpha, params.walk_tail)
+    rng = np.random.default_rng(0)
+    draws = TableDraws(
+        torch.from_numpy(rng.random((B, W), dtype=np.float32)).to(card),
+        torch.from_numpy(rng.integers(0, 1 << 30, (L, B, W),
+                                      dtype=np.int32)).to(card))
+    sources = [0, 17, 99]
+    dg = g.device(card)
+    assert dg.layout == layout
+    want = fora_fused(dg, sources, params, num_walks=W, draws=draws,
+                      device=card)
+    one = fora_fused(g.device(mesh=DeviceMesh((card,))), sources, params,
+                     num_walks=W, draws=draws, device=card)
+    assert torch.equal(one.pi, want.pi)
+    sg = g.device(mesh=DeviceMesh((card,) * 4))
+    ell_spmv.reset_launches()
+    got = fora_fused(sg, sources, params, num_walks=W, draws=draws,
+                     device=card)
+    key = "ell_spmm" if layout == "dense" else "ell_spmm_sliced"
+    # each sweep launches one kernel a shard, sweeps past convergence too
+    launched = ell_spmv.LAUNCHES[key]
+    assert launched % 4 == 0 and launched >= 4 * int(got.push_iters) > 0
+    again = fora_fused(sg, sources, params, num_walks=W, draws=draws,
+                       device=card)
+    assert torch.equal(got.pi, again.pi)
+    assert int(got.push_iters) == int(want.push_iters)
+    torch.testing.assert_close(got.residual_mass, want.residual_mass,
+                               rtol=1e-5, atol=0.0)
+    assert torch.equal(got.walks_effective, want.walks_effective)
+    torch.testing.assert_close(got.pi, want.pi, rtol=1e-4,
+                               atol=1e-6 * float(want.pi.abs().max()))
+
+
+@pytest.fixture
+def cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more NVIDIA cards")
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+@pytest.mark.parametrize("layout", ["dense", "sliced"])
+def test_mesh_over_several_cards_matches_one_card(cards, layout):
+    """A mesh of distinct cards, one whose first card is not the current
+    card among them: each shard's K1/K2, walks and fold launch on the
+    shard's own card, and the query has the bits of the same mesh cut on
+    one card (the same kernels in the same orders), within the sharded
+    tolerance of the DeviceGraph; an executor of devices=2 on card 1
+    builds its mesh from card 1 and answers there."""
+    assert torch.cuda.current_device() == 0
+    g = (small_test_graph(n=3001, avg_deg=12, seed=2) if layout == "dense"
+         else load("web-stanford", scale=64))
+    params = ForaParams(epsilon=0.5)
+    W, B = 4096, 3
+    L = walk_length_for_tail(params.alpha, params.walk_tail)
+    rng = np.random.default_rng(0)
+    u = rng.random((B, W), dtype=np.float32)
+    us = rng.integers(0, 1 << 30, (L, B, W), dtype=np.int32)
+    sources = [0, 17, 99]
+    k = 4 if len(cards) >= 4 else 2
+    for mesh in ((cards[1], cards[0]), tuple(cards[:k])):
+        first = mesh[0]
+        draws = TableDraws(torch.from_numpy(u).to(first),
+                           torch.from_numpy(us).to(first))
+        sg = g.device(mesh=DeviceMesh(mesh))
+        assert sg.device == first
+        assert [t.device for t in sg.in_neighbors] == list(mesh)
+        ell_spmv.reset_launches()
+        got = fora_fused(sg, sources, params, num_walks=W, draws=draws,
+                         device=first)
+        torch.cuda.synchronize()
+        key = "ell_spmm" if layout == "dense" else "ell_spmm_sliced"
+        assert ell_spmv.LAUNCHES[key] >= len(mesh) * int(got.push_iters) > 0
+        assert got.pi.device == first
+        again = fora_fused(sg, sources, params, num_walks=W, draws=draws,
+                           device=first)
+        assert torch.equal(got.pi, again.pi)
+        one_card = fora_fused(ShardedDeviceGraph.from_graph(
+            g, DeviceMesh((first,) * len(mesh))), sources, params,
+            num_walks=W, draws=draws, device=first)
+        assert torch.equal(got.pi, one_card.pi)
+        want = fora_fused(g.device(first), sources, params, num_walks=W,
+                          draws=draws, device=first)
+        assert int(got.push_iters) == int(want.push_iters)
+        assert torch.equal(got.walks_effective, want.walks_effective)
+        torch.testing.assert_close(got.pi, want.pi, rtol=1e-4,
+                                   atol=1e-6 * float(want.pi.abs().max()))
+    assert torch.cuda.current_device() == 0
+    start = 1 if len(cards) > 2 else 0
+    ex = ForaExecutor(PprWorkload(g, num_queries=8, seed=0),
+                      ForaParams(epsilon=0.5), block_size=4, devices=2,
+                      device=cards[start])
+    rows = ex.answer_chunk([0, 1, 2])
+    assert ex.device_graph.mesh.devices == tuple(cards[start:start + 2])
+    np.testing.assert_allclose(rows.sum(axis=1), 1.0, atol=1e-3)

@@ -204,6 +204,11 @@ def test_import_without_jax_loads_no_repro():
             "import repro_torch.index.result_cache\n"
             "from repro_torch.kernels.ell_spmv import ell_spmv_cuda\n"
             "from repro_torch.ppr import ppr_single_pair\n"
+            "from repro_torch.ppr.graph import ShardedDeviceGraph, "
+            "DeviceMesh\n"
+            "from repro_torch.ppr import forward_push_sharded, window_walks\n"
+            "from repro_torch.kernels.ops import ell_spmm_shard, "
+            "ell_spmm_sliced_shard\n"
             "bad = [m for m, v in sys.modules.items() if v is not None "
             "and (m == 'repro' or m.startswith(('repro.', 'jax')))]\n"
             "assert not bad, bad\n"

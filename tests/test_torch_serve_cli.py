@@ -140,10 +140,23 @@ def test_ppr_daemon_with_mutations_and_autotune_cache(tmp_path, capsys):
     assert autotune.get_cache() is not None
 
 
-def test_refusals(tmp_path, capsys):
-    with pytest.raises(SystemExit, match="--devices 2"):
-        tserve.main(["--workload", "ppr", "--devices", "2", "--device",
-                     "cpu", "--scale", "512"])
+def test_refusals(tmp_path, capsys, monkeypatch):
+    # --devices 2 runs a 2-shard mesh of the CPU (tests/test_torch_sharded
+    # .py); on one card it is refused as over capacity, before any card work
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: True)
+        m.setattr(torch.cuda, "device_count", lambda: 1)
+        for daemon in ([], ["--daemon"]):
+            with pytest.raises(SystemExit,
+                               match="--devices 2 but only 1 device"):
+                tserve.main(["--workload", "ppr", "--devices", "2",
+                             "--device", "cuda:0", "--scale", "512",
+                             *daemon])
+    lines = _lines(tserve.main, ["--workload", "ppr", "--devices", "2",
+                                 "--device", "cpu", "--scale", "512",
+                                 "--queries", "8", "--deadline", "3600"],
+                   capsys)
+    assert lines[-1] == "  slot mesh          : 2-chip shard"
     with pytest.raises(SystemExit, match="fused"):
         tserve.main(["--workload", "ppr", "--no-fused", "--device", "cpu",
                      "--scale", "512"])
