@@ -175,7 +175,29 @@ drives the port's main path, in phases:
    takes the DeviceGraph, and on one card ``ForaExecutor(devices=2)`` and
    ``serve --devices 2`` are refused as over capacity. Printed, not gated:
    ms a query by mesh, device us of K1 and K2 on a shard's block and on the
-   whole table, and of the combine a sweep.
+   whole table, and of the combine a sweep;
+13. the rest of the LM family at full width, in bf16 from a seed, each
+   freed before the next loads: qwen2-moe-a2.7b (24 layers, 60 experts
+   top 4 and 4 shared) with 32 decode steps, moonshot-v1-16b-a3b cut to 12
+   of 48 layers, stablelm-1.6b and qwen1.5-32b cut to 16 of 64, 8 steps
+   each, all prefilling 4 x 4,096 into a cache of 4,128 through
+   ``build_step``. Each must have its config's parameter count, finite
+   logits, n_layers x (1 + steps) K6 launches (route A on prefill, route
+   B on decode) and decode logits equal to a longer prefill's (where that
+   prefill dropped none of the last position's MoE entries); qwen2-moe's
+   prefill must repeat its bits. K6 against float64 plain at qwen2-moe's,
+   stablelm's and qwen1.5-32b's layer-0 prefill and a decode step. MoE
+   layer 0 of qwen2-moe and moonshot on the prefill's 16,384 tokens: the
+   float32 router logits within rtol 1e-5 of float64's, the top-k sets
+   float64's wherever the margin is clear, and y within 2^-8 (4 |y| + 2
+   max|y|) of a float64 plain version on the card's routing with the same
+   drops, at the published capacity factor and at 0.5; the limit must
+   refuse a version that drops each token's last expert and one that
+   keeps the entries past capacity. Printed: tokens/s and ms a step
+   beside ``model_flops``/``model_bytes``' least time, peak device
+   memory, a profile of a qwen2-moe prefill and decode step split into
+   GEMMs, the experts, K6, the MoE dispatch and combine, and idle share,
+   and K6's times at the new shapes beside its bound and SDPA.
 
 The launch counts of each path are zeroed just before it and read just
 after. Any failed phase exits non-zero; without a card, or without the
@@ -189,6 +211,7 @@ import json
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -232,6 +255,10 @@ ATTN_SWEEP = [(1, 128, 128, 2, 2, 64, True, 0),
               (1, 1, 256, 4, 1, 64, True, 255),
               (2, 64, 192, 8, 8, 128, False, 0),
               (1, 37, 53, 2, 1, 16, True, 16)]
+# K6's float64 plain version runs over slices of KV heads whose (B, group,
+# Sq, Skv) float64 scores stay under this (gemma-2b's layer 0, 4.3 GB, in
+# one slice); each such tensor is made about three times
+PLAIN_SLICE_BYTES = 5 << 30
 # K6's kernels, whose device times sum to a call's: route A's, route B's
 # and route B's merge of its key splits
 K6_KERNELS = ("flash_mma", "flash_fwd", "flash_merge")
@@ -241,6 +268,25 @@ MMA_KEY_TILE = 32
 FLUSH_BYTES = 64 << 20         # overwritten between timed calls: > 50 MB L2
 FLUSH_KERNEL = "FillFunctor<unsigned char>"   # the kernel of its zero_()
 PROFILE_TRIES = 5
+# phase 13: the rest of the LM family at full width, depth cut where one
+# card's 80 GB asks: (arch id, layers kept or None for all, decode steps)
+LM_FAMILY = (("qwen2-moe-a2.7b", None, LM_DECODE_STEPS),
+             ("moonshot-v1-16b-a3b", 12, 8),
+             ("stablelm-1.6b", None, 8),
+             ("qwen1.5-32b", 16, 8))
+LEAD_MODEL = "qwen2-moe-a2.7b"  # prefilled twice for its bits; profiled
+# K6 checked and timed at these models' shapes (moonshot's are qwen2-moe's)
+K6_FAMILY = ("qwen2-moe-a2.7b", "stablelm-1.6b", "qwen1.5-32b")
+MOE_LOGIT_RTOL = 1e-5
+MOE_TOPK_MARGIN = 1e-4         # p_k - p_k+1 above this share of p_k: held
+MOE_DROP_FACTOR = 0.5          # a capacity factor that forces drops
+MOE_Y_REL, MOE_Y_MAX = 4.0, 2.0    # y's limit 2^-8 (4 |y| + 2 max|y|)
+# the MoE stages of models/moe.py and their part of phase 13's split
+MOE_STAGES = {"route": "dispatch", "bucket": "dispatch",
+              "dispatch": "dispatch", "experts": "experts",
+              "combine": "combine"}
+GEMM_OPS = ("aten::mm", "aten::bmm", "aten::addmm", "aten::matmul",
+            "aten::linear")
 # phase 7: DIN with its full-size tables
 DIN_TABLE_BYTES = 727_200_000
 DIN_SERVE_REQUESTS = 20
@@ -627,17 +673,38 @@ def limit_ratio(out, want, limit) -> tuple[float, float]:
     return float(diff.max()), float(ratio.max())
 
 
-def attention_limit(q, k, v, want, causal: bool, q_offset: int):
-    """(K6's limit against the float64 plain version, the magnitudes): the
-    output rounded to q's type (ATTN_RTOL of |want|) plus float32
-    accumulation along the keys and the head dim, (Skv + Dh + 8) * 2^-24
-    of the magnitudes sum_j p_j |v_j| (the plain version run on |v|)."""
+def attention_limit(q, k, want, mag):
+    """K6's limit against the float64 plain version: the output rounded to
+    q's type (ATTN_RTOL of |want|) plus float32 accumulation along the keys
+    and the head dim, (Skv + Dh + 8) * 2^-24 of the magnitudes
+    ``mag = sum_j p_j |v_j|`` (the plain version run on |v|)."""
+    return ATTN_RTOL[str(q.dtype)] * want.abs() \
+        + (k.shape[1] + k.shape[3] + 8) * 2.0**-24 * mag
+
+
+def plain_slices(q, k, v, causal: bool, q_offset: int):
+    """K6's float64 plain version of a call and its magnitudes (the plain
+    version on |v|), a slice of KV heads (with their query heads) at a
+    time, so that each slice's float64 scores stay under
+    PLAIN_SLICE_BYTES: yields (the slice's query heads, want, mag). Heads
+    are independent, so the slices make up the whole call."""
     from repro_torch.kernels import ref
 
-    mag = ref.flash_attention_ref(q.double(), k.double(), v.double().abs(),
-                                  causal=causal, q_offset=q_offset)
-    return ATTN_RTOL[str(q.dtype)] * want.abs() \
-        + (k.shape[1] + k.shape[3] + 8) * 2.0**-24 * mag, mag
+    B, Sq, Hq, _ = q.shape
+    Hkv = k.shape[2]
+    group = Hq // Hkv
+    step = max(1, min(Hkv, PLAIN_SLICE_BYTES
+                      // (B * group * Sq * k.shape[1] * 8)))
+    for h0 in range(0, Hkv, step):
+        h1 = min(Hkv, h0 + step)
+        heads = slice(h0 * group, h1 * group)
+        qs, ks, vs = (t.double() for t in (q[:, :, heads], k[:, :, h0:h1],
+                                           v[:, :, h0:h1]))
+        want = ref.flash_attention_ref(qs, ks, vs, causal=causal,
+                                       q_offset=q_offset)
+        mag = ref.flash_attention_ref(qs, ks, vs.abs(), causal=causal,
+                                      q_offset=q_offset)
+        yield heads, want, mag
 
 
 def attention_cost(B: int, Sq: int, Hq: int, Hkv: int, Dh: int, Skv: int,
@@ -817,6 +884,160 @@ def sdpa(q, k, v, causal: bool, q_offset: int):
         is_causal=causal, enable_gqa=Hq != Hkv).transpose(1, 2)
 
 
+def layer0_qkv(params, cfg, tokens, pos, cos, sin):
+    """Layer 0's attention inputs for ``tokens`` at positions ``pos``: q,
+    k (rotated) and v, each (B, n, H, Dh), as ``transformer._attention``
+    makes them."""
+    from repro_torch.models import transformer
+    from repro_torch.models.common import apply_rope, rms_norm
+
+    a = transformer.layer_params(params, 0)
+    x = rms_norm(transformer._embed(params, cfg, tokens),
+                 transformer.layer_params(params, 0)["ln1"], cfg.norm_eps)
+    q, k, v = x @ a["attn"]["wq"], x @ a["attn"]["wk"], x @ a["attn"]["wv"]
+    if cfg.qkv_bias:
+        q, k, v = (q + a["attn"]["bq"], k + a["attn"]["bk"],
+                   v + a["attn"]["bv"])
+    shape = (tokens.shape[0], tokens.shape[1], -1, cfg.head_dim)
+    return (apply_rope(q.reshape(shape), cos, sin, pos),
+            apply_rope(k.reshape(shape), cos, sin, pos), v.reshape(shape))
+
+
+def k6_check(label, q, k, v, causal, off, sms: int, stats: dict,
+             broken=()) -> None:
+    """K6 at these inputs against its float64 plain version (one slice of
+    KV heads at a time): the route the rule picks, taken and printed; the
+    limit held; a second launch with the same bits; each broken version,
+    a (label, output) pair, refused."""
+    import torch
+
+    from repro_torch.kernels import flash_attention
+
+    torch.cuda.synchronize()
+    before = dict(flash_attention.LAUNCHES)
+    out = flash_attention.flash_attention_cuda(q, k, v, causal=causal,
+                                               q_offset=off)
+    torch.cuda.synchronize()
+    way = [name[len("flash_attention_"):] for name, n
+           in flash_attention.LAUNCHES.items()
+           if n != before[name] and name != "flash_attention"]
+    want_way = flash_attention.route(q.dtype, q.shape[1], q.shape[2],
+                                     k.shape[2], q.shape[3])
+    check(way == [want_way], f"K6 {label}: went through {way}, the rule "
+          f"says {want_way}")
+    if want_way == "split":
+        way_label = "B, {} split(s)".format(flash_attention.split_plan(
+            q.shape[0], k.shape[2], q.shape[1] * q.shape[2] // k.shape[2],
+            flash_attention.visible_keys(q.shape[1], k.shape[1], causal,
+                                         off), sms))
+    else:
+        way_label = "A"
+    err = ratio = top = 0.0
+    refused = [0.0] * len(broken)
+    for heads, want, mag in plain_slices(q, k, v, causal, off):
+        limit = attention_limit(q, k, want, mag)
+        e, r = limit_ratio(out[:, :, heads], want, limit)
+        err, ratio = max(err, e), max(ratio, r)
+        top = max(top, float(want.abs().max()))
+        for i, (_, got) in enumerate(broken):
+            refused[i] = max(refused[i],
+                             limit_ratio(got[:, :, heads], want, limit)[1])
+    stats["max_abs_err"] = max(stats["max_abs_err"], err)
+    again = flash_attention.flash_attention_cuda(q, k, v, causal=causal,
+                                                 q_offset=off)
+    print(f"  flash_attention {label:44s} route {way_label:14s} "
+          f"max_abs_err={err:.3e} max|want|={top:.3e} err/limit="
+          f"{ratio:.4f} {'ok' if ratio <= 1 else 'FAIL'}")
+    check(out.shape == q.shape and out.dtype == q.dtype,
+          f"K6 {label}: shape or dtype")
+    check(ratio <= 1.0, f"K6 {label}: error {err} above the limit "
+          f"(ratio {ratio})")
+    check(bool(torch.equal(out, again)),
+          f"K6 {label}: a second launch gave other bits")
+    for (bad, _), r in zip(broken, refused):
+        print(f"  flash_attention {'broken: ' + bad:44s} "
+              f"err/limit={r:.4g} {'refused' if r > 1 else 'PASSED'}")
+        check(r > 1.0, f"K6: the check passes a broken kernel ({bad})")
+
+
+def check_sdpa(label: str, q, k, v, off: int) -> None:
+    """``F.scaled_dot_product_attention`` at a causal call against K6's
+    float64 plain version, before it serves as K6's yardstick."""
+    got, ratio = sdpa(q, k, v, True, off), 0.0
+    for heads, want, mag in plain_slices(q, k, v, True, off):
+        # its probabilities are rounded to bf16 before the value product
+        ratio = max(ratio, limit_ratio(
+            got[:, :, heads], want,
+            ATTN_RTOL[str(q.dtype)] * want.abs() + 2.0**-7 * mag)[1])
+    check(ratio <= 1.0, f"the SDPA yardstick disagrees at {label}")
+
+
+def k6_splits(q, k, off: int, sms: int) -> int:
+    """Key splits of a causal K6 call: 1 on route A."""
+    from repro_torch.kernels import flash_attention
+
+    B, Sq, Hq, Dh = q.shape
+    Hkv = k.shape[2]
+    if flash_attention.route(q.dtype, Sq, Hq, Hkv, Dh) == "mma":
+        return 1
+    return flash_attention.split_plan(
+        B, Hkv, Sq * Hq // Hkv,
+        flash_attention.visible_keys(Sq, k.shape[1], True, off), sms)
+
+
+def k6_times(label: str, q, k, v, off: int, reps: int, flush, card: str,
+             sms: int):
+    """K6's device time at a path's causal shape, each call after an L2
+    flush (and L2 warm), beside its bound, the float32 plain version's and
+    ``F.scaled_dot_product_attention``'s, which is first held against the
+    float64 plain version. Returns (ms, plain_ms, bound, bound_by,
+    sdpa_ms)."""
+    from repro_torch.kernels import flash_attention, ref
+
+    B, Sq, Hq, Dh = q.shape
+    kern = lambda: flash_attention.flash_attention_cuda(  # noqa: E731
+        q, k, v, causal=True, q_offset=off)
+    lib = lambda: sdpa(q, k, v, True, off)  # noqa: E731
+    check_sdpa(label, q, k, v, off)
+    splits = k6_splits(q, k, off, sms)
+    per_call = 2 if splits > 1 else 1      # route B's split and merge
+    ms, seen = k6_call_ms(flushing(kern, flush), reps, per_call)
+    warm, _ = k6_call_ms(kern, reps, per_call)
+    plain_ms = call_ms(flushing(lambda: ref.flash_attention_ref(
+        q, k, v, causal=True, q_offset=off), flush), max(2, reps // 10))
+    lib_ms = call_ms(flushing(lib, flush), reps)
+    bound, by = attention_cost(B, Sq, Hq, k.shape[2], Dh, k.shape[1], True,
+                               off, 2)
+    print(f"  flash_attention {label} B={B} Sq={Sq} Skv={k.shape[1]} "
+          f"q_offset={off}: kernel {ms * 1e3:10.2f} us ({seen} launches in "
+          f"{reps} calls, {splits} split(s); L2 warm {warm * 1e3:10.2f} us)"
+          f"  bound {bound * 1e3:8.2f} us ({by})  plain f32 "
+          f"{plain_ms * 1e3:10.2f} us  sdpa {lib_ms * 1e3:9.2f} us  [{card}]")
+    return ms, plain_ms, bound, by, lib_ms
+
+
+def k6_event_times(label: str, q, k, v, off: int, reps: int, card: str,
+                   sms: int) -> None:
+    """K6's and ``F.scaled_dot_product_attention``'s ms a causal call by
+    CUDA events around back-to-back calls (L2 warm; each call takes 50 us
+    or more, above the host's pace), beside K6's bound; SDPA held against
+    the float64 plain version first. Phase 13 times so: late in the whole
+    run torch.profiler drops device events window after window."""
+    from repro_torch.kernels import flash_attention
+
+    B, Sq, Hq, Dh = q.shape
+    check_sdpa(label, q, k, v, off)
+    ms = events_ms(lambda: flash_attention.flash_attention_cuda(
+        q, k, v, causal=True, q_offset=off), reps)
+    lib_ms = events_ms(lambda: sdpa(q, k, v, True, off), reps)
+    bound, by = attention_cost(B, Sq, Hq, k.shape[2], Dh, k.shape[1], True,
+                               off, 2)
+    print(f"  flash_attention {label} B={B} Sq={Sq} Skv={k.shape[1]} "
+          f"q_offset={off}: kernel {ms * 1e3:10.2f} us by events (L2 warm, "
+          f"{k6_splits(q, k, off, sms)} split(s))  bound {bound * 1e3:8.2f} "
+          f"us ({by})  sdpa {lib_ms * 1e3:9.2f} us by events  [{card}]")
+
+
 def phase6_lm(dev, gen, card: str) -> dict:
     """K6 and gemma-2b serving at full width and depth."""
     import torch
@@ -824,8 +1045,7 @@ def phase6_lm(dev, gen, card: str) -> dict:
     from repro_torch.configs import LM_SHAPES, get_arch
     from repro_torch.kernels import flash_attention, ref
     from repro_torch.models import transformer
-    from repro_torch.models.common import (apply_rope, rms_norm,
-                                           rope_frequencies)
+    from repro_torch.models.common import rope_frequencies
 
     arch = get_arch("gemma-2b")
     cfg = arch.cfg
@@ -919,67 +1139,16 @@ def phase6_lm(dev, gen, card: str) -> dict:
           f"{step_splits}")
 
     # layer 0's prefill q, k, v and a decode step's q against the cache
-    p0 = transformer.layer_params(params, 0)
     cos, sin = rope_frequencies(cfg.head_dim, Smax, cfg.rope_theta, dev)
-
-    def qkv(tokens, pos):
-        x = rms_norm(transformer._embed(params, cfg, tokens), p0["ln1"],
-                     cfg.norm_eps)
-        n = tokens.shape[1]
-        shape = (B, n, -1, cfg.head_dim)
-        a = p0["attn"]
-        return (apply_rope((x @ a["wq"]).reshape(shape), cos, sin, pos),
-                apply_rope((x @ a["wk"]).reshape(shape), cos, sin, pos),
-                (x @ a["wv"]).reshape(shape))
-
     pos = torch.arange(S, device=dev).expand(B, S)
-    q0, k0, v0 = qkv(prompt["tokens"], pos)
+    q0, k0, v0 = layer0_qkv(params, cfg, prompt["tokens"], pos, cos, sin)
     mid = S + steps // 2
-    qd, _, _ = qkv(first_token, torch.full((B, 1), mid, device=dev))
+    qd, _, _ = layer0_qkv(params, cfg, first_token,
+                          torch.full((B, 1), mid, device=dev), cos, sin)
     stats = {"max_abs_err": 0.0}
 
     def attn_check(label, q, k, v, causal, off, broken=()):
-        torch.cuda.synchronize()
-        before = dict(flash_attention.LAUNCHES)
-        out = flash_attention.flash_attention_cuda(q, k, v, causal=causal,
-                                                   q_offset=off)
-        torch.cuda.synchronize()
-        way = [name[len("flash_attention_"):] for name, n
-               in flash_attention.LAUNCHES.items()
-               if n != before[name] and name != "flash_attention"]
-        want_way = flash_attention.route(q.dtype, q.shape[1], q.shape[2],
-                                         k.shape[2], q.shape[3])
-        check(way == [want_way], f"K6 {label}: went through {way}, the rule "
-              f"says {want_way}")
-        if want_way == "split":
-            way_label = "B, {} split(s)".format(flash_attention.split_plan(
-                q.shape[0], k.shape[2], q.shape[1] * q.shape[2] // k.shape[2],
-                flash_attention.visible_keys(q.shape[1], k.shape[1], causal,
-                                             off), sms))
-        else:
-            way_label = "A"
-        want = ref.flash_attention_ref(q.double(), k.double(), v.double(),
-                                       causal=causal, q_offset=off)
-        limit, _ = attention_limit(q, k, v, want, causal, off)
-        err, ratio = limit_ratio(out, want, limit)
-        stats["max_abs_err"] = max(stats["max_abs_err"], err)
-        again = flash_attention.flash_attention_cuda(q, k, v, causal=causal,
-                                                     q_offset=off)
-        print(f"  flash_attention {label:44s} route {way_label:14s} "
-              f"max_abs_err={err:.3e} max|want|="
-              f"{float(want.abs().max()):.3e} err/limit={ratio:.4f} "
-              f"{'ok' if ratio <= 1 else 'FAIL'}")
-        check(out.shape == want.shape and out.dtype == q.dtype,
-              f"K6 {label}: shape or dtype")
-        check(ratio <= 1.0, f"K6 {label}: error {err} above the limit "
-              f"(ratio {ratio})")
-        check(bool(torch.equal(out, again)),
-              f"K6 {label}: a second launch gave other bits")
-        for bad, got in broken:
-            _, r = limit_ratio(got, want, limit)
-            print(f"  flash_attention {'broken: ' + bad:44s} "
-                  f"err/limit={r:.4g} {'refused' if r > 1 else 'PASSED'}")
-            check(r > 1.0, f"K6: the check passes a broken kernel ({bad})")
+        k6_check(label, q, k, v, causal, off, sms, stats, broken)
 
     print("  K6 against its float64 plain version (rtol 2^-20 float32, 2^-7 "
           "bfloat16; atol (Skv + Dh + 8) * 2^-24 * sum_j p_j |v_j|)")
@@ -1052,40 +1221,10 @@ def phase6_lm(dev, gen, card: str) -> dict:
     del full_logits, longer, kv
     torch.cuda.empty_cache()
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
-    rows = []
-    for label, (q, k, v, off, reps) in (
-            ("prefill", (q0, k0, v0, 0, 5)),
-            ("decode", (qd, ck, cv, mid, 50))):
-        kern = lambda: flash_attention.flash_attention_cuda(  # noqa: E731
-            q, k, v, causal=True, q_offset=off)
-        plain = lambda: ref.flash_attention_ref(  # noqa: E731
-            q, k, v, causal=True, q_offset=off)
-        lib = lambda: sdpa(q, k, v, True, off)  # noqa: E731
-        want = ref.flash_attention_ref(q.double(), k.double(), v.double(),
-                                       causal=True, q_offset=off)
-        _, mag = attention_limit(q, k, v, want, True, off)
-        # its probabilities are rounded to bf16 before the value product
-        _, lib_ratio = limit_ratio(lib(), want, ATTN_RTOL[str(q.dtype)]
-                                   * want.abs() + 2.0**-7 * mag)
-        check(lib_ratio <= 1.0, f"the SDPA yardstick disagrees at {label}")
-        del want, mag
-        splits = 1 if label == "prefill" else dec_splits
-        per_call = 2 if splits > 1 else 1      # route B's split and merge
-        ms, seen = k6_call_ms(flushing(kern, flush), reps, per_call)
-        warm, _ = k6_call_ms(kern, reps, per_call)
-        plain_ms = call_ms(flushing(plain, flush), max(2, reps // 10))
-        lib_ms = call_ms(flushing(lib, flush), reps)
-        bound, by = attention_cost(B, q.shape[1], cfg.n_heads,
-                                   cfg.n_kv_heads, cfg.head_dim, k.shape[1],
-                                   True, off, 2)
-        print(f"  flash_attention {label} B={B} Sq={q.shape[1]} "
-              f"Skv={k.shape[1]} q_offset={off}: kernel {ms * 1e3:10.2f} us "
-              f"({seen} launches in {reps} calls, {splits} split(s); L2 warm "
-              f"{warm * 1e3:10.2f} us)  bound "
-              f"{bound * 1e3:8.2f} us ({by})  plain f32 "
-              f"{plain_ms * 1e3:10.2f} us  sdpa {lib_ms * 1e3:9.2f} us  "
-              f"[{card}]")
-        rows.append((ms, plain_ms, bound, by, lib_ms))
+    rows = [k6_times(label, q, k, v, off, reps, flush, card, sms)
+            for label, (q, k, v, off, reps) in (
+                ("prefill", (q0, k0, v0, 0, 5)),
+                ("decode", (qd, ck, cv, mid, 50)))]
     del flush
     profile_calls(f"gemma-2b prefill B={B} S={S}",
                   lambda: prefill(params, prompt))
@@ -2730,6 +2869,468 @@ def phase12_sharded(web, pokec, small, dev, gen, card: str, psrcs,
     return errs
 
 
+@contextmanager
+def recorded_drops():
+    """While open, every MoE bucketing records its dropped (token, k)
+    entries, a (T, K) bool on the host a call, into the list it yields."""
+    from repro_torch.models import moe
+
+    seen: list = []
+    bucket = moe.bucket
+
+    def recording(gate_i, num_experts, capacity):
+        out = bucket(gate_i, num_experts, capacity)
+        seen.append((out[2] == num_experts * capacity)
+                    .reshape(gate_i.shape).cpu())
+        return out
+
+    moe.bucket = recording
+    try:
+        yield seen
+    finally:
+        moe.bucket = bucket
+
+
+@contextmanager
+def annotated_moe():
+    """While open, each MoE stage of ``models/moe.py`` runs inside a
+    ``record_function`` range named after its part of the split: routing,
+    bucketing and the gather into capacity slots "moe:dispatch", the
+    experts' products "moe:experts", the combine "moe:combine"."""
+    from torch.profiler import record_function
+
+    from repro_torch.models import moe
+
+    saved = {name: getattr(moe, name) for name in MOE_STAGES}
+
+    def annotate(name, fn):
+        def run(*args, **kwargs):
+            with record_function(f"moe:{MOE_STAGES[name]}"):
+                return fn(*args, **kwargs)
+        return run
+
+    for name, fn in saved.items():
+        setattr(moe, name, annotate(name, fn))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(moe, name, fn)
+
+
+def profile_split(label: str, fn) -> None:
+    """Where one call of an LM step spends the card's time, under
+    ``torch.profiler``: K6 by kernel name; the MoE stages by the range
+    (:func:`annotated_moe`) around the op that launched each kernel; other
+    GEMMs by that op (mm, bmm, addmm, matmul, linear); the rest (norms,
+    rotary, embedding, cache writes, elementwise); and the share of the
+    wall time the card was idle."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with annotated_moe(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.events()
+    busy = k6 = 0.0
+    for e in events:
+        if e.device_type == DeviceType.CUDA and \
+                not getattr(e, "is_user_annotation", False):
+            us = e.time_range.elapsed_us()
+            busy += us
+            if any(k in e.name for k in K6_KERNELS):
+                k6 += us
+    split = {"GEMMs": 0.0, "MoE experts": 0.0, "MoE dispatch": 0.0,
+             "MoE combine": 0.0}
+    for e in events:
+        if e.device_type != DeviceType.CPU or not e.kernels:
+            continue
+        chain, up = [], e
+        while up is not None:
+            chain.append(up.name)
+            up = up.cpu_parent
+        us = sum(kern.duration for kern in e.kernels
+                 if not any(k in kern.name for k in K6_KERNELS))
+        stage = next((n[len("moe:"):] for n in chain
+                      if n.startswith("moe:")), None)
+        if stage is not None:
+            split[f"MoE {stage}"] += us
+        elif any(n in GEMM_OPS for n in chain):
+            split["GEMMs"] += us
+    parts = {**split, "K6": k6, "other": busy - k6 - sum(split.values())}
+    print(f"  profile {label}: wall {wall_us / 1e3:.3f} ms, device busy "
+          f"{busy / 1e3:.3f} ms, idle share {1 - busy / wall_us:.3f}; "
+          + ", ".join(f"{name} {us / 1e3:.3f} ms ({us / max(busy, 1e-9):.3f})"
+                      for name, us in parts.items()))
+
+
+def moe_plain64(fp, m, xt, gate_w, gate_i, capacity: int,
+                drop_last: bool = False, keep_all: bool = False):
+    """The MoE feed-forward in float64 on a given routing, written apart
+    from the port's bucketing: an entry is kept where fewer than C earlier
+    entries, in (token, k) order, went to its expert (a running count of
+    one-hot rows); each expert's GLU over its entries; the entries summed
+    with their gate weights; the shared experts added. Returns (y (T, d)
+    float64, dropped (T, K) bool). The broken versions: ``drop_last``
+    drops each token's last expert too, ``keep_all`` keeps the entries
+    past capacity."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models.common import act_fn
+
+    T, K = gate_i.shape
+    flat = gate_i.reshape(-1)
+    rank = F.one_hot(flat, m.num_experts).cumsum(0) \
+        .gather(1, flat[:, None])[:, 0] - 1
+    dropped = (rank >= capacity).reshape(T, K)
+    w = gate_w.double()
+    if not keep_all:
+        w = torch.where(dropped, 0.0, w)
+    if drop_last:
+        w = torch.cat([w[:, :-1], torch.zeros_like(w[:, -1:])], dim=1)
+    w = w.reshape(-1)
+    act = act_fn(m.act)
+    x64 = xt.double()
+    y = torch.zeros_like(x64)
+    for e in range(m.num_experts):
+        entries = torch.nonzero(flat == e)[:, 0]
+        tok = entries // K
+        xe = x64[tok]
+        h = act(xe @ fp["w_gate"][e].double()) * (xe @ fp["w_up"][e].double())
+        y.index_add_(0, tok, (h @ fp["w_down"][e].double())
+                     * w[entries, None])
+    if "shared" in fp:
+        sp = fp["shared"]
+        hs = act(x64 @ sp["w_gate"].double()) * (x64 @ sp["w_up"].double())
+        y += hs @ sp["w_down"].double()
+    return y, dropped
+
+
+def moe_layer0_check(arch_id: str, params, cfg, tokens) -> None:
+    """Layer 0's MoE feed-forward on the prefill's tokens, on the card,
+    against float64: the router's logits, the top-k sets, and y with its
+    drops at the published capacity factor and at MOE_DROP_FACTOR, with
+    the broken versions refused."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import moe, transformer
+    from repro_torch.models.common import rms_norm, rope_frequencies
+
+    B, S = tokens.shape
+    T = B * S
+    m = cfg.moe
+    E, K = m.num_experts, m.top_k
+    p = transformer.layer_params(params, 0)
+    fp = p["ffn"]
+    cos, sin = rope_frequencies(cfg.head_dim, S, cfg.rope_theta,
+                                tokens.device)
+    pos = torch.arange(S, device=tokens.device).expand(B, S)
+    x = transformer._embed(params, cfg, tokens)
+    h, _ = transformer._attention(p["attn"], cfg,
+                                  rms_norm(x, p["ln1"], cfg.norm_eps),
+                                  cos, sin, pos)
+    xt = rms_norm(x + h, p["ln2"], cfg.norm_eps).reshape(T, cfg.d_model)
+    del x, h
+    logits, _, gate_w, gate_i = moe.route(fp, m, xt)
+    l64 = xt.double() @ fp["router"].double()
+    # a dot product rounds relative to sum_j |x_j r_j|, not to its value,
+    # which cancels: rtol 1e-5 of both (float32 sums over d = 2,048 terms
+    # err by ~sqrt(d) 2^-24 = 2.7e-6 of the first)
+    terms = xt.double().abs() @ fp["router"].double().abs()
+    err, ratio = limit_ratio(logits, l64, MOE_LOGIT_RTOL * (l64.abs() + terms))
+    print(f"  {arch_id} MoE layer 0 on T={T} tokens, {E} experts, top {K}: "
+          f"router logits (float32) max_abs_err={err:.3e} against float64, "
+          f"err/limit={ratio:.4f} (rtol {MOE_LOGIT_RTOL} of |logit| + "
+          f"sum|x r|)")
+    check(ratio <= 1.0, f"{arch_id}: router logits off by {err}")
+    top = torch.topk(torch.softmax(l64, dim=-1), K + 1, dim=-1)
+    pk, pk1 = top.values[:, K - 1], top.values[:, K]
+    clear = pk - pk1 > MOE_TOPK_MARGIN * pk
+    same = (torch.sort(gate_i, dim=-1).values
+            == torch.sort(top.indices[:, :K], dim=-1).values).all(dim=-1)
+    n_close, n_differ = int((~clear).sum()), int((~same).sum())
+    n_bad = int((clear & ~same).sum())
+    print(f"  {arch_id} top-{K} sets: {T - n_differ} of {T} tokens equal to "
+          f"float64's; {n_close} tokens with a margin p_k - p_k+1 under "
+          f"{MOE_TOPK_MARGIN} p_k (not held), {n_bad} differing above it")
+    check(n_bad == 0, f"{arch_id}: {n_bad} tokens route to other experts "
+          f"than float64 with a clear margin")
+    del l64, terms, top
+    for factor in (m.capacity_factor, MOE_DROP_FACTOR):
+        mc = dataclasses.replace(m, capacity_factor=factor)
+        C = mc.capacity(T)
+        y, _ = moe.moe_apply(fp, mc, xt.reshape(B, S, -1))
+        y = y.reshape(T, -1)
+        port_dropped = (moe.bucket(gate_i, E, C)[2] == E * C).reshape(T, K)
+        y64, dropped = moe_plain64(fp, mc, xt, gate_w, gate_i, C)
+        check(bool(torch.equal(port_dropped, dropped)),
+              f"{arch_id}: the port drops other entries than the plain "
+              f"version at capacity factor {factor}")
+        # y passes through about K + 9 roundings to bfloat16 (2^-8 of a
+        # value each): the gate and up products, the activation, their
+        # product, the down product, the gate weight, each weighted entry,
+        # the K - 1 adds, the shared path's four and the last add. The
+        # hidden elements' reach y through sums of F products, so y's error
+        # is a sum of many independent roundings, std ~ 2^-8 std(y)
+        # (0.67 of it in a CPU rehearsal at qwen2-moe's widths), and its
+        # largest over T d outputs ~6 std ~ 2^-8 max|y|. The limit leaves
+        # about twice that; a lost expert moves y by its weighted output,
+        # ~0.1-0.2 std(y) an element.
+        limit = 2.0**-8 * (MOE_Y_REL * y64.abs()
+                           + MOE_Y_MAX * float(y64.abs().max()))
+        err, ratio = limit_ratio(y, y64, limit)
+        print(f"  {arch_id} MoE layer 0 y (bf16) at capacity factor {factor}"
+              f" (C={C}): {int(dropped.sum())} of {T * K} (token, k) entries "
+              f"dropped, the same as the plain version's; max_abs_err="
+              f"{err:.3e} max|y|={float(y64.abs().max()):.3e} err/limit="
+              f"{ratio:.4f} {'ok' if ratio <= 1 else 'FAIL'}")
+        check(ratio <= 1.0, f"{arch_id}: MoE y off by {err} (ratio {ratio})")
+        broken = [("each token's last expert dropped",
+                   dict(drop_last=True))]
+        if factor == MOE_DROP_FACTOR:
+            broken.append(("capacity ignored (overflow kept)",
+                           dict(keep_all=True)))
+        for bad, kw in broken:
+            yb, _ = moe_plain64(fp, mc, xt, gate_w, gate_i, C, **kw)
+            _, r = limit_ratio(yb, y64, limit)
+            print(f"  {arch_id} MoE broken: {bad:34s} err/limit={r:.4g} "
+                  f"{'refused' if r > 1 else 'PASSED'}")
+            check(r > 1.0, f"{arch_id}: the MoE check passes a broken "
+                  f"version ({bad})")
+            del yb
+        del y, y64
+
+
+def lm_family_model(arch_id: str, layers, steps: int, dev, gen, card: str,
+                    sms: int, stats: dict) -> int:
+    """One LM of phase 13 on the card: its main path (prefill, then greedy
+    decode through K6), its checks, its times; returns its K6 launches."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import LMArch, get_arch
+    from repro_torch.kernels import flash_attention
+    from repro_torch.models import transformer
+    from repro_torch.models.common import rope_frequencies
+
+    base = get_arch(arch_id)
+    arch = base if layers is None else LMArch(
+        arch_id, dataclasses.replace(base.cfg, n_layers=layers),
+        base.smoke_cfg)
+    cfg = arch.cfg
+    B, S = LM_BATCH, LM_PROMPT
+    Smax = S + LM_CACHE_SLACK
+    depth = (f"depth cut to {layers} of {base.cfg.n_layers} layers ("
+             f"{base.cfg.param_count * 2 / 1e9:.2f} GB of bf16 weights in "
+             f"all)" if layers else "depth as published")
+    print(f"  {arch_id}: cut: prefill_32k B=32 S=32768 -> B={B} S={S}; "
+          f"decode_32k B=128 cache 32768 -> B={B} cache {Smax}, {steps} "
+          f"greedy steps; {depth}; width as published")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = arch.init_params(gen, dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in params.parameters())
+    check(n_params == cfg.param_count,
+          f"{arch_id} has {n_params} parameters, config {cfg.param_count}")
+    ffn = (f"{cfg.moe.num_experts} experts of d_ff {cfg.moe.d_ff_expert}, "
+           f"top {cfg.moe.top_k}, {cfg.moe.num_shared} shared"
+           if cfg.moe else f"d_ff {cfg.d_ff}")
+    print(f"  {arch_id} init: {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.n_heads} query heads on {cfg.n_kv_heads} KV heads, Dh "
+          f"{cfg.head_dim}, {ffn}, vocab {cfg.vocab}, qkv bias "
+          f"{cfg.qkv_bias}, {cfg.dtype}: {n_params} parameters ("
+          f"{cfg.active_param_count} active), {n_params * 2 / 1e9:.2f} GB, "
+          f"{time.perf_counter() - t0:.2f}s")
+    prompt = arch.make_inputs("prefill_32k", gen, dev, batch=B, seq=S)
+    prefill = arch.build_step("prefill_32k")
+    decode = arch.build_step("decode_32k")
+    prefill(params, {"tokens": prompt["tokens"][:, :128]})     # warm up
+    torch.cuda.synchronize()
+
+    # the main path: prefill, then greedy decode against the cache
+    flash_attention.reset_launches()
+    t0 = time.perf_counter()
+    logits, kv = prefill(params, prompt)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    cache = transformer.make_kv_cache(cfg, B, Smax, device=dev)
+    cache[:, :, :, :S] = kv
+    first_token = logits.argmax(-1, keepdim=True).to(torch.int32)
+    token = first_token
+    step_ms, first_logits = [], None
+    for t in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, _ = decode(params, {"token": token, "kv_cache": cache,
+                                "cache_len": S + t})
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if first_logits is None:
+            first_logits = lg
+        token = lg.argmax(-1, keepdim=True).to(torch.int32)
+    main_peak = torch.cuda.max_memory_allocated(dev)
+    launches = flash_attention.LAUNCHES["flash_attention"]
+    routes = {way: flash_attention.LAUNCHES[f"flash_attention_{way}"]
+              for way in ("mma", "split")}
+    want_launches = cfg.n_layers * (1 + steps)
+    want_routes = {"mma": cfg.n_layers, "split": cfg.n_layers * steps}
+    print(f"  {arch_id} prefill B={B} S={S}: {t_prefill:.3f}s, "
+          f"{B * S / t_prefill:.0f} tokens/s; decode {steps} steps: "
+          f"{np.mean(step_ms):.3f} ms a step mean, "
+          f"{np.median(step_ms):.3f} median, {max(step_ms):.3f} max "
+          f"({B / np.mean(step_ms) * 1e3:.0f} tokens/s); K6 launches "
+          f"{launches} (want {want_launches}): route A (mma) "
+          f"{routes['mma']} (want {want_routes['mma']}), route B (split) "
+          f"{routes['split']} (want {want_routes['split']})  [{card}]")
+    for kind, sid, seconds in (("prefill", "prefill_32k", t_prefill),
+                               ("decode step", "decode_32k",
+                                np.median(step_ms) / 1e3)):
+        flops = arch.model_flops(sid, batch=B, seq=S)
+        nbytes = arch.model_bytes(sid, batch=B, seq=S)
+        least = max(flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S)
+        print(f"  {arch_id} {kind} roofline (model_flops/model_bytes at "
+              f"B={B} S={S}, {cfg.n_layers} layers): {flops:.4e} flops, "
+              f"{nbytes:.4e} bytes, least {least * 1e3:.3f} ms against "
+              f"{seconds * 1e3:.3f} ms measured ({least / seconds:.4f} of "
+              f"the roofline)")
+    check(bool(torch.isfinite(logits).all() and torch.isfinite(lg).all()),
+          f"{arch_id}: non-finite logits")
+    check(launches == want_launches,
+          f"{arch_id} launched K6 {launches} times, not {want_launches}")
+    check(routes == want_routes, f"{arch_id}'s K6 routes {routes}, not "
+          f"{want_routes}")
+
+    if cfg.moe or arch_id == LEAD_MODEL:
+        # the path's prefill again, its MoE drops recorded
+        with recorded_drops() as drops:
+            again, kv_again = prefill(params, prompt)
+        if cfg.moe:
+            per_layer = [int(d.sum()) for d in drops]
+            print(f"  {arch_id} prefill at capacity factor "
+                  f"{cfg.moe.capacity_factor} (C="
+                  f"{cfg.moe.capacity(B * S)}): {sum(per_layer)} of "
+                  f"{len(drops) * drops[0].numel()} MoE entries dropped "
+                  f"over {len(drops)} layers, by layer {per_layer}")
+        if arch_id == LEAD_MODEL:
+            same = bool(torch.equal(again, logits)
+                        and torch.equal(kv_again, kv))
+            print(f"  {arch_id} prefill again: logits and cache "
+                  f"{'the same bits' if same else 'DIFFER'}")
+            check(same, f"{arch_id}: a second prefill gave other bits")
+        del again, kv_again
+
+    # decode's logits for token S equal a prefill's over S + 1 tokens. A
+    # capacity-bound MoE drops entries by their place in the batch, and with
+    # random weights the deeper layers send most tokens to a few experts, so
+    # at the published factor the two prefills drop different entries. An
+    # MoE model is held to the identity at capacity factor E / K, where
+    # C >= T (an expert takes at most one entry a token), both prefills
+    # recorded drop-free; its decode step cannot drop either (at most B <=
+    # 8 <= C entries an expert).
+    longer = torch.cat([prompt["tokens"], first_token], dim=1)
+    with recorded_drops() as drops:
+        if cfg.moe:
+            roomy = LMArch(arch_id, dataclasses.replace(
+                cfg, moe=dataclasses.replace(
+                    cfg.moe, capacity_factor=cfg.moe.num_experts
+                    / cfg.moe.top_k)), base.smoke_cfg)
+            _, kv_roomy = roomy.build_step("prefill_32k")(params, prompt)
+            cache_roomy = transformer.make_kv_cache(cfg, B, Smax, device=dev)
+            cache_roomy[:, :, :, :S] = kv_roomy
+            del kv_roomy
+            first_logits, _ = roomy.build_step("decode_32k")(
+                params, {"token": first_token, "kv_cache": cache_roomy,
+                         "cache_len": S})
+            del cache_roomy
+            full_logits, _ = roomy.build_step("prefill_32k")(
+                params, {"tokens": longer})
+        else:
+            full_logits, _ = prefill(params, {"tokens": longer})
+    if cfg.moe:
+        dropped = sum(int(d.sum()) for d in drops)
+        print(f"  {arch_id} decode vs prefill at capacity factor "
+              f"{cfg.moe.num_experts / cfg.moe.top_k:.4g}: {dropped} MoE "
+              f"entries dropped over {len(drops)} layer calls")
+        check(len(drops) == 3 * cfg.n_layers and dropped == 0,
+              f"{arch_id}: {dropped} entries dropped where none may be")
+    scale = float(full_logits.abs().max())
+    diff = float((first_logits - full_logits).abs().max())
+    agree = float((first_logits.argmax(-1) == full_logits.argmax(-1))
+                  .float().mean())
+    print(f"  {arch_id} decode logits at position {S} vs prefill over "
+          f"{S + 1} tokens: max|diff| {diff:.4e} (limit {LM_LOGIT_TOL} * "
+          f"{scale:.4e}), argmax agreement {agree:.2f}")
+    check(diff <= LM_LOGIT_TOL * scale, f"{arch_id}: decode and prefill "
+          f"disagree: {diff} > {LM_LOGIT_TOL} * {scale}")
+    del full_logits, longer, kv
+
+    if cfg.moe:
+        moe_layer0_check(arch_id, params, cfg, prompt["tokens"])
+    if arch_id == LEAD_MODEL:
+        profile_split(f"{arch_id} prefill B={B} S={S}",
+                      lambda: prefill(params, prompt))
+        profile_split(f"{arch_id} decode step B={B} at {S}",
+                      lambda: decode(params, {"token": first_token,
+                                              "kv_cache": cache,
+                                              "cache_len": S}))
+    if arch_id in K6_FAMILY:
+        cos, sin = rope_frequencies(cfg.head_dim, Smax, cfg.rope_theta, dev)
+        pos = torch.arange(S, device=dev).expand(B, S)
+        q0, k0, v0 = layer0_qkv(params, cfg, prompt["tokens"], pos, cos, sin)
+        mid = S + steps // 2
+        qd = layer0_qkv(params, cfg, first_token,
+                        torch.full((B, 1), mid, device=dev), cos, sin)[0]
+        layer0 = cache[0].clone()       # its (B, Smax, H, Dh) views' strides
+    torch.cuda.synchronize()
+    total = torch.cuda.get_device_properties(dev).total_memory
+    print(f"  {arch_id} peak device memory (torch.cuda.max_memory_allocated)"
+          f": {main_peak / 1e9:.2f} GB through the main path, "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB with the "
+          f"checks, of {total / 1e9:.2f} GB")
+    del params, cache, logits, lg, first_logits, prompt
+    torch.cuda.empty_cache()
+    if arch_id in K6_FAMILY:
+        ck, cv = layer0[0], layer0[1]
+        k6_check(f"{arch_id} prefill layer 0 B={B} S={S} bf16", q0, k0, v0,
+                 True, 0, sms, stats)
+        k6_check(f"{arch_id} decode q_offset={mid} cache {Smax}", qd, ck,
+                 cv, True, mid, sms, stats)
+        k6_event_times(f"{arch_id} prefill", q0, k0, v0, 0, 20, card, sms)
+        k6_event_times(f"{arch_id} decode", qd, ck, cv, mid, 200, card, sms)
+        del q0, k0, v0, qd, layer0, ck, cv
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase13_family(dev, gen, card: str) -> tuple[int, float]:
+    """The LM family beyond gemma-2b on the card; returns (K6 launches on
+    the paths, K6's largest error against float64 in the checks)."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    print(f"phase 13: the MoE and dense LMs through K6 and the MoE "
+          f"feed-forward, card {card}")
+    stats = {"max_abs_err": 0.0}
+    launches = 0
+    for arch_id, layers, steps in LM_FAMILY:
+        t0 = time.perf_counter()
+        launches += lm_family_model(arch_id, layers, steps, dev, gen, card,
+                                    sms, stats)
+        print(f"  {arch_id} wall {time.perf_counter() - t0:.1f}s")
+    return launches, stats["max_abs_err"]
+
+
 def main() -> int:
     # the port must not need JAX or the JAX package
     sys.modules["jax"] = None
@@ -3664,6 +4265,13 @@ def main() -> int:
     for name, err in phase12_sharded(web, pokec, small, dev, gen, card,
                                      psrcs, pexact).items():
         stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
+    del web, pokec, pokec_dg, small
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    family_launches, family_err = phase13_family(dev, gen, card)
+    k6["launches"] += family_launches
+    k6["max_abs_err"] = max(k6["max_abs_err"], family_err)
+    print(f"  phase 13 wall {time.perf_counter() - t0:.1f}s")
 
     summary = []
     for name, (ms, plain_ms, bound, by, lib_ms) in (

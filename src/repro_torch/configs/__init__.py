@@ -1,24 +1,30 @@
 """Architecture registry of the port: ``get_arch(<id>)``.
 
-Holds the architectures ported so far, gemma-2b and DIN, for their serving
-kinds. The JAX package's other architectures (the other LMs, the GNNs, the
-PPR workload's arch entry) come with later slices, and asking for one
-raises a ``KeyError`` that says so.
+Holds the architectures ported so far for their serving kinds: the five
+LMs (two of them mixture-of-experts) and DIN. The JAX package's other
+architectures (the GNNs, the PPR workload's arch entry) come with later
+slices, and asking for one raises a ``KeyError`` that says so.
 """
 
 from __future__ import annotations
 
-from . import din_arch, gemma_2b
+from . import (din_arch, gemma_2b, moonshot_v1_16b_a3b, qwen1_5_32b,
+               qwen2_moe_a2_7b, stablelm_1_6b)
 from .base import DIN_SHAPES, LM_SHAPES, ArchDef, DINArch, LMArch
 
 REGISTRY: dict[str, ArchDef] = {
-    a.arch_id: a for a in [gemma_2b.ARCH, din_arch.ARCH]
+    a.arch_id: a for a in [
+        moonshot_v1_16b_a3b.ARCH,
+        qwen2_moe_a2_7b.ARCH,
+        stablelm_1_6b.ARCH,
+        qwen1_5_32b.ARCH,
+        gemma_2b.ARCH,
+        din_arch.ARCH,
+    ]
 }
 
 # the JAX package's other arch ids, ported in later slices
-LATER = ("moonshot-v1-16b-a3b", "qwen2-moe-a2.7b", "stablelm-1.6b",
-         "qwen1.5-32b", "pna", "gcn-cora", "graphcast", "dimenet",
-         "ppr-fora")
+LATER = ("pna", "gcn-cora", "graphcast", "dimenet", "ppr-fora")
 
 
 def get_arch(arch_id: str) -> ArchDef:

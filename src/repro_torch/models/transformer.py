@@ -3,8 +3,9 @@
 One implementation spans the dense architectures of the JAX package: GQA
 and MQA (``n_kv_heads``), an explicit head dim (gemma-2b's 256 is not
 d_model / n_heads), GLU feed-forwards (GeGLU, SwiGLU), QKV bias, tied
-embeddings, RoPE and RMSNorm. A mixture-of-experts feed-forward is not
-ported yet.
+embeddings, RoPE and RMSNorm, and a mixture-of-experts feed-forward
+(``models/moe.py``: moonshot and qwen2-moe, routed top-k experts beside
+shared ones).
 
 Parameters are a :class:`DecoderLM`, an ``nn.Module`` on one device whose
 tree of frozen parameters is keyed as the JAX package's pytree: every leaf
@@ -22,14 +23,14 @@ Entry points, inference only:
 
 Attention goes through ``kernels.ops.flash_attention`` (K6 on the card) at
 the two places where the JAX model calls ``flash_attention_jnp``. The
-projections, the feed-forward and the unembedding are plain products.
+projections, the feed-forward (dense, or the experts' batched products of
+``models/moe.py``) and the unembedding are plain products.
 """
 
 from __future__ import annotations
 
 from collections.abc import Mapping
 from dataclasses import dataclass
-from typing import Any
 
 import numpy as np
 import torch
@@ -38,9 +39,10 @@ from .._device import resolve_device
 from ..kernels import ops
 from .common import (ParamTree, act_fn, apply_rope, dense_init, embed_init,
                      rms_norm, rope_at, rope_frequencies, tensor_from_numpy)
+from .moe import MoEConfig, moe_apply, moe_init
 
-_LATER = ("the mixture-of-experts feed-forward is not ported yet (a later "
-          "slice of the port)")
+# leaves kept in float32 whatever the model's dtype: the MoE router
+_FLOAT32_LEAVES = ("router",)
 
 
 @dataclass(frozen=True)
@@ -58,7 +60,7 @@ class LMConfig:
     tie_embeddings: bool = False
     rope_theta: float = 10_000.0
     norm_eps: float = 1e-6
-    moe: Any | None = None             # not ported: raises where used
+    moe: MoEConfig | None = None
     dtype: str = "bfloat16"
 
     @property
@@ -66,24 +68,44 @@ class LMConfig:
         return self.d_head if self.d_head is not None \
             else self.d_model // self.n_heads
 
-    @property
-    def param_count(self) -> int:
-        if self.moe is not None:
-            raise NotImplementedError(_LATER)
+    def _attn_params(self) -> int:
         dh, H, Hkv = self.head_dim, self.n_heads, self.n_kv_heads
         attn = self.d_model * dh * (H + 2 * Hkv) + H * dh * self.d_model
         if self.qkv_bias:
             attn += dh * (H + 2 * Hkv)
-        per_layer = attn + 3 * self.d_model * self.d_ff + 2 * self.d_model
+        return attn
+
+    def _total(self, ffn: int) -> int:
+        per_layer = self._attn_params() + ffn + 2 * self.d_model
         emb = self.vocab * self.d_model * (1 if self.tie_embeddings else 2)
         return self.n_layers * per_layer + emb + self.d_model
 
     @property
+    def param_count(self) -> int:
+        if self.moe is None:
+            return self._total(3 * self.d_model * self.d_ff)
+        m = self.moe
+        return self._total(m.num_experts * 3 * self.d_model * m.d_ff_expert
+                           + self.d_model * m.num_experts
+                           + 3 * self.d_model * m.shared_ff * m.num_shared)
+
+    @property
+    def active_param_count(self) -> int:
+        """Parameters a token touches (MoE: its top_k experts, the router
+        and the shared experts)."""
+        if self.moe is None:
+            return self.param_count
+        m = self.moe
+        return self._total(m.top_k * 3 * self.d_model * m.d_ff_expert
+                           + self.d_model * m.num_experts
+                           + 3 * self.d_model * m.shared_ff * m.num_shared)
+
+    @property
     def flops_param_count(self) -> int:
-        """Parameters a token's products visit: all but the input
+        """Active parameters a token's products visit: all but the input
         embedding's gather, the unembedding counted once (tied or not)."""
         untied = 0 if self.tie_embeddings else self.vocab * self.d_model
-        return self.param_count - untied
+        return self.active_param_count - untied
 
     def torch_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
@@ -95,13 +117,13 @@ class LMConfig:
 
 class DecoderLM(ParamTree):
     """The LM's parameters on one device: ``embed`` (V, d), ``layers``
-    (attn: wq, wk, wv, wo [, bq, bk, bv]; ffn: w_gate, w_up, w_down; ln1,
-    ln2; each stacked over (L,)), ``final_norm`` and, untied, ``lm_head``.
+    (attn: wq, wk, wv, wo [, bq, bk, bv]; ffn: w_gate, w_up, w_down, or
+    with MoE ``moe.moe_init``'s tree [router, w_gate, w_up, w_down, shared];
+    ln1, ln2; each stacked over (L,)), ``final_norm`` and, untied,
+    ``lm_head``.
     """
 
     def __init__(self, cfg: LMConfig, tree: Mapping):
-        if cfg.moe is not None:
-            raise NotImplementedError(_LATER)
         want = {"embed", "layers", "final_norm"} | (
             set() if cfg.tie_embeddings else {"lm_head"})
         if set(tree) != want:
@@ -118,14 +140,18 @@ def params_from_numpy(tree: Mapping, cfg: LMConfig,
                       device: str | torch.device = "cuda") -> DecoderLM:
     """``repro.models.transformer.init``'s pytree as numpy arrays (nested
     dicts; bfloat16 leaves as ``ml_dtypes`` arrays) -> a :class:`DecoderLM`
-    in ``cfg``'s dtype on ``device``, bit for bit. The layouts are the
-    same, so nothing is transposed."""
+    in ``cfg``'s dtype on ``device``, bit for bit; the MoE router stays in
+    float32, as the JAX package keeps it (in the model's dtype it would
+    route bf16 models differently). The layouts are the same, so nothing
+    is transposed."""
     dev = resolve_device(device)
     dt = cfg.torch_dtype()
 
     def load(t: Mapping) -> dict:
         return {k: load(v) if isinstance(v, Mapping)
-                else tensor_from_numpy(v, dev, dt) for k, v in t.items()}
+                else tensor_from_numpy(
+                    v, dev, torch.float32 if k in _FLOAT32_LEAVES else dt)
+                for k, v in t.items()}
 
     return DecoderLM(cfg, load(tree))
 
@@ -135,8 +161,6 @@ def init(cfg: LMConfig, generator: torch.Generator,
     """Random parameters for ``cfg``: the JAX package's initialisers (not
     its values: the generators differ), drawn from ``generator`` layer by
     layer and stacked over (L,)."""
-    if cfg.moe is not None:
-        raise NotImplementedError(_LATER)
     dev = resolve_device(device)
     dt = cfg.torch_dtype()
     dh, H, Hkv, d = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads, cfg.d_model
@@ -155,8 +179,12 @@ def init(cfg: LMConfig, generator: torch.Generator,
         for key, width in (("bq", H * dh), ("bk", Hkv * dh),
                            ("bv", Hkv * dh)):
             attn[key] = torch.zeros((L, width), dtype=dt, device=dev)
-    ffn = {"w_gate": stacked(d, cfg.d_ff), "w_up": stacked(d, cfg.d_ff),
-           "w_down": stacked(cfg.d_ff, d)}
+    if cfg.moe is None:
+        ffn = {"w_gate": stacked(d, cfg.d_ff), "w_up": stacked(d, cfg.d_ff),
+               "w_down": stacked(cfg.d_ff, d)}
+    else:
+        ffn = _stack_layers(L, lambda: moe_init(generator, d, cfg.moe, dt,
+                                                dev))
     params["layers"] = {"attn": attn, "ffn": ffn,
                         "ln1": torch.ones((L, d), dtype=dt, device=dev),
                         "ln2": torch.ones((L, d), dtype=dt, device=dev)}
@@ -164,6 +192,28 @@ def init(cfg: LMConfig, generator: torch.Generator,
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(generator, d, cfg.vocab, dt, dev)
     return DecoderLM(cfg, params)
+
+
+def _stack_layers(L: int, make) -> dict:
+    """Trees ``make()`` for L layers, stacked leaf by leaf over (L,): each
+    layer's tree is copied in as it is drawn, so that no more than the
+    stack and a layer or two live at once."""
+    def empty(t: Mapping) -> dict:
+        return {k: empty(v) if isinstance(v, Mapping) else
+                v.new_empty((L, *v.shape)) for k, v in t.items()}
+
+    def put(out: Mapping, t: Mapping, i: int) -> None:
+        for k, v in t.items():
+            if isinstance(v, Mapping):
+                put(out[k], v, i)
+            else:
+                out[k][i] = v
+
+    tree = make()
+    out = empty(tree)
+    for i in range(L):
+        put(out, tree if i == 0 else make(), i)
+    return out
 
 
 def layer_params(params: DecoderLM, i: int) -> dict:
@@ -214,14 +264,15 @@ def _layer(p: dict, cfg: LMConfig, x: torch.Tensor, cos: torch.Tensor,
            sin: torch.Tensor, positions: torch.Tensor,
            kv_cache: torch.Tensor | None = None,
            cache_len: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
-    if cfg.moe is not None:
-        raise NotImplementedError(_LATER)
     h, cache = _attention(p["attn"], cfg, rms_norm(x, p["ln1"], cfg.norm_eps),
                           cos, sin, positions, kv_cache=kv_cache,
                           cache_len=cache_len)
     x = x + h
     y = rms_norm(x, p["ln2"], cfg.norm_eps)
     fp = p["ffn"]
+    if cfg.moe is not None:
+        # the aux loss is training's: serving drops it
+        return x + moe_apply(fp, cfg.moe, y)[0], cache
     hh = act_fn(cfg.act)(y @ fp["w_gate"]) * (y @ fp["w_up"])
     return x + hh @ fp["w_down"], cache
 

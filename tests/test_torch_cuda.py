@@ -1,8 +1,9 @@
 """The port's CUDA kernels on a card: each against its plain version, the
 fused query on the card against the same query on the CPU, with and
 without the walk index, exact PPR through K4 against the COO loop, the
-model serving paths (K5, K6) on the card against the same paths on the
-CPU, the live endpoint fold, the continuous-batching engine, Monte Carlo
+model serving paths (K5, K6; the five LMs, two of them mixture-of-experts,
+and DIN) on the card against the same paths on the CPU, the MoE
+feed-forward (no host sync, bits repeating), the live endpoint fold, the continuous-batching engine, Monte Carlo
 PPR, a dynamic graph's residency on the card, and the node-sharded
 residency's kernels and queries on one card. Every test
 here needs an NVIDIA card and ``nvcc`` and skips without them; this file
@@ -23,6 +24,7 @@ from repro_torch.index import WalkIndex
 from repro_torch.dyn import DynamicGraph, MutationLog
 from repro_torch.kernels import (embedding_bag, ell_spmv, endpoint_fold,
                                  flash_attention, ops, ref, walk_gather)
+from repro_torch.models import moe
 from repro_torch.ppr import (DeviceMesh, ForaExecutor, ForaParams,
                              LaneStreams, PprWorkload, ShardedDeviceGraph,
                              TableDraws, fora_fused, load,
@@ -652,7 +654,9 @@ def test_cuda_tensors_reach_the_kernels(card, monkeypatch):
     assert embedding_bag.LAUNCHES["embedding_bag"] == 1
 
 
-@pytest.mark.parametrize("arch_id", ["gemma-2b", "din"])
+@pytest.mark.parametrize("arch_id", ["gemma-2b", "qwen2-moe-a2.7b",
+                                     "moonshot-v1-16b-a3b", "stablelm-1.6b",
+                                     "qwen1.5-32b", "din"])
 def test_infer_run_on_card_matches_cpu(card, arch_id):
     """The smoke configuration's serving steps on the card, through K5 or
     K6, against the same steps on the CPU from the same seeded draws."""
@@ -667,6 +671,41 @@ def test_infer_run_on_card_matches_cpu(card, arch_id):
     assert on_card.keys() == on_cpu.keys()
     for key, value in on_card.items():
         assert value == pytest.approx(on_cpu[key], rel=1e-4, abs=1e-5), key
+
+
+@pytest.mark.parametrize("B,S", [(4, 96), (4, 1)])      # prefill, decode
+@pytest.mark.parametrize("capacity_factor", [1.25, 0.3])
+def test_moe_apply_on_card_matches_cpu_repeats_and_never_syncs(
+        card, B, S, capacity_factor, monkeypatch):
+    """``moe_apply`` on the card, in float32 at a small width, against the
+    port's CPU ``moe_apply`` on the same parameters (the same top-k ids,
+    y within rtol 1e-5 + 1e-5 max|y|); a second call gives the same bits,
+    and neither syncs with the host (``set_sync_debug_mode("error")``
+    raises on a sync)."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = moe.MoEConfig(num_experts=8, top_k=2, d_ff_expert=64,
+                        num_shared=1, capacity_factor=capacity_factor)
+    cpu = moe.moe_init(torch.Generator().manual_seed(0), 64, cfg,
+                       device="cpu")
+    on_card = {k: v.to(card) if isinstance(v, torch.Tensor)
+               else {kk: vv.to(card) for kk, vv in v.items()}
+               for k, v in cpu.items()}
+    x = torch.randn((B, S, 64), generator=torch.Generator().manual_seed(1))
+    want_y, want_aux = moe.moe_apply(cpu, cfg, x)
+    xc = x.to(card)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y, aux = moe.moe_apply(on_card, cfg, xc)
+        again, aux_again = moe.moe_apply(on_card, cfg, xc)
+        gate_i = moe.route(on_card, cfg, xc.reshape(B * S, 64))[3]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(y, again) and torch.equal(aux, aux_again)
+    assert torch.equal(gate_i.cpu(), moe.route(cpu, cfg, x.reshape(-1, 64))[3])
+    np.testing.assert_allclose(y.cpu().numpy(), want_y.numpy(), rtol=1e-5,
+                               atol=1e-5 * float(want_y.abs().max()))
+    assert float(aux) == pytest.approx(float(want_aux), rel=1e-5)
 
 
 @pytest.mark.parametrize("B,W,n", [(1, 1, 5), (3, 9000, 2000),

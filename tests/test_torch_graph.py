@@ -186,6 +186,7 @@ def test_import_without_jax_loads_no_repro():
             "import repro_torch.kernels._build, repro_torch.kernels.ell_spmv\n"
             "import repro_torch.index, repro_torch.kernels.walk_gather\n"
             "import repro_torch.models, repro_torch.configs\n"
+            "import repro_torch.models.moe\n"
             "import repro_torch.kernels.flash_attention\n"
             "import repro_torch.kernels.embedding_bag\n"
             "import repro_torch.core.allocator, repro_torch.ft.elastic\n"

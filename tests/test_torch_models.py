@@ -1,7 +1,9 @@
 """Port parity of the decoder LM's serving path against the JAX package:
-``prefill_step``/``decode_step`` on gemma-2b's smoke config (MQA, Dh 32,
-tied embeddings, GeGLU) and on a small MHA config with QKV bias and an
-untied head, with the JAX parameters carried across by
+``prefill_step``/``decode_step`` on the five LMs' smoke configs (gemma-2b:
+MQA, Dh 32, tied embeddings, GeGLU; qwen2-moe and moonshot: MoE with
+shared experts; stablelm: MHA, Dh 8; qwen1.5-32b: MHA with QKV bias) and
+on a small MHA config with QKV bias and an untied head, with the JAX
+parameters carried across by
 ``transformer.params_from_numpy``; the shared blocks of ``models/common``;
 then the port's own ``build_step``/``make_inputs``/``infer_run`` and
 ``model_flops``/``model_bytes`` for every serving shape, and the port's
@@ -26,9 +28,15 @@ import torch
 from repro.configs import base as jbase
 from repro.configs import get_arch as j_get_arch
 from repro.configs import gemma_2b as j_gemma
+from repro.configs import moonshot_v1_16b_a3b as j_moonshot
+from repro.configs import qwen1_5_32b as j_qwen32b
+from repro.configs import qwen2_moe_a2_7b as j_qwen2_moe
+from repro.configs import stablelm_1_6b as j_stablelm
 from repro.models import common as jcommon
 from repro.models import transformer as jt
-from repro_torch.configs import DIN_SHAPES, LM_SHAPES, gemma_2b, get_arch
+from repro_torch.configs import (DIN_SHAPES, LM_SHAPES, gemma_2b, get_arch,
+                                 moonshot_v1_16b_a3b, qwen1_5_32b,
+                                 qwen2_moe_a2_7b, stablelm_1_6b)
 from repro_torch.kernels import flash_attention
 from repro_torch.models import common as tcommon
 from repro_torch.models import transformer as tt
@@ -38,7 +46,17 @@ _TINY = dict(name="tiny", n_layers=2, d_model=64, n_heads=4, n_kv_heads=4,
              d_ff=96, vocab=256, act="silu", qkv_bias=True,
              tie_embeddings=False, dtype="float32")
 LM_CONFIGS = {"gemma": (j_gemma.SMOKE, gemma_2b.SMOKE),
+              "qwen2_moe": (j_qwen2_moe.SMOKE, qwen2_moe_a2_7b.SMOKE),
+              "moonshot": (j_moonshot.SMOKE, moonshot_v1_16b_a3b.SMOKE),
+              "stablelm": (j_stablelm.SMOKE, stablelm_1_6b.SMOKE),
+              "qwen32b": (j_qwen32b.SMOKE, qwen1_5_32b.SMOKE),
               "tiny_mha": (jt.LMConfig(**_TINY), tt.LMConfig(**_TINY))}
+LM_IDS = ("gemma-2b", "qwen2-moe-a2.7b", "moonshot-v1-16b-a3b",
+          "stablelm-1.6b", "qwen1.5-32b")
+# the JAX package's config modules, by arch id
+J_CONFIGS = {"gemma-2b": j_gemma, "qwen2-moe-a2.7b": j_qwen2_moe,
+             "moonshot-v1-16b-a3b": j_moonshot, "stablelm-1.6b": j_stablelm,
+             "qwen1.5-32b": j_qwen32b}
 KEY = jax.random.PRNGKey(0)
 
 
@@ -91,8 +109,9 @@ def test_lm_prefill_and_decode_match_jax(name):
         _close(tc, jc, 1e-4, 1e-5)
 
 
-def test_lm_bfloat16_matches_jax():
-    jcfg, tcfg, jp, tp = _lm_pair("gemma", "bfloat16")
+@pytest.mark.parametrize("name", sorted(set(LM_CONFIGS) - {"tiny_mha"}))
+def test_lm_bfloat16_matches_jax(name):
+    jcfg, tcfg, jp, tp = _lm_pair(name, "bfloat16")
     toks = np.random.default_rng(2).integers(0, jcfg.vocab,
                                              (2, 16)).astype(np.int32)
     jl, jkv = jt.prefill_step(jp, jcfg, jnp.asarray(toks))
@@ -110,22 +129,27 @@ def test_lm_bfloat16_matches_jax():
     _close(td, jd, 2e-2, 2e-2)
 
 
-def test_params_from_numpy_carries_bfloat16_bits_and_the_tree():
+@pytest.mark.parametrize("model", ["gemma", "qwen2_moe"])
+def test_params_from_numpy_carries_bfloat16_bits_and_the_tree(model):
     a = np.asarray(jax.random.normal(KEY, (5, 7), jnp.bfloat16))
     t = tcommon.tensor_from_numpy(a, "cpu")
     assert t.dtype == torch.bfloat16
     np.testing.assert_array_equal(t.view(torch.int16).numpy(),
                                   a.view(np.int16))
-    jcfg, tcfg, jp, tp = _lm_pair("gemma", "bfloat16")
+    jcfg, tcfg, jp, tp = _lm_pair(model, "bfloat16")
     assert isinstance(tp, torch.nn.Module) and tp.cfg == tcfg
     jflat = jax.tree_util.tree_flatten_with_path(jp)[0]
     named = dict(tp.named_parameters())
     assert len(named) == len(jflat)
     for path, leaf in jflat:
         name = ".".join(k.key for k in path)
+        leaf = np.asarray(leaf)
+        # the MoE router stays float32 in a bfloat16 model
+        assert str(named[name].dtype) == f"torch.{leaf.dtype}", name
+        bits = np.int16 if leaf.dtype.name == "bfloat16" else np.int32
         np.testing.assert_array_equal(
-            named[name].view(torch.int16).numpy(),
-            np.asarray(leaf).view(np.int16))
+            named[name].view(getattr(torch, bits.__name__)).numpy(),
+            leaf.view(bits))
     with pytest.raises(ValueError, match="stacked layers"):
         tt.params_from_numpy(jax.tree.map(np.asarray, jp),
                              dataclasses.replace(tcfg, n_layers=3), "cpu")
@@ -175,12 +199,26 @@ def test_init_matches_jax_shapes_and_param_count():
         assert tcfg.flops_param_count == jcfg.flops_param_count
     assert gemma_2b.CONFIG.param_count == j_gemma.CONFIG.param_count \
         == 2_506_172_416
+    bf16 = dataclasses.replace(qwen2_moe_a2_7b.SMOKE, dtype="bfloat16")
+    tp = tt.init(bf16, torch.Generator().manual_seed(0), "cpu")
+    assert tp["layers"]["ffn"]["router"].dtype == torch.float32
+    assert tp["layers"]["ffn"]["w_up"].dtype == torch.bfloat16
 
 
-def test_moe_raises_naming_the_later_slice():
-    cfg = dataclasses.replace(gemma_2b.SMOKE, moe=object())
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tt.init(cfg, torch.Generator(), "cpu")
+@pytest.mark.parametrize("arch_id", LM_IDS)
+@pytest.mark.parametrize("which", ["CONFIG", "SMOKE"])
+def test_configs_and_parameter_counts_match_jax(arch_id, which):
+    """Each LM config equals the JAX one field for field, and the port
+    counts its parameters, its active parameters (MoE: a token's top k and
+    shared experts) and its products' parameters as the JAX package
+    does."""
+    jcfg = getattr(J_CONFIGS[arch_id], which)
+    tcfg = get_arch(arch_id).config(smoke=which == "SMOKE")
+    assert dataclasses.asdict(tcfg) == {
+        k: v for k, v in dataclasses.asdict(jcfg).items()
+        if k in {f.name for f in dataclasses.fields(tcfg)}}
+    for count in ("param_count", "active_param_count", "flops_param_count"):
+        assert getattr(tcfg, count) == getattr(jcfg, count), count
 
 
 # ---------------------------------------------------------------------------
@@ -262,8 +300,8 @@ def test_common_blocks_match_jax():
 # arch registry: build_step / make_inputs / infer_run / model_flops
 
 
-SERVING = [(a, s) for a, shapes in (("gemma-2b", LM_SHAPES),
-                                    ("din", DIN_SHAPES))
+SERVING = [(a, s) for a, shapes in [*((a, LM_SHAPES) for a in LM_IDS),
+                                    ("din", DIN_SHAPES)]
            for s in shapes if shapes[s]["kind"] != "train"]
 CUTS = {"prefill": dict(batch=2, seq=12), "decode": dict(batch=2, seq=12),
         "serve": dict(batch=8), "retrieval": dict(candidates=100)}
@@ -307,13 +345,13 @@ def test_model_flops_and_bytes_match_jax(arch_id, shape_id, monkeypatch):
     assert ours.model_flops(shape_id) == theirs.model_flops(shape_id)
     assert ours.model_bytes(shape_id) == theirs.model_bytes(shape_id)
     cut = CUTS[ours.kind(shape_id)]
-    table = jbase.LM_SHAPES if arch_id == "gemma-2b" else jbase.DIN_SHAPES
+    table = jbase.LM_SHAPES if arch_id in LM_IDS else jbase.DIN_SHAPES
     monkeypatch.setitem(table, shape_id, {**table[shape_id], **cut})
     assert ours.model_flops(shape_id, **cut) == theirs.model_flops(shape_id)
     assert ours.model_bytes(shape_id, **cut) == theirs.model_bytes(shape_id)
 
 
-@pytest.mark.parametrize("arch_id", ["gemma-2b", "din"])
+@pytest.mark.parametrize("arch_id", [*LM_IDS, "din"])
 def test_infer_run_smoke(arch_id):
     out = get_arch(arch_id).infer_run(torch.Generator().manual_seed(0),
                                       "cpu")
@@ -328,9 +366,9 @@ def test_unported_kinds_and_archs_raise():
     with pytest.raises(NotImplementedError, match="later slice"):
         get_arch("gemma-2b").model_flops("train_4k")
     with pytest.raises(KeyError, match="later slice"):
-        get_arch("qwen1.5-32b")
+        get_arch("pna")
     with pytest.raises(KeyError, match="later slice"):
-        get_arch("stablelm-1.6b")
+        get_arch("gcn-cora")
     with pytest.raises(KeyError, match="unknown arch"):
         get_arch("no-such-arch")
     with pytest.raises(ValueError, match="cannot cut"):
