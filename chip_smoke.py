@@ -197,7 +197,31 @@ drives the port's main path, in phases:
    beside ``model_flops``/``model_bytes``' least time, peak device
    memory, a profile of a qwen2-moe prefill and decode step split into
    GEMMs, the experts, K6, the MoE dispatch and combine, and idle share,
-   and K6's times at the new shapes beside its bound and SDPA.
+   and K6's times at the new shapes beside its bound and SDPA;
+14. the GNN family forward at published widths, float32 (TF32 off), on 13
+   cells through ``get_arch(id).forward_step`` on ``make_inputs``: GCN on
+   full_graph_sm, minibatch_lg, ogb_products and molecule; PNA, GraphCast
+   (16 blocks, d 512) and DimeNet (6 blocks, d 128) on the three cells
+   other than ogb_products (which they do not fit as written).
+   minibatch_lg samples the full-size web-stanford stand-in (batch 1,024,
+   fanout 15-10, padded to 180,224 nodes and 179,200 edges). Each cell
+   must give a finite output and loss of the right shapes, the same bits
+   from a second forward, and the segment_reduce launches of the model's
+   structure. ``csrc/segment_reduce.cu`` is held against its float64
+   plain version at four real layer-0 aggregations (GCN's on
+   ogb_products, PNA's four aggregators and GraphCast's on minibatch_lg,
+   DimeNet's triplet sum on molecule): a sum within deg 2^-24 sum|v| +
+   1e-30 a cell, max and min equal, bits repeating; the limit must refuse
+   a version that drops each segment's last edge and one that reads each
+   segment's end one edge late. Each smoke configuration runs on the card
+   and on the CPU within the CPU parity tolerance. Printed: ms a forward
+   by CUDA events beside ``forward_flops``/``forward_bytes``' least time,
+   peak memory, profiles of GCN on ogb_products and GraphCast on
+   minibatch_lg split into the plans, GEMMs, gathers, segment_reduce and
+   the rest with the idle share (not gated), and the kernel's device time
+   at the four aggregations (queued behind a sleep kernel, CUDA events)
+   beside its bound, its plain version and ``index_add_``,
+   ``scatter_reduce`` (amax) and ``torch.segment_reduce``.
 
 The launch counts of each path are zeroed just before it and read just
 after. Any failed phase exits non-zero; without a card, or without the
@@ -304,7 +328,9 @@ REPLACES = {"ell_spmm": "src/repro/kernels/ell_spmv.py:141",
             "flash_attention": "src/repro/kernels/flash_attention.py:83",
             "embedding_bag": "src/repro/kernels/embedding_bag.py:40",
             # XLA's segment_sum of the live walks, not a Pallas kernel
-            "endpoint_fold": "src/repro/ppr/random_walk.py:213"}
+            "endpoint_fold": "src/repro/ppr/random_walk.py:213",
+            # XLA's segment_sum/max/min of the GNNs, not a Pallas kernel
+            "segment_reduce": "src/repro/models/gnn/common.py:44"}
 SOURCES = {"ell_spmm": "src/repro_torch/kernels/csrc/ell_spmm.cu",
            "ell_spmm_sliced":
                "src/repro_torch/kernels/csrc/ell_spmm_sliced.cu",
@@ -314,9 +340,35 @@ SOURCES = {"ell_spmm": "src/repro_torch/kernels/csrc/ell_spmm.cu",
            "flash_attention":
                "src/repro_torch/kernels/csrc/flash_attention.cu",
            "embedding_bag": "src/repro_torch/kernels/csrc/embedding_bag.cu",
-           "endpoint_fold": "src/repro_torch/kernels/csrc/endpoint_fold.cu"}
+           "endpoint_fold": "src/repro_torch/kernels/csrc/endpoint_fold.cu",
+           "segment_reduce":
+               "src/repro_torch/kernels/csrc/segment_reduce.cu"}
 # every TPU kernel of the JAX package has its counterpart
 NOT_PORTED: list[dict] = []
+# phase 14: the GNN family (configs/gcn_cora.py, pna_arch.py,
+# graphcast_arch.py, dimenet_arch.py) at full width; ogb_products runs
+# GCN alone (the other three do not fit one card as written)
+GNN_CELLS = (("gcn-cora", ("full_graph_sm", "minibatch_lg", "ogb_products",
+                           "molecule")),
+             ("pna", ("full_graph_sm", "minibatch_lg", "molecule")),
+             ("graphcast", ("full_graph_sm", "minibatch_lg", "molecule")),
+             ("dimenet", ("full_graph_sm", "minibatch_lg", "molecule")))
+# the layer-0 aggregations held against float64 plain and timed: the
+# first n segment_reduce calls of the cell's forward
+GNN_CHECKS = {("gcn-cora", "ogb_products"): 1, ("pna", "minibatch_lg"): 4,
+              ("graphcast", "minibatch_lg"): 1, ("dimenet", "molecule"): 1}
+GNN_PROFILES = {("gcn-cora", "ogb_products"), ("graphcast", "minibatch_lg")}
+GNN_REPS = {("gcn-cora", "ogb_products"): 5, ("graphcast", "minibatch_lg"): 3,
+            ("dimenet", "minibatch_lg"): 3}
+GNN_REPS_DEFAULT = 10
+# the CPU parity tests' tolerances (tests/test_torch_gnn.py)
+GNN_RTOL = {"gcn-cora": 1e-5, "pna": 1e-4, "graphcast": 1e-4,
+            "dimenet": 1e-4}
+F32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+SEGMENT_KERNELS = ("segment_rows", "segment_pieces")
+GATHER_OPS = ("aten::index_select", "aten::index", "aten::gather")
+SEGMENT_REPS = 20
+QUEUE_CYCLES_PER_CALL = 200_000   # a sleep that outlasts the host's queueing
 # phase 11: the serving daemon on the paper path (launch/serve.py)
 TUNE_PAD_MULTIPLES = (8, 16, 32)
 TUNE_B = 8
@@ -3331,6 +3383,408 @@ def phase13_family(dev, gen, card: str) -> tuple[int, float]:
     return launches, stats["max_abs_err"]
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the GNN family
+
+
+def gnn_segment_launches(arch_id: str, cfg) -> int:
+    """segment_reduce calls of one forward, from the model's structure:
+    GCN one a layer (its degrees are the plans' counts), PNA four a layer
+    (mean, mean of squares, max, min; the counts again from the plan),
+    GraphCast one a processor block, DimeNet one a block (the triplet sum)
+    and two more (the node sum, the graph sum)."""
+    return {"gcn-cora": lambda: cfg.n_layers,
+            "pna": lambda: 4 * cfg.n_layers,
+            "graphcast": lambda: cfg.n_layers,
+            "dimenet": lambda: cfg.n_blocks + 2}[arch_id]()
+
+
+def gnn_output_shape(arch, shape_id: str) -> tuple[int, int]:
+    from repro_torch.configs.base import GNN_SHAPES, _pad
+
+    s = GNN_SHAPES[shape_id]
+    cfg = arch.config(shape_id=shape_id)
+    if arch.arch_id == "dimenet":
+        return (s["graphs"], cfg.n_out)
+    if arch.arch_id == "graphcast":
+        return (_pad(s["n"]), cfg.n_out)
+    return (_pad(s["n"]), cfg.n_classes)
+
+
+@contextmanager
+def recorded_segments():
+    """While open, every ``ops.segment_reduce`` call of the GNN modules is
+    recorded, (values, plan, op), into the list it yields."""
+    from repro_torch.kernels import ops
+
+    seen: list = []
+    reduce = ops.segment_reduce
+
+    def recording(values, plan, op):
+        seen.append((values, plan, op))
+        return reduce(values, plan, op)
+
+    ops.segment_reduce = recording
+    try:
+        yield seen
+    finally:
+        ops.segment_reduce = reduce
+
+
+@contextmanager
+def annotated_plans():
+    """While open, each GNN model's ``segment_plan`` runs inside a
+    ``record_function`` range named "gnn:plan" (the stable sort, the
+    offsets and the pieces)."""
+    from torch.profiler import record_function
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.gnn import dimenet, gcn, graphcast, pna
+
+    mods = (dimenet, gcn, graphcast, pna)
+
+    def annotated(index, num_segments):
+        with record_function("gnn:plan"):
+            return ops.segment_plan(index, num_segments)
+
+    for m in mods:
+        m.segment_plan = annotated
+    try:
+        yield
+    finally:
+        for m in mods:
+            m.segment_plan = ops.segment_plan
+
+
+def gnn_profile(label: str, fn) -> None:
+    """Where one forward spends the card's time, under ``torch.profiler``:
+    ``segment_reduce`` by kernel name; the plans (sort, offsets, pieces) by
+    their range; GEMMs and gathers by the op that launched each kernel;
+    the rest (elementwise, norms, concatenations); and the share of the
+    wall time the card was idle. Not gated: a window that lost its device
+    events is printed as such."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(PROFILE_TRIES):
+        torch.cuda.synchronize()
+        with annotated_plans(), profile(
+                activities=[ProfilerActivity.CPU,
+                            ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        events = prof.events()
+        busy = seg = 0.0
+        for e in events:
+            if e.device_type == DeviceType.CUDA and \
+                    not getattr(e, "is_user_annotation", False):
+                us = e.time_range.elapsed_us()
+                busy += us
+                if any(k in e.name for k in SEGMENT_KERNELS):
+                    seg += us
+        if busy > 0:
+            break
+        print(f"  (profile {label} lost its device events; again)")
+    else:
+        print(f"  profile {label}: not measured (the profiler recorded no "
+              f"device time in {PROFILE_TRIES} windows)")
+        return
+    split = {"plan": 0.0, "GEMMs": 0.0, "gathers": 0.0}
+    for e in events:
+        if e.device_type != DeviceType.CPU or not e.kernels:
+            continue
+        chain, up = [], e
+        while up is not None:
+            chain.append(up.name)
+            up = up.cpu_parent
+        us = sum(k.duration for k in e.kernels
+                 if not any(s in k.name for s in SEGMENT_KERNELS))
+        if "gnn:plan" in chain:
+            split["plan"] += us
+        elif any(n in GEMM_OPS for n in chain):
+            split["GEMMs"] += us
+        elif any(n in GATHER_OPS for n in chain):
+            split["gathers"] += us
+    parts = {**split, "segment_reduce": seg,
+             "elementwise and the rest": busy - seg - sum(split.values())}
+    print(f"  profile {label}: wall {wall_us / 1e3:.3f} ms, device busy "
+          f"{busy / 1e3:.3f} ms, idle share {1 - busy / wall_us:.3f}; "
+          + ", ".join(f"{name} {us / 1e3:.3f} ms ({us / max(busy, 1e-9):.3f})"
+                      for name, us in parts.items()))
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Mean device ms of ``fn`` over ``reps`` back-to-back calls, by CUDA
+    events, with the calls queued behind a sleep kernel so that the card
+    runs them back to back whatever the host's pace (a short kernel's
+    launch costs the host more than the card's run)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(QUEUE_CYCLES_PER_CALL * reps))
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def segment_bound(plan, d: int) -> float:
+    """Least ms of a reduction on the card: the rows inside segments read
+    once, their order entries and the offsets read once, the output
+    written once, over the memory rate (float32, int32)."""
+    off = plan.offsets
+    rows = int(off[-1] - off[0])
+    S = plan.num_segments
+    return (rows * d + rows + S + 1 + S * d) * 4 / HBM_BYTES_PER_S * 1e3
+
+
+def segment_check(label: str, values, plan, op: str, card: str,
+                  stats: dict, time_it: bool) -> None:
+    """The kernel against its float64 plain version on one recorded
+    aggregation: sum within deg 2^-24 sum|v| + 1e-30 a cell, max and min
+    equal; a second launch the same bits; a version that drops each
+    segment's last edge and one that reads each segment's end one edge late
+    refused. With ``time_it``, the kernel's time beside its bound, the plain
+    version's and the three library calls'."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.segment_reduce import segment_reduce_cuda
+
+    flat = values.reshape(values.shape[0], -1).contiguous()
+    E, d = flat.shape
+    args = (plan.order, plan.offsets, plan.piece_offsets, plan.piece_bounds)
+    kern = lambda: segment_reduce_cuda(flat, *args, op)  # noqa: E731
+    torch.cuda.synchronize()
+    out = kern()
+    again = kern()
+    torch.cuda.synchronize()
+    check(bool(torch.equal(out, again)), f"segment_reduce {label}: a second "
+          f"launch gave other bits")
+    v64 = flat.double()
+    starts, ends = plan.offsets[:-1], plan.offsets[1:]
+    want = ref.segment_ranges_ref(v64, plan.order, starts, ends, op)
+    deg = plan.counts.double()[:, None]
+    if op == "sum":
+        mag = ref.segment_ranges_ref(v64.abs(), plan.order, starts, ends,
+                                     "sum")
+        limit = deg * 2.0**-24 * mag + 1e-30
+        del mag
+
+        def ratio_of(got):
+            return float(((got.double() - want).abs() / limit).max())
+    else:
+        limit = None
+
+        def ratio_of(got):
+            return 0.0 if torch.equal(got.double(), want) else float("inf")
+    ratio = ratio_of(out)
+    err = float((out.double() - want).abs().nan_to_num(0.0).max())
+    stats["max_abs_err"] = max(stats["max_abs_err"], err)
+    long_segs = int((plan.piece_offsets[1:] > plan.piece_offsets[:-1]).sum())
+    rule = "deg 2^-24 sum|v|" if limit is not None else "bit-equal"
+    print(f"  segment_reduce {label}: {op} of E={E} rows, d={d}, into "
+          f"S={plan.num_segments} segments (largest "
+          f"{int(plan.counts.max())} edges, {long_segs} cut into pieces), "
+          f"max_abs_err={err:.3e} err/limit={ratio:.4f} "
+          f"{'ok' if ratio <= 1 else 'FAIL'} ({rule}); bits repeat")
+    check(ratio <= 1.0, f"segment_reduce {label}: error above its limit "
+          f"(ratio {ratio})")
+    E_all = int(plan.order.shape[0])
+    for bad, lo, hi in (
+            ("each segment's last edge dropped", starts,
+             torch.maximum(ends - 1, starts)),
+            ("each segment's end read one edge late", starts,
+             torch.clamp(ends + 1, max=E_all))):
+        got = ref.segment_ranges_ref(v64, plan.order, lo, hi, op)
+        r = ratio_of(got)
+        print(f"  segment_reduce {label} broken: {bad:40s} err/limit="
+              f"{r:.4g} {'refused' if r > 1 else 'PASSED'}")
+        check(r > 1.0, f"segment_reduce {label}: the check passes a broken "
+              f"version ({bad})")
+        del got
+    del want, limit, v64
+    if not time_it:
+        return
+    ms = queued_ms(kern, SEGMENT_REPS)
+    plain_ms = events_ms(lambda: ref.segment_reduce_ref(
+        flat, plan.order, plan.offsets, op), 3)
+    # the library calls, never on the path: index_add_ and scatter_reduce
+    # (amax) over the in-segment rows with their segment ids, and
+    # torch.segment_reduce over the rows already sorted by segment
+    S = plan.num_segments
+    seg_of = torch.full((E,), -1, dtype=torch.long, device=flat.device)
+    inside = plan.order[int(plan.offsets[0]):int(plan.offsets[-1])].long()
+    seg_of[inside] = torch.repeat_interleave(
+        torch.arange(S, device=flat.device), plan.counts.long())
+    keep = seg_of >= 0
+    rows, ids = flat[keep], seg_of[keep]
+    sorted_rows = flat[inside]
+    lengths = plan.counts.long()
+    lib = {
+        "index_add_": lambda: torch.zeros((S, d), device=flat.device)
+        .index_add_(0, ids, rows),
+        "scatter_reduce amax": lambda: torch.full(
+            (S, d), -float("inf"), device=flat.device).scatter_reduce_(
+            0, ids[:, None].expand(-1, d), rows, "amax"),
+        f"torch.segment_reduce {op}": lambda: torch.segment_reduce(
+            sorted_rows, op, lengths=lengths, axis=0, unsafe=True)}
+    lib_ms = {name: queued_ms(fn, SEGMENT_REPS) for name, fn in lib.items()}
+    bound = segment_bound(plan, d)
+    stats["timed"].append((label, ms, plain_ms, bound, lib_ms["index_add_"]))
+    print(f"  segment_reduce {label}: kernel {ms * 1e3:10.2f} us (device, "
+          f"queued events)  bound {bound * 1e3:9.2f} us (bytes)  plain "
+          f"{plain_ms * 1e3:10.2f} us  " + "  ".join(
+              f"{name} {t * 1e3:10.2f} us" for name, t in lib_ms.items())
+          + f"  [{card}]")
+    del seg_of, rows, ids, sorted_rows
+
+
+def gnn_cell(arch_id: str, shape_id: str, web, dev, gen, card: str,
+             stats: dict, keep: dict) -> int:
+    """One GNN cell on the card through ``forward_step`` on
+    ``make_inputs``: finite output and loss of the right shapes, two
+    forwards with the same bits, the segment_reduce launches of the
+    model's structure, ms a forward beside the least time, peak memory.
+    The cell's aggregations named in GNN_CHECKS are held against float64
+    plain (and timed); GNN_PROFILES are profiled. Returns the launches."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import segment_reduce
+
+    arch = get_arch(arch_id)
+    cfg = arch.config(shape_id=shape_id)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    inputs = arch.make_inputs(shape_id, gen, dev, graph=web)
+    params = arch.init_params(gen, dev, shape_id=shape_id)
+    torch.cuda.synchronize()
+    t_inputs = time.perf_counter() - t0
+    fwd = arch.forward_step(shape_id)
+    n, m = int(inputs["node_mask"].sum()), int(inputs["edge_mask"].sum())
+    extra = ""
+    if arch_id == "dimenet":
+        real = int((inputs["triplet_ji"] < inputs["edge_index"].shape[1])
+                   .sum())
+        extra = (f", triplets {real} of a budget of "
+                 f"{inputs['triplet_ji'].shape[0]}")
+    fwd(params, inputs)                                   # warm up
+    torch.cuda.synchronize()
+    segment_reduce.reset_launches()
+    with recorded_segments() as seen:
+        t0 = time.perf_counter()
+        out, loss = fwd(params, inputs)
+        torch.cuda.synchronize()
+        t_main = time.perf_counter() - t0
+    launches = segment_reduce.LAUNCHES["segment_reduce"]
+    peak = torch.cuda.max_memory_allocated(dev)
+    want_launches = gnn_segment_launches(arch_id, cfg)
+    again, loss2 = fwd(params, inputs)
+    same = bool(torch.equal(out, again) and torch.equal(loss, loss2))
+    ms = events_ms(lambda: fwd(params, inputs),
+                   GNN_REPS.get((arch_id, shape_id), GNN_REPS_DEFAULT))
+    flops, nbytes = arch.forward_flops(shape_id), arch.forward_bytes(shape_id)
+    least = max(flops / F32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S)
+    shape = gnn_output_shape(arch, shape_id)
+    print(f"  {arch_id} {shape_id}: {n} of {inputs['node_mask'].shape[0]} "
+          f"nodes and {m} of {inputs['edge_mask'].shape[0]} edges real"
+          f"{extra}; inputs {t_inputs:.2f}s; forward {t_main * 1e3:.3f} ms "
+          f"(first), {ms:.3f} ms a forward by events; least "
+          f"{least * 1e3:.3f} ms ({flops:.4e} flops at 67 TFLOP/s float32, "
+          f"{nbytes:.4e} bytes at 3.35 TB/s; {least * 1e3 / ms:.4f} of it); "
+          f"loss {float(loss):.6g}; output {tuple(out.shape)}; "
+          f"segment_reduce launches {launches} (want {want_launches}); peak "
+          f"{peak / 1e9:.2f} GB; bits repeat: {same}  [{card}]")
+    check(tuple(out.shape) == shape, f"{arch_id} {shape_id}: output "
+          f"{tuple(out.shape)}, not {shape}")
+    check(bool(torch.isfinite(out).all() and torch.isfinite(loss)),
+          f"{arch_id} {shape_id}: non-finite output or loss")
+    check(same, f"{arch_id} {shape_id}: a second forward gave other bits")
+    check(launches == want_launches, f"{arch_id} {shape_id}: "
+          f"segment_reduce launched {launches} times, not {want_launches}")
+    stats["cells"].append((arch_id, shape_id, ms, least, peak))
+    calls = GNN_CHECKS.get((arch_id, shape_id), 0)
+    keep[(arch_id, shape_id)] = seen[:calls]
+    del seen
+    if (arch_id, shape_id) in GNN_PROFILES:
+        gnn_profile(f"{arch_id} {shape_id} forward",
+                    lambda: fwd(params, inputs))
+    del params, inputs, out, again, loss, loss2
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase14_gnn(dev, gen, card: str) -> dict:
+    """The GNN family on the card: 13 cells at full width through
+    ``forward_step``, segment_reduce against float64 plain at four real
+    layer-0 aggregations, each smoke configuration card = CPU. Returns the
+    kernel's row of the ``kernels`` line."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.ppr import load
+
+    print(f"phase 14: the GNN family (GCN, PNA, GraphCast, DimeNet) through "
+          f"segment_reduce, card {card}")
+    t_phase = time.perf_counter()
+    web = load("web-stanford", scale=1)
+    stats = {"max_abs_err": 0.0, "cells": [], "timed": []}
+    launches = 0
+    for arch_id, cells in GNN_CELLS:
+        for shape_id in cells:
+            keep: dict = {}
+            t0 = time.perf_counter()
+            launches += gnn_cell(arch_id, shape_id, web, dev, gen, card,
+                                 stats, keep)
+            for (a, s), calls in keep.items():
+                for i, (values, plan, op) in enumerate(calls):
+                    segment_check(f"{a} {s} layer 0 #{i}", values, plan,
+                                  op, card, stats, time_it=True)
+            del keep
+            torch.cuda.empty_cache()
+            print(f"  {arch_id} {shape_id} wall "
+                  f"{time.perf_counter() - t0:.1f}s")
+    # each smoke configuration on the card against the same on the CPU
+    for arch_id, _ in GNN_CELLS:
+        arch = get_arch(arch_id)
+        params, inputs = arch.smoke_case(torch.Generator().manual_seed(0),
+                                         "cpu")
+        fwd = arch.forward_step(smoke=True)
+        want, want_loss = fwd(params, inputs)
+        got, loss = fwd(params.to(dev), {k: v.to(dev)
+                                         for k, v in inputs.items()})
+        rtol = GNN_RTOL[arch_id]
+        err = float((got.cpu() - want).abs().max())
+        limit = rtol * (want.abs() + float(want.abs().max()))
+        ratio = float(((got.cpu() - want).abs() / limit).max())
+        lratio = abs(float(loss) - float(want_loss)) / (
+            rtol * abs(float(want_loss)))
+        print(f"  {arch_id} smoke config card vs CPU: max_abs_err={err:.3e} "
+              f"err/limit={ratio:.4f} (rtol {rtol} of |out| + max|out|), "
+              f"loss {float(loss):.8g} vs {float(want_loss):.8g} "
+              f"(err/limit {lratio:.4f})")
+        check(ratio <= 1.0 and lratio <= 1.0, f"{arch_id}: the smoke config "
+              f"on the card is not the CPU's")
+    ms, plain_ms, bound, lib_ms = next(
+        (t[1], t[2], t[3], t[4]) for t in stats["timed"]
+        if t[0].startswith("gcn-cora ogb_products"))
+    print(f"  phase 14 wall {time.perf_counter() - t_phase:.1f}s")
+    return {"name": "segment_reduce", "launches": launches,
+            "max_abs_err": stats["max_abs_err"], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
+            "library_ms": lib_ms}
+
+
 def main() -> int:
     # the port must not need JAX or the JAX package
     sys.modules["jax"] = None
@@ -4272,6 +4726,8 @@ def main() -> int:
     k6["launches"] += family_launches
     k6["max_abs_err"] = max(k6["max_abs_err"], family_err)
     print(f"  phase 13 wall {time.perf_counter() - t0:.1f}s")
+    torch.cuda.empty_cache()
+    segment_row = phase14_gnn(dev, gen, card)
 
     summary = []
     for name, (ms, plain_ms, bound, by, lib_ms) in (
@@ -4283,7 +4739,7 @@ def main() -> int:
             "max_abs_err": stats[name]["max_abs_err"], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
             "library_ms": lib_ms})
-    for row in (k6, k5, fold_row):
+    for row in (k6, k5, fold_row, segment_row):
         summary.append({"name": row["name"], "route": "cuda",
                         "source": SOURCES[row["name"]],
                         "replaces": REPLACES[row["name"]],

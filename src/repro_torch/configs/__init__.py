@@ -1,16 +1,19 @@
 """Architecture registry of the port: ``get_arch(<id>)``.
 
-Holds the architectures ported so far for their serving kinds: the five
-LMs (two of them mixture-of-experts) and DIN. The JAX package's other
-architectures (the GNNs, the PPR workload's arch entry) come with later
-slices, and asking for one raises a ``KeyError`` that says so.
+Holds the architectures ported so far: the five LMs (two of them
+mixture-of-experts) and DIN for their serving kinds, and the four GNNs
+for the forward half of their train cells. The JAX package's other arch
+entry (the PPR workload's) comes with a later slice, and asking for it
+raises a ``KeyError`` that says so.
 """
 
 from __future__ import annotations
 
-from . import (din_arch, gemma_2b, moonshot_v1_16b_a3b, qwen1_5_32b,
-               qwen2_moe_a2_7b, stablelm_1_6b)
-from .base import DIN_SHAPES, LM_SHAPES, ArchDef, DINArch, LMArch
+from . import (dimenet_arch, din_arch, gcn_cora, gemma_2b, graphcast_arch,
+               moonshot_v1_16b_a3b, pna_arch, qwen1_5_32b, qwen2_moe_a2_7b,
+               stablelm_1_6b)
+from .base import (DIN_SHAPES, GNN_SHAPES, LM_SHAPES, ArchDef, DINArch,
+                   GNNArch, LMArch)
 
 REGISTRY: dict[str, ArchDef] = {
     a.arch_id: a for a in [
@@ -20,11 +23,15 @@ REGISTRY: dict[str, ArchDef] = {
         qwen1_5_32b.ARCH,
         gemma_2b.ARCH,
         din_arch.ARCH,
+        pna_arch.ARCH,
+        gcn_cora.ARCH,
+        graphcast_arch.ARCH,
+        dimenet_arch.ARCH,
     ]
 }
 
-# the JAX package's other arch ids, ported in later slices
-LATER = ("pna", "gcn-cora", "graphcast", "dimenet", "ppr-fora")
+# the JAX package's other arch id, ported in a later slice
+LATER = ("ppr-fora",)
 
 
 def get_arch(arch_id: str) -> ArchDef:
@@ -36,5 +43,5 @@ def get_arch(arch_id: str) -> ArchDef:
     raise KeyError(f"unknown arch {arch_id!r}; have {sorted(REGISTRY)}")
 
 
-__all__ = ["ArchDef", "DINArch", "DIN_SHAPES", "LATER", "LMArch",
-           "LM_SHAPES", "REGISTRY", "get_arch"]
+__all__ = ["ArchDef", "DINArch", "DIN_SHAPES", "GNNArch", "GNN_SHAPES",
+           "LATER", "LMArch", "LM_SHAPES", "REGISTRY", "get_arch"]

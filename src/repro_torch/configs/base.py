@@ -1,5 +1,5 @@
-"""Architecture definitions and their shape cells, for the serving kinds:
-the port of ``repro/configs/base.py``.
+"""Architecture definitions and their shape cells, for the serving kinds
+and the GNNs' forward: the port of ``repro/configs/base.py``.
 
 Each architecture registers an ``ArchDef`` that can, for each shape cell
 of a serving kind (``prefill``, ``decode``, ``serve``, ``retrieval``):
@@ -15,8 +15,10 @@ of a serving kind (``prefill``, ``decode``, ``serve``, ``retrieval``):
   ``model_bytes``: the JAX package's accounting, for the serving kinds),
   which give a step's least time on a card.
 
-Training kinds, meshes and partition specs and the optimizer come with the
-training and sharding slices.
+The GNN family's cells are of the train kind; the port runs their forward
+half (``GNNArch.forward_step``: ``apply`` and the loss value that the JAX
+train step differentiates). Training steps, meshes and partition specs and
+the optimizer come with the training and sharding slices.
 """
 
 from __future__ import annotations
@@ -25,11 +27,16 @@ import math
 from collections.abc import Callable
 from typing import Any
 
+import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..models import transformer
+from ..data import minibatch_stream
+from ..models import dimenet, gcn, graphcast, pna, transformer
+from ..models.gnn.common import GraphBatch, random_graph_batch
 from ..models.recsys import din
+from ..ppr.datasets import load
+from ..ppr.graph import Graph
 
 _TRAIN_LATER = ("training steps are not ported yet (a later slice of the "
                 "port); the serving kinds are")
@@ -321,3 +328,292 @@ class DINArch(ArchDef):
         if not all(math.isfinite(v) for v in out.values()):
             raise RuntimeError(f"{self.arch_id}: non-finite {out}")
         return out
+
+
+# ---------------------------------------------------------------------------
+# GNN family
+
+
+GNN_SHAPES: dict[str, dict] = {
+    "full_graph_sm": dict(n=2_708, m=10_556, d=1_433, classes=7, graphs=1),
+    "minibatch_lg": dict(n=180_224, m=179_200, d=602, classes=41, graphs=1,
+                         sampled=True),
+    "ogb_products": dict(n=2_449_029, m=61_859_140, d=100, classes=47,
+                         graphs=1),
+    "molecule": dict(n=30 * 128, m=64 * 128, d=16, classes=1, graphs=128),
+}
+
+# minibatch_lg's sampler: the web-stanford stand-in of ppr/datasets.py at
+# full size (a Reddit-sized graph is not in the repository), the JAX
+# sampler's batch and fanout, padded to the cell's (n, m)
+MINIBATCH_GRAPH = "web-stanford"
+MINIBATCH_BATCH_NODES = 1024
+MINIBATCH_FANOUT = (15, 10)
+
+# the cells one 80 GB card cannot hold as the models are written (float32)
+_TOO_LARGE = {
+    ("pna", "ogb_products"): "the (m, 150) concatenation [h[src], h[dst]] "
+                             "alone is 37.1 GB, and the message, its square "
+                             "and the two masked copies 18.6 GB each",
+    ("graphcast", "ogb_products"): "one (m, 512) edge state is 126.7 GB",
+    ("dimenet", "ogb_products"): "build_triplets over 61.9 M edges with a "
+                                 "budget of 2^25 triplets, and (T, d) "
+                                 "temporaries of 17 GB",
+}
+
+
+def _pad(x: int, mult: int = 128) -> int:
+    """Pad a logical size to a multiple of 128, as the JAX package pads
+    the cells (node and edge masks make padding transparent)."""
+    return -(-x // mult) * mult
+
+
+def _triplet_budget(m: int) -> int:
+    return _pad(int(min(8 * m, 1 << 25)))
+
+
+class GNNArch(ArchDef):
+    """A GNN architecture over the four graph cells. The cells are of the
+    train kind; the port runs their forward half (:meth:`forward_step`)."""
+
+    shapes = GNN_SHAPES
+
+    def __init__(self, arch_id: str, model, make_cfg: Callable[[dict], Any],
+                 make_smoke_cfg: Callable[[], Any]):
+        self.arch_id = arch_id
+        self.model = model
+        self.make_cfg = make_cfg          # (shape meta dict) -> model config
+        self.make_smoke_cfg = make_smoke_cfg
+        self._is_dimenet = model is dimenet
+        self._is_graphcast = model is graphcast
+
+    def kind(self, shape_id):
+        return "train"
+
+    def _cfg(self, shape_id: str) -> Any:
+        return self.make_cfg(GNN_SHAPES[shape_id])
+
+    def config(self, smoke: bool = False, shape_id: str = "full_graph_sm"):
+        """The smoke config, or the published one at the cell's widths."""
+        return self.make_smoke_cfg() if smoke else self._cfg(shape_id)
+
+    def skip_reason(self, shape_id: str) -> str | None:
+        """Why one H100 cannot run the cell, or None."""
+        return _TOO_LARGE.get((self.arch_id, shape_id))
+
+    def init_params(self, generator, device="cuda", smoke=False,
+                    shape_id: str = "full_graph_sm"):
+        return self.model.init(self.config(smoke, shape_id), generator,
+                               device)
+
+    def build_step(self, shape_id, *, smoke=False, **options):
+        raise NotImplementedError(_TRAIN_LATER)
+
+    def forward_step(self, shape_id: str | None = None, *,
+                     smoke: bool = False) -> Callable:
+        """fn(params, inputs) -> (output, loss): the model's ``apply`` and
+        the value of its ``loss_fn`` on the inputs of :meth:`make_inputs`
+        (or, with ``smoke``, of :meth:`smoke_case`), the forward half of
+        the JAX package's train step."""
+        cfg = self.config(smoke, shape_id or "full_graph_sm")
+        graphs = _SMOKE_GRAPHS if smoke else GNN_SHAPES[shape_id]["graphs"]
+        model, is_dime = self.model, self._is_dimenet
+
+        def forward(params, inputs):
+            batch = GraphBatch(
+                node_feat=inputs["node_feat"],
+                edge_index=inputs["edge_index"],
+                node_mask=inputs["node_mask"], edge_mask=inputs["edge_mask"],
+                positions=inputs.get("positions"),
+                graph_ids=inputs.get("graph_ids"),
+                labels=inputs.get("labels"), num_graphs=graphs)
+            if is_dime:
+                out = model.apply(params, cfg, batch,
+                                  (inputs["triplet_kj"], inputs["triplet_ji"]))
+            else:
+                out = model.apply(params, cfg, batch)
+            return out, model.loss_of(out, batch)
+        return forward
+
+    def make_inputs(self, shape_id: str, generator: torch.Generator,
+                    device: str | torch.device = "cuda", *,
+                    graph: Graph | None = None) -> dict[str, Any]:
+        """The cell's padded inputs, drawn on ``generator``: n and m padded
+        to multiples of 128, padding nodes and edges masked off, padded
+        edges at node 0 (as the sampler pads them). minibatch_lg is a
+        sample of ``graph`` (default: the full-size web-stanford stand-in)
+        with batch 1,024 and fanout (15, 10), its features, labels and
+        positions rows of seeded tables gathered by the sampled nodes; the
+        other cells are random graphs (molecule: 128 graphs of 30 nodes and
+        64 edges, edges within a graph). DimeNet also gets positions,
+        ``graph_ids`` (padding nodes at ``graphs``, in no graph) and the
+        triplets of the real edges, padded to the budget with ``idx_ji =
+        m``, which the triplet sum drops."""
+        reason = self.skip_reason(shape_id)
+        if reason is not None:
+            raise ValueError(f"{self.arch_id} on {shape_id} does not fit one "
+                             f"card: {reason}")
+        s = GNN_SHAPES[shape_id]
+        cfg = self._cfg(shape_id)
+        dev = resolve_device(device)
+        N, M, g = _pad(s["n"]), _pad(s["m"]), s["graphs"]
+        gen = generator
+
+        def normal(*shape):
+            return torch.randn(shape, generator=gen,
+                               device=gen.device).to(dev)
+
+        def ints(high, *shape):
+            return torch.randint(0, high, shape, generator=gen,
+                                 device=gen.device,
+                                 dtype=torch.int32).to(dev)
+
+        if s.get("sampled"):
+            graph = graph if graph is not None else load(MINIBATCH_GRAPH,
+                                                         scale=1)
+            seed = int(ints(2**31 - 1, 1)[0])
+            sub = next(minibatch_stream(
+                graph, batch_nodes=MINIBATCH_BATCH_NODES,
+                fanout=MINIBATCH_FANOUT, pad_nodes=N, pad_edges=M,
+                seed=seed))
+            nodes = torch.from_numpy(sub.nodes).to(dev)
+            n, m = int(sub.node_mask.sum()), int(sub.edge_mask.sum())
+            edge_index = torch.from_numpy(sub.edge_index).to(dev)
+            node_feat = normal(graph.n, s["d"])[nodes]
+            per_node = lambda t: t[nodes]            # noqa: E731
+            table_rows = graph.n
+        else:
+            n, m = s["n"], s["m"]
+            npg, epg = n // g, m // g
+            base = (torch.arange(m, device=dev, dtype=torch.int32)
+                    // epg) * npg
+            edge_index = torch.zeros((2, M), dtype=torch.int32, device=dev)
+            edge_index[0, :m] = ints(npg, m) + base
+            edge_index[1, :m] = ints(npg, m) + base
+            node_feat = torch.zeros((N, s["d"]), device=dev)
+            node_feat[:n] = normal(n, s["d"])
+            per_node = lambda t: torch.cat(          # noqa: E731
+                [t, t.new_zeros((N - n,) + tuple(t.shape[1:]))])
+            table_rows = n
+        inputs = {"node_feat": node_feat, "edge_index": edge_index,
+                  "node_mask": torch.arange(N, device=dev) < n,
+                  "edge_mask": torch.arange(M, device=dev) < m}
+        if self._is_dimenet:
+            t = _triplet_budget(s["m"])
+            kj, ji = self.model.build_triplets(
+                edge_index[:, :m].cpu().numpy(), n, max_triplets=t)
+            pad = t - kj.size
+            inputs.update(
+                positions=per_node(normal(table_rows, 3)),
+                graph_ids=torch.where(
+                    inputs["node_mask"],
+                    torch.arange(N, device=dev) // max(n // g, 1), g
+                ).to(torch.int32),
+                labels=normal(g, cfg.n_out),
+                triplet_kj=torch.from_numpy(np.concatenate(
+                    [kj, np.zeros(pad, np.int32)])).to(dev),
+                triplet_ji=torch.from_numpy(np.concatenate(
+                    [ji, np.full(pad, M, np.int32)])).to(dev))
+        elif self._is_graphcast:
+            inputs["labels"] = normal(N, cfg.n_out)
+        else:
+            inputs["labels"] = per_node(ints(cfg.n_classes, table_rows))
+        return inputs
+
+    def smoke_case(self, generator: torch.Generator,
+                   device: str | torch.device = "cuda"
+                   ) -> tuple[Any, dict[str, Any]]:
+        """(params, inputs) of the JAX ``smoke_run``'s case: the smoke
+        config, a random batch of n = 64, m = 256 in 4 graphs with
+        positions (DimeNet: its triplets, budget 512)."""
+        cfg = self.make_smoke_cfg()
+        dev = resolve_device(device)
+        n, m = 64, 256
+        d = getattr(cfg, "d_in", 16)
+        batch = random_graph_batch(generator, n, m, d,
+                                   n_graphs=_SMOKE_GRAPHS,
+                                   with_positions=True,
+                                   n_classes=getattr(cfg, "n_classes", 2),
+                                   device=dev)
+        params = self.init_params(generator, dev, smoke=True)
+        inputs = {"node_feat": batch.node_feat,
+                  "edge_index": batch.edge_index,
+                  "node_mask": batch.node_mask, "edge_mask": batch.edge_mask,
+                  "positions": batch.positions, "graph_ids": batch.graph_ids,
+                  "labels": batch.labels}
+        if self._is_dimenet:
+            kj, ji = self.model.build_triplets(
+                batch.edge_index.cpu().numpy(), n, max_triplets=512)
+            inputs["triplet_kj"] = torch.from_numpy(kj).to(dev)
+            inputs["triplet_ji"] = torch.from_numpy(ji).to(dev)
+        return params, inputs
+
+    def infer_run(self, generator, device="cuda"):
+        params, inputs = self.smoke_case(generator, device)
+        out, loss = self.forward_step(smoke=True)(params, inputs)
+        res = {"loss": float(loss), "output_mean": float(out.mean())}
+        if not all(math.isfinite(v) for v in res.values()):
+            raise RuntimeError(f"{self.arch_id}: non-finite {res}")
+        return res
+
+    def _dims(self, shape_id: str):
+        s = GNN_SHAPES[shape_id]
+        cfg = self._cfg(shape_id)
+        h = getattr(cfg, "d_hidden", 128)
+        L = getattr(cfg, "n_layers", getattr(cfg, "n_blocks", 2))
+        return s["n"], s["m"], s["d"], h, L, cfg
+
+    def _flops(self, shape_id: str, mult: float) -> float:
+        n, m, d, h, L, cfg = self._dims(shape_id)
+        if self._is_dimenet:
+            t = _triplet_budget(m)
+            per = t * h * cfg.n_bilinear * h * 2 + m * 2 * h * h * 2
+            return mult * L * per / 2.0
+        if self.model is gcn:
+            return mult * (n * d * h + (L - 1) * n * h * h + m * h)
+        if self.model is pna:
+            per = m * (2 * h) * h * 2 + n * (13 * h) * h * 2
+            return mult * L * per / 2.0
+        per = m * (3 * h) * h * 2 + n * (2 * h) * h * 2       # graphcast
+        return mult * (L * per + n * d * h * 2) / 2.0
+
+    def _bytes(self, shape_id: str, passes: float, optimizer: bool) -> float:
+        n, m, d, h, L, cfg = self._dims(shape_id)
+        node = 6.0 * n * h * 4
+        edge = 3.0 * m * h * 4                      # gather src, msg, scatter
+        total = passes * L * (node + edge) + n * d * 4
+        if self._is_dimenet:
+            t = _triplet_budget(m)
+            total += passes * L * t * (2 * h + cfg.n_bilinear) * 4
+        if optimizer:
+            total += 12.0 * self._param_bytes(shape_id)    # opt traffic
+        return total
+
+    def _param_bytes(self, shape_id: str) -> int:
+        cfg = self._cfg(shape_id)
+        size = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+        return self.model.param_count(cfg) * size
+
+    def model_flops(self, shape_id):
+        """Dominant useful operations of the JAX train step (forward and
+        backward): per-edge message GEMMs + per-node MLPs, as the JAX
+        package counts them."""
+        return self._flops(shape_id, 6.0)
+
+    def model_bytes(self, shape_id):
+        """Bytes of the JAX train step as the JAX package counts them:
+        three passes and the optimizer's traffic."""
+        return self._bytes(shape_id, 3.0, optimizer=True)
+
+    def forward_flops(self, shape_id: str) -> float:
+        """The forward alone: :meth:`model_flops`' formula at one pass (2
+        where it has 6)."""
+        return self._flops(shape_id, 2.0)
+
+    def forward_bytes(self, shape_id: str) -> float:
+        """The forward alone: :meth:`model_bytes`' formula at one pass and
+        without the optimizer's traffic."""
+        return self._bytes(shape_id, 1.0, optimizer=False)
+
+
+_SMOKE_GRAPHS = 4

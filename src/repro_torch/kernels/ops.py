@@ -8,6 +8,7 @@ a CUDA call whose kernel does not build or launch raises.
 from __future__ import annotations
 
 from collections.abc import Sequence
+from dataclasses import dataclass
 
 import torch
 
@@ -17,6 +18,7 @@ from .ell_spmv import (DensePlan, SlicedFold, ell_spmm_cuda,
 from .embedding_bag import embedding_bag_cuda
 from .endpoint_fold import endpoint_fold_cuda
 from .flash_attention import flash_attention_cuda
+from .segment_reduce import PIECE, segment_reduce_cuda
 from .walk_gather import walk_endpoint_gather_cuda
 
 
@@ -177,6 +179,86 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
     if _on_cuda(table):
         return embedding_bag_cuda(table, ids, weights)
     return ref.embedding_bag_ref(table, ids, weights)
+
+
+@dataclass(frozen=True)
+class SegmentPlan:
+    """Where each segment's rows lie, built once per index and reused by
+    every reduction over it (a GNN's layers and aggregators).
+
+    ``order`` (E,) int32 is the stable sort of the index, so segment s is
+    ``order[offsets[s]:offsets[s+1]]`` in ascending edge id; ``offsets``
+    (S + 1,) int32 (an index outside [0, S) falls before ``offsets[0]`` or
+    after ``offsets[S]``: in no segment). The kernel's pieces: a segment
+    of more than ``PIECE`` edges is cut into pieces of ``PIECE``
+    consecutive entries of ``order``; segment s owns pieces
+    ``piece_offsets[s] : piece_offsets[s+1]`` and piece p covers
+    ``piece_bounds[0, p] : piece_bounds[1, p]`` (pieces past
+    ``piece_offsets[S]`` are empty: the number of pieces is bounded by
+    2 E / PIECE without reading it back to the host)."""
+
+    order: torch.Tensor
+    offsets: torch.Tensor
+    piece_offsets: torch.Tensor
+    piece_bounds: torch.Tensor
+
+    @property
+    def num_segments(self) -> int:
+        return self.offsets.shape[0] - 1
+
+    @property
+    def counts(self) -> torch.Tensor:
+        """(S,) int32 edges a segment: ``segment_sum`` of ones, exactly."""
+        return self.offsets[1:] - self.offsets[:-1]
+
+
+def segment_plan(index: torch.Tensor, num_segments: int) -> SegmentPlan:
+    """The :class:`SegmentPlan` of an integer index (E,) over
+    ``num_segments`` segments, on the index's device, with torch ops alone:
+    a stable ``torch.sort``, ``torch.searchsorted`` for the offsets (no
+    ``bincount``, which reads the largest value back to the host), and the
+    pieces from the offsets. No host sync."""
+    if index.dim() != 1 or index.dtype.is_floating_point:
+        raise ValueError(f"index must be a 1-D integer tensor, got "
+                         f"{index.dtype} {tuple(index.shape)}")
+    if num_segments < 1:
+        raise ValueError(f"need num_segments >= 1, got {num_segments}")
+    dev = index.device
+    E, S = index.shape[0], num_segments
+    if index.dtype not in (torch.int32, torch.int64):
+        index = index.long()
+    keys, order = torch.sort(index, stable=True)
+    bounds = torch.arange(S + 1, device=dev, dtype=keys.dtype)
+    offsets = torch.searchsorted(keys, bounds).to(torch.int32)
+    counts = offsets[1:] - offsets[:-1]
+    pieces = torch.where(counts > PIECE, (counts + PIECE - 1) // PIECE, 0)
+    piece_offsets = torch.zeros(S + 1, dtype=torch.int32, device=dev)
+    piece_offsets[1:] = torch.cumsum(pieces, 0)
+    P = 2 * -(-E // PIECE)
+    p = torch.arange(P, device=dev, dtype=torch.int32)
+    seg = torch.searchsorted(piece_offsets[1:], p, right=True)
+    live = seg < S
+    seg = seg.clamp(max=S - 1)
+    start = offsets[seg] + (p - piece_offsets[seg]) * PIECE
+    end = torch.minimum(start + PIECE, offsets[seg + 1])
+    piece_bounds = torch.stack([torch.where(live, start, 0),
+                                torch.where(live, end, 0)]).to(torch.int32)
+    return SegmentPlan(order.to(torch.int32), offsets, piece_offsets,
+                       piece_bounds.contiguous())
+
+
+def segment_reduce(values: torch.Tensor, plan: SegmentPlan,
+                   op: str) -> torch.Tensor:
+    """``op`` in {"sum", "max", "min"} of values (E,) or (E, d) over the
+    plan's segments: (S,) or (S, d), as ``jax.ops.segment_<op>`` gives it
+    (an empty segment 0, -inf or +inf). On the card in one summation order
+    a cell, fixed by the plan, so a second call gives the same bits."""
+    if _on_cuda(values):
+        flat = values.reshape(values.shape[0], -1).contiguous()
+        out = segment_reduce_cuda(flat, plan.order, plan.offsets,
+                                  plan.piece_offsets, plan.piece_bounds, op)
+        return out.reshape((plan.num_segments,) + tuple(values.shape[1:]))
+    return ref.segment_reduce_ref(values, plan.order, plan.offsets, op)
 
 
 # ---------------------------------------------------------------------------

@@ -155,3 +155,47 @@ def embedding_bag_ref(table: torch.Tensor, ids: torch.Tensor,
     else:
         out = torch.einsum("bl,bld->bd", weights.to(table.dtype), rows)
     return out.masked_fill(bad, float("nan"))
+
+
+_SEGMENT_IDENTITY = {"sum": 0.0, "max": -math.inf, "min": math.inf}
+
+
+def segment_ranges_ref(values: torch.Tensor, order: torch.Tensor,
+                       starts: torch.Tensor, ends: torch.Tensor,
+                       op: str) -> torch.Tensor:
+    """``out[s] = op over p in [starts[s], ends[s]) of values[order[p]]``,
+    the rows taken in p order: (S,) + values.shape[1:] in the values' dtype,
+    an empty range giving 0 (sum), -inf (max) or +inf (min). A sum is
+    ``index_add_`` over the rows in p order (on the CPU a left fold from
+    0); max and min are ``scatter_reduce``."""
+    if op not in _SEGMENT_IDENTITY:
+        raise ValueError(f"op must be one of {sorted(_SEGMENT_IDENTITY)}, "
+                         f"got {op!r}")
+    dev = values.device
+    S = starts.shape[0]
+    lengths = (ends.long() - starts.long()).clamp_min(0)
+    seg = torch.repeat_interleave(torch.arange(S, device=dev), lengths)
+    first = torch.repeat_interleave(
+        starts.long() - (torch.cumsum(lengths, 0) - lengths), lengths)
+    pos = torch.arange(seg.shape[0], device=dev) + first
+    rows = values[order[pos].long()]
+    out = torch.full((S,) + tuple(values.shape[1:]), _SEGMENT_IDENTITY[op],
+                     dtype=values.dtype, device=dev)
+    if op == "sum":
+        return out.index_add_(0, seg, rows)
+    idx = seg.view((-1,) + (1,) * (values.dim() - 1)).expand_as(rows)
+    return out.scatter_reduce_(0, idx, rows, "amax" if op == "max" else "amin")
+
+
+def segment_reduce_ref(values: torch.Tensor, order: torch.Tensor,
+                       offsets: torch.Tensor, op: str) -> torch.Tensor:
+    """The segment reduction of a plan: ``out[s] = op over e in
+    order[offsets[s]:offsets[s+1]] of values[e]``, values (E,) or (E, d),
+    order (E,) and offsets (S + 1,) integer (``ops.SegmentPlan``). With the
+    plan of an index (order its stable sort) this is
+    ``jax.ops.segment_<op>(values, index, num_segments=S)``: each segment's
+    rows in ascending edge id, an index outside [0, S) in no segment, an
+    empty segment 0 (sum), -inf (max) or +inf (min). Returns (S,) +
+    values.shape[1:] in the values' dtype (float32 on the path; the card
+    check runs it in float64)."""
+    return segment_ranges_ref(values, order, offsets[:-1], offsets[1:], op)

@@ -1,5 +1,5 @@
 """Shared model building blocks, the port of ``repro/models/common.py``
-(the serving half: no loss, no layer norm).
+(the forward half: no loss).
 
 Norms, rotary embeddings, attention, activations and a small MLP, as plain
 functions on tensors and one ``nn.Module``. Random initialisers take an
@@ -59,6 +59,17 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     xf = x.float()
     y = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
     return (y * weight).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis with float32 statistics (the population
+    variance), returned in x's dtype."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, unbiased=False, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * weight + bias).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -185,14 +196,22 @@ class MLP(nn.Module):
 
 class ParamTree(nn.Module):
     """A nested dict of tensors as a module, keyed as the JAX package's
-    pytree: a dict becomes a submodule and a tensor a frozen parameter (the
-    serving paths need no gradient). ``tree["key"]`` reads as a dict."""
+    pytree: a dict becomes a submodule, a list an ``nn.ModuleList`` (its
+    dicts submodules), a module (an :class:`MLP`) stays itself, and a
+    tensor becomes a frozen parameter (the serving paths need no gradient).
+    ``tree["key"]`` reads as a dict."""
 
     def __init__(self, tree: Mapping):
         super().__init__()
         for key, value in tree.items():
             if isinstance(value, Mapping):
                 self.add_module(key, ParamTree(value))
+            elif isinstance(value, nn.Module):
+                self.add_module(key, value)
+            elif isinstance(value, (list, tuple)):
+                self.add_module(key, nn.ModuleList(
+                    ParamTree(v) if isinstance(v, Mapping) else v
+                    for v in value))
             else:
                 self.register_parameter(
                     key, nn.Parameter(value, requires_grad=False))

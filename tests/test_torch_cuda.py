@@ -5,7 +5,9 @@ model serving paths (K5, K6; the five LMs, two of them mixture-of-experts,
 and DIN) on the card against the same paths on the CPU, the MoE
 feed-forward (no host sync, bits repeating), the live endpoint fold, the continuous-batching engine, Monte Carlo
 PPR, a dynamic graph's residency on the card, and the node-sharded
-residency's kernels and queries on one card. Every test
+residency's kernels and queries on one card, the GNNs' segment
+reduction against its float64 plain version and the four GNNs' forward
+on the card against the CPU. Every test
 here needs an NVIDIA card and ``nvcc`` and skips without them; this file
 imports neither JAX nor ``repro``, so it runs where only torch is
 installed:
@@ -1078,3 +1080,95 @@ def test_mesh_over_several_cards_matches_one_card(cards, layout):
     rows = ex.answer_chunk([0, 1, 2])
     assert ex.device_graph.mesh.devices == tuple(cards[start:start + 2])
     np.testing.assert_allclose(rows.sum(axis=1), 1.0, atol=1e-3)
+
+
+def _segment_case(E: int, S: int, d: int, seed: int, device):
+    """Values (E, d) and an index with empty segments, single-edge
+    segments, one long segment (several plan pieces) and indices outside
+    [0, S), unsorted."""
+    rng = np.random.default_rng(seed)
+    index = rng.integers(0, S // 2, E)
+    index[: E // 3] = 1                                 # the long segment
+    index[-4:] = [-1, S, S + 3, S - 1]                  # dropped, and one
+    index[-8:-4] = S // 2 + np.arange(4) * 2            # single edges
+    rng.shuffle(index)
+    values = rng.standard_normal((E, d)).astype(np.float32)
+    return (torch.from_numpy(values).to(device),
+            torch.from_numpy(index.astype(np.int32)).to(device))
+
+
+@pytest.mark.parametrize("op", ["sum", "max", "min"])
+@pytest.mark.parametrize("d", [1, 16, 75, 512])
+def test_segment_reduce_matches_float64_plain_and_repeats(card, d, op):
+    from repro_torch.kernels import segment_reduce
+
+    values, index = _segment_case(3000, 64, d, seed=d, device=card)
+    plan = ops.segment_plan(index, 64)
+    assert int(plan.piece_offsets[-1]) > 1          # the long one is cut
+    segment_reduce.reset_launches()
+    got = ops.segment_reduce(values, plan, op)
+    again = ops.segment_reduce(values, plan, op)
+    torch.cuda.synchronize()
+    assert segment_reduce.LAUNCHES["segment_reduce"] == 2
+    assert torch.equal(got, again)
+    want = ref.segment_reduce_ref(values.double(), plan.order, plan.offsets,
+                                  op)
+    if op == "sum":
+        # a left fold of deg float32 adds errs by at most deg 2^-24 sum|v|
+        deg = plan.counts.double()[:, None]
+        mag = ref.segment_reduce_ref(values.double().abs(), plan.order,
+                                     plan.offsets, "sum")
+        limit = deg * 2.0**-24 * mag + 1e-30
+        assert bool(((got.double() - want).abs() <= limit).all())
+    else:
+        assert torch.equal(got.double(), want)
+    empty = plan.counts == 0
+    assert bool(empty.any())
+    ident = {"sum": 0.0, "max": -np.inf, "min": np.inf}[op]
+    assert bool((got[empty] == ident).all())
+    # the 1-D form
+    flat = ops.segment_reduce(values[:, 0].contiguous(), plan, op)
+    assert torch.equal(flat, ops.segment_reduce(values[:, :1].contiguous(),
+                                                plan, op)[:, 0])
+
+
+def test_segment_reduce_refuses_bad_arguments(card):
+    from repro_torch.kernels.segment_reduce import segment_reduce_cuda
+
+    values, index = _segment_case(500, 16, 8, seed=1, device=card)
+    plan = ops.segment_plan(index, 16)
+    args = (plan.order, plan.offsets, plan.piece_offsets, plan.piece_bounds)
+    with pytest.raises(ValueError, match="float32"):
+        segment_reduce_cuda(values.double(), *args, "sum")
+    with pytest.raises(ValueError, match="contiguous"):
+        segment_reduce_cuda(values.t(), *args, "sum")
+    with pytest.raises(ValueError, match="order"):
+        segment_reduce_cuda(values, plan.order.cpu(), *args[1:], "sum")
+    with pytest.raises(ValueError, match="offsets"):
+        segment_reduce_cuda(values, plan.order, plan.offsets.long(),
+                            *args[2:], "sum")
+    with pytest.raises(ValueError, match="op"):
+        segment_reduce_cuda(values, *args, "mean")
+
+
+@pytest.mark.parametrize("arch_id", ["gcn-cora", "pna", "graphcast",
+                                     "dimenet"])
+def test_gnn_forward_on_card_matches_cpu_and_repeats(card, arch_id):
+    from repro_torch.kernels import segment_reduce
+
+    arch = get_arch(arch_id)
+    params, inputs = arch.smoke_case(torch.Generator().manual_seed(0), "cpu")
+    fwd = arch.forward_step(smoke=True)
+    want, want_loss = fwd(params, inputs)
+    params_c = params.to(card)
+    inputs_c = {k: v.to(card) for k, v in inputs.items()}
+    segment_reduce.reset_launches()
+    got, loss = fwd(params_c, inputs_c)
+    again, _ = fwd(params_c, inputs_c)
+    torch.cuda.synchronize()
+    assert segment_reduce.LAUNCHES["segment_reduce"] > 0
+    assert torch.equal(got, again)
+    rtol = 1e-5 if arch_id == "gcn-cora" else 1e-4
+    torch.testing.assert_close(got.cpu(), want, rtol=rtol,
+                               atol=rtol * float(want.abs().max()))
+    assert float(loss) == pytest.approx(float(want_loss), rel=rtol)

@@ -203,6 +203,16 @@ def test_import_without_jax_loads_no_repro():
             "import repro_torch.kernels.autotune, repro_torch.ft.chaos\n"
             "import repro_torch.checkpoint.store\n"
             "import repro_torch.index.result_cache\n"
+            "import repro_torch.data, repro_torch.data.neighbor_sampler\n"
+            "import repro_torch.models.gnn, repro_torch.models.gnn.common\n"
+            "import repro_torch.models.gnn.gcn, repro_torch.models.gnn.pna\n"
+            "import repro_torch.models.gnn.graphcast\n"
+            "import repro_torch.models.gnn.dimenet\n"
+            "import repro_torch.kernels.segment_reduce\n"
+            "from repro_torch.configs import gcn_cora, pna_arch, "
+            "graphcast_arch, dimenet_arch\n"
+            "from repro_torch.kernels.ops import segment_plan, "
+            "segment_reduce\n"
             "from repro_torch.kernels.ell_spmv import ell_spmv_cuda\n"
             "from repro_torch.ppr import ppr_single_pair\n"
             "from repro_torch.ppr.graph import ShardedDeviceGraph, "

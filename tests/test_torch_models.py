@@ -365,10 +365,10 @@ def test_unported_kinds_and_archs_raise():
         get_arch("din").build_step("train_batch")
     with pytest.raises(NotImplementedError, match="later slice"):
         get_arch("gemma-2b").model_flops("train_4k")
+    with pytest.raises(NotImplementedError, match="later slice"):
+        get_arch("pna").build_step("full_graph_sm")
     with pytest.raises(KeyError, match="later slice"):
-        get_arch("pna")
-    with pytest.raises(KeyError, match="later slice"):
-        get_arch("gcn-cora")
+        get_arch("ppr-fora")
     with pytest.raises(KeyError, match="unknown arch"):
         get_arch("no-such-arch")
     with pytest.raises(ValueError, match="cannot cut"):
