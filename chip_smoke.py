@@ -41,7 +41,8 @@ drives the port's main path, in phases:
 3. the paper path at real size: 256 FORA queries on the full-size
    Web-Stanford stand-in through ``ForaExecutor`` into ``dna_real``, with
    FORA checked against power iteration on three sources (the sliced
-   table's COO loop: K4 launches no time);
+   table's COO loop, a ``segment_reduce`` a step: K4 launches no time; run
+   twice, it must give the same bits);
 4. the index paths (FORA+): rows of each walk index rebuilt on the CPU
    must equal the card's; the dense path through
    ``ForaExecutor(index_budget=DENSE_INDEX_WIDTH)`` at coverage 1.0; the
@@ -221,7 +222,30 @@ drives the port's main path, in phases:
    the rest with the idle share (not gated), and the kernel's device time
    at the four aggregations (queued behind a sleep kernel, CUDA events)
    beside its bound, its plain version and ``index_add_``,
-   ``scatter_reduce`` (amax) and ``torch.segment_reduce``.
+   ``scatter_reduce`` (amax) and ``torch.segment_reduce``;
+15. GNN training on the same 13 cells through ``get_arch(id).build_step``
+   on ``make_inputs`` (the loss's gradient under autograd, then AdamW),
+   from ``init_params`` and ``adamw_init``: a finite loss and gradient
+   norm, parameters that moved, a second step from the same start with
+   the same bits (parameters, moments, loss), no float ``index_add``,
+   ``scatter_add``, ``scatter_reduce`` or accumulating ``index_put_``
+   recorded by a ``TorchDispatchMode`` (which must see index_select's
+   backward ``index_add`` first), and the launches of ``segment_reduce``
+   and ``segment_reduce_grad`` that the model's structure gives.
+   ``csrc/segment_grad.cu`` is held against its float64 plain version at
+   four real layer-0 aggregations (GCN's sum on ogb_products, PNA's max
+   and min on minibatch_lg with their ties and trash segment,
+   GraphCast's sum on minibatch_lg, DimeNet's triplet sum on molecule)
+   with a seeded output gradient: rtol 1e-5, the tied entries exactly
+   the plain version's, bits repeating; the limit must refuse a backward
+   that gives the whole gradient to the first tied edge and one that
+   leaves each segment's last edge unwritten. Each smoke configuration's
+   three train steps run on the card against the CPU's. Printed: ms a
+   step by CUDA events beside ``model_flops``/``model_bytes``' least
+   time, peak memory, profiles of GCN on ogb_products and GraphCast on
+   minibatch_lg, and the backward's time beside its bound, its plain
+   version and PyTorch's own backward of the same function
+   (``index_select``; ``scatter_reduce``'s autograd for max and min).
 
 The launch counts of each path are zeroed just before it and read just
 after. Any failed phase exits non-zero; without a card, or without the
@@ -231,7 +255,9 @@ The last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import copy
 import json
+import math
 import subprocess
 import sys
 import time
@@ -330,7 +356,9 @@ REPLACES = {"ell_spmm": "src/repro/kernels/ell_spmv.py:141",
             # XLA's segment_sum of the live walks, not a Pallas kernel
             "endpoint_fold": "src/repro/ppr/random_walk.py:213",
             # XLA's segment_sum/max/min of the GNNs, not a Pallas kernel
-            "segment_reduce": "src/repro/models/gnn/common.py:44"}
+            "segment_reduce": "src/repro/models/gnn/common.py:44",
+            # their autodiff (jax.grad of the same ops): no Pallas backward
+            "segment_reduce_grad": "src/repro/models/gnn/common.py:44"}
 SOURCES = {"ell_spmm": "src/repro_torch/kernels/csrc/ell_spmm.cu",
            "ell_spmm_sliced":
                "src/repro_torch/kernels/csrc/ell_spmm_sliced.cu",
@@ -342,7 +370,9 @@ SOURCES = {"ell_spmm": "src/repro_torch/kernels/csrc/ell_spmm.cu",
            "embedding_bag": "src/repro_torch/kernels/csrc/embedding_bag.cu",
            "endpoint_fold": "src/repro_torch/kernels/csrc/endpoint_fold.cu",
            "segment_reduce":
-               "src/repro_torch/kernels/csrc/segment_reduce.cu"}
+               "src/repro_torch/kernels/csrc/segment_reduce.cu",
+           "segment_reduce_grad":
+               "src/repro_torch/kernels/csrc/segment_grad.cu"}
 # every TPU kernel of the JAX package has its counterpart
 NOT_PORTED: list[dict] = []
 # phase 14: the GNN family (configs/gcn_cora.py, pna_arch.py,
@@ -366,8 +396,25 @@ GNN_RTOL = {"gcn-cora": 1e-5, "pna": 1e-4, "graphcast": 1e-4,
             "dimenet": 1e-4}
 F32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 SEGMENT_KERNELS = ("segment_rows", "segment_pieces")
+GRAD_KERNELS = ("grad_rows", "grad_pieces", "grad_piece_ties")
 GATHER_OPS = ("aten::index_select", "aten::index", "aten::gather")
 SEGMENT_REPS = 20
+# phase 15: GNN training at the same 13 cells
+GNN_TRAIN_REPS = {("gcn-cora", "ogb_products"): 3,
+                  ("graphcast", "minibatch_lg"): 2,
+                  ("dimenet", "minibatch_lg"): 2}
+GNN_TRAIN_REPS_DEFAULT = 5
+# the aggregations whose backward is held against float64 plain and timed:
+# indices into the cell's forward segment_reduce calls (PNA's layer 0: #2
+# max, #3 min)
+GRAD_CHECKS = {("gcn-cora", "ogb_products"): (0,),
+               ("pna", "minibatch_lg"): (2, 3),
+               ("graphcast", "minibatch_lg"): (0,),
+               ("dimenet", "molecule"): (0,)}
+GRAD_RTOL = 1e-5               # the backward against its float64 plain
+GNN_TRAIN_PROFILES = {("gcn-cora", "ogb_products"),
+                      ("graphcast", "minibatch_lg")}
+TRAIN_SMOKE_STEPS = 3
 QUEUE_CYCLES_PER_CALL = 200_000   # a sleep that outlasts the host's queueing
 # phase 11: the serving daemon on the paper path (launch/serve.py)
 TUNE_PAD_MULTIPLES = (8, 16, 32)
@@ -3399,6 +3446,44 @@ def gnn_segment_launches(arch_id: str, cfg) -> int:
             "dimenet": lambda: cfg.n_blocks + 2}[arch_id]()
 
 
+def gnn_train_launches(arch_id: str, cfg) -> tuple[int, int]:
+    """(segment_reduce, segment_reduce_grad) calls of one train step, from
+    the model's structure: each forward reduction once, and once more
+    where GraphCast recomputes its blocks in the backward; one
+    segment_reduce a gather that carries a gradient (its backward: GCN's
+    h[src], PNA's and GraphCast's h[src] and h[dst], DimeNet's two rows by
+    idx_kj); one segment_reduce_grad a forward reduction."""
+    forward = gnn_segment_launches(arch_id, cfg)
+    depth = getattr(cfg, "n_layers", getattr(cfg, "n_blocks", 0))
+    gathers = {"gcn-cora": 1, "pna": 2, "graphcast": 2, "dimenet": 2}
+    remat = forward if arch_id == "graphcast" else 0
+    return forward + remat + gathers[arch_id] * depth, forward
+
+
+def is_float_scatter(name: str, args, kwargs) -> bool:
+    """Whether a dispatched op (``OpOverload.__name__``, e.g.
+    "index_add_.default") folds into a float tensor by index, as a card
+    does with float atomics in no fixed order: ``index_add``,
+    ``scatter_add``, ``scatter_reduce``, ``scatter`` with a reduction, or
+    an accumulating ``index_put_``/``_index_put_impl_``/``put_``."""
+    import torch
+
+    base = name.split(".")[0].rstrip("_")
+    target = args[0] if args else None
+    if not (isinstance(target, torch.Tensor)
+            and target.dtype.is_floating_point):
+        return False
+    if base in ("index_add", "scatter_add", "scatter_reduce"):
+        return True
+    if base == "scatter":
+        return len(args) > 4 or "reduce" in kwargs
+    if base in ("index_put", "_index_put_impl", "put"):
+        accumulate = kwargs.get("accumulate", args[3] if len(args) > 3
+                                else False)
+        return bool(accumulate)
+    return False
+
+
 def gnn_output_shape(arch, shape_id: str) -> tuple[int, int]:
     from repro_torch.configs.base import GNN_SHAPES, _pad
 
@@ -3460,8 +3545,9 @@ def gnn_profile(label: str, fn) -> None:
     """Where one forward spends the card's time, under ``torch.profiler``:
     ``segment_reduce`` by kernel name; the plans (sort, offsets, pieces) by
     their range; GEMMs and gathers by the op that launched each kernel;
-    the rest (elementwise, norms, concatenations); and the share of the
-    wall time the card was idle. Not gated: a window that lost its device
+    ``segment_reduce_grad`` by kernel name; the rest (elementwise, norms,
+    concatenations, AdamW); and the share of the wall time the card was
+    idle. Not gated: a window that lost its device
     events is printed as such."""
     import torch
     from torch.autograd import DeviceType
@@ -3477,7 +3563,7 @@ def gnn_profile(label: str, fn) -> None:
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
         events = prof.events()
-        busy = seg = 0.0
+        busy = seg = grad = 0.0
         for e in events:
             if e.device_type == DeviceType.CUDA and \
                     not getattr(e, "is_user_annotation", False):
@@ -3485,6 +3571,8 @@ def gnn_profile(label: str, fn) -> None:
                 busy += us
                 if any(k in e.name for k in SEGMENT_KERNELS):
                     seg += us
+                elif any(k in e.name for k in GRAD_KERNELS):
+                    grad += us
         if busy > 0:
             break
         print(f"  (profile {label} lost its device events; again)")
@@ -3501,15 +3589,19 @@ def gnn_profile(label: str, fn) -> None:
             chain.append(up.name)
             up = up.cpu_parent
         us = sum(k.duration for k in e.kernels
-                 if not any(s in k.name for s in SEGMENT_KERNELS))
+                 if not any(s in k.name
+                            for s in SEGMENT_KERNELS + GRAD_KERNELS))
         if "gnn:plan" in chain:
             split["plan"] += us
         elif any(n in GEMM_OPS for n in chain):
             split["GEMMs"] += us
         elif any(n in GATHER_OPS for n in chain):
             split["gathers"] += us
-    parts = {**split, "segment_reduce": seg,
-             "elementwise and the rest": busy - seg - sum(split.values())}
+    parts = {**split, "segment_reduce": seg}
+    if grad:
+        parts["segment_reduce_grad"] = grad
+    parts["elementwise and the rest"] = busy - seg - grad - sum(
+        split.values())
     print(f"  profile {label}: wall {wall_us / 1e3:.3f} ms, device busy "
           f"{busy / 1e3:.3f} ms, idle share {1 - busy / wall_us:.3f}; "
           + ", ".join(f"{name} {us / 1e3:.3f} ms ({us / max(busy, 1e-9):.3f})"
@@ -3785,6 +3877,413 @@ def phase14_gnn(dev, gen, card: str) -> dict:
             "library_ms": lib_ms}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: GNN training
+
+
+def float_scatter_recorder():
+    """A ``TorchDispatchMode`` that records, in ``.seen``, every op that
+    :func:`is_float_scatter` names, forward and backward alike (autograd
+    carries the mode into its backward)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Recorder(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen: list[str] = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if is_float_scatter(func.__name__, args, kwargs):
+                self.seen.append(func.__name__)
+            return func(*args, **kwargs)
+
+    return Recorder()
+
+
+def segment_grad_bound(plan, d: int, op: str) -> float:
+    """Least ms of the backward on the card: the g_out rows of the
+    segments that have edges read once, the order and offsets read once,
+    every gradient row written once, and for max and min the value rows
+    of the edges inside segments and the output rows of those segments
+    read once (float32, int32)."""
+    E, S = int(plan.order.shape[0]), plan.num_segments
+    live = int((plan.counts > 0).sum())
+    inside = int(plan.offsets[-1] - plan.offsets[0])
+    words = live * d + E + S + 1 + E * d
+    if op != "sum":
+        words += inside * d + live * d
+    return words * 4 / HBM_BYTES_PER_S * 1e3
+
+
+def segment_grad_broken(kind: str, g_out, values, out, plan, op: str):
+    """The float64 plain backward broken one way: ``first`` gives the whole
+    gradient to the first tied edge of each segment and column (for a sum,
+    to the first edge of each segment) and 0 to the others; ``last`` leaves
+    each segment's last edge unwritten (0)."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    grad = ref.segment_reduce_grad_ref(g_out, values, out, plan.order,
+                                       plan.offsets, op)
+    off = plan.offsets.long()
+    lengths = (off[1:] - off[:-1]).clamp_min(0)
+    seg = torch.repeat_interleave(torch.arange(plan.num_segments,
+                                               device=off.device), lengths)
+    pos = torch.arange(seg.shape[0], device=off.device) + off[0]
+    rows = plan.order[pos].long()
+    if kind == "last":
+        ends = pos == (off[1:][seg] - 1)
+        grad[rows[ends]] = 0.0
+        return grad
+    if op == "sum":
+        first = (pos == off[:-1][seg])[:, None]
+        grad[rows] = torch.where(first, g_out[seg], 0.0)
+        return grad
+    hit = (values[rows] == out[seg]).long()
+    seen = torch.cumsum(hit, 0)
+    before = (seen - hit)[(off[:-1] - off[0]).clamp(max=max(len(pos) - 1,
+                                                           0))][seg]
+    first = (hit == 1) & (seen - before == 1)
+    grad[rows] = torch.where(first, g_out[seg], 0.0)
+    return grad
+
+
+def segment_grad_check(label: str, values, plan, op: str, card: str,
+                       gen, stats: dict, time_it: bool) -> None:
+    """The backward kernel against its float64 plain version on one
+    recorded aggregation, with a seeded output gradient: within rtol 1e-5
+    of the float64 gradient, the tied entries (nonzero) exactly the plain
+    version's for max and min; a second launch the same bits; the limit
+    refuses a backward that gives the whole gradient to the first tied edge
+    and one that leaves each segment's last edge unwritten. With
+    ``time_it``, its time beside its bound, the plain version's and
+    PyTorch's own backward of the same function."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.segment_reduce import (segment_reduce_cuda,
+                                                    segment_reduce_grad_cuda)
+
+    flat = values.reshape(values.shape[0], -1).contiguous()
+    E, d = flat.shape
+    S = plan.num_segments
+    pargs = (plan.order, plan.offsets, plan.piece_offsets, plan.piece_bounds)
+    out = segment_reduce_cuda(flat, *pargs, op)
+    g_out = torch.randn((S, d), generator=gen, device=gen.device).to(
+        flat.device)
+    vals, outs = (None, None) if op == "sum" else (flat, out)
+    kern = lambda: segment_reduce_grad_cuda(  # noqa: E731
+        g_out, vals, outs, *pargs, op)
+    torch.cuda.synchronize()
+    got = kern()
+    again = kern()
+    torch.cuda.synchronize()
+    check(bool(torch.equal(got, again)), f"segment_reduce_grad {label}: a "
+          f"second launch gave other bits")
+    del again
+    g64, v64, o64 = g_out.double(), flat.double(), out.double()
+    want = ref.segment_reduce_grad_ref(g64, v64, o64, plan.order,
+                                       plan.offsets, op)
+
+    def ratio_of(grad):
+        err = (grad.double() - want).abs()
+        return float((err / (GRAD_RTOL * want.abs())).nan_to_num(
+            0.0, posinf=float("inf")).max())
+
+    ratio = ratio_of(got)
+    marks = bool(torch.equal(got != 0, want != 0))
+    err = float((got.double() - want).abs().max())
+    stats["grad_max_abs_err"] = max(stats["grad_max_abs_err"], err)
+    ties = ""
+    if op != "sum":
+        hits = int((want != 0).sum())
+        ties = f", {hits} tied entries marked as the plain version's: {marks}"
+    outside = int(plan.offsets[0]) + E - int(plan.offsets[-1])
+    print(f"  segment_reduce_grad {label}: {op} of E={E} rows, d={d}, S={S} "
+          f"segments (largest {int(plan.counts.max())} edges, {outside} "
+          f"edges in none), max_abs_err={err:.3e} err/limit={ratio:.4f} "
+          f"{'ok' if ratio <= 1 else 'FAIL'} (rtol {GRAD_RTOL} of float64)"
+          f"{ties}; bits repeat")
+    check(ratio <= 1.0, f"segment_reduce_grad {label}: error above its "
+          f"limit (ratio {ratio})")
+    check(op == "sum" or marks, f"segment_reduce_grad {label}: the tied "
+          f"entries are not the plain version's")
+    for kind, what in (("first", "whole gradient to the first tied edge"),
+                       ("last", "each segment's last edge unwritten")):
+        bad = segment_grad_broken(kind, g64, v64, o64, plan, op)
+        r = ratio_of(bad)
+        print(f"  segment_reduce_grad {label} broken: {what:38s} err/limit="
+              f"{r:.4g} {'refused' if r > 1 else 'PASSED'}")
+        check(r > 1.0, f"segment_reduce_grad {label}: the check passes a "
+              f"broken version ({what})")
+        del bad
+    del want, g64, v64, o64
+    if not time_it:
+        return
+    ms = queued_ms(kern, SEGMENT_REPS)
+    plain_ms = events_ms(lambda: ref.segment_reduce_grad_ref(
+        g_out, vals, outs, plan.order, plan.offsets, op), 3)
+    # PyTorch's own backward of the same function, never on the path: a
+    # gather of g_out by each edge's segment for a sum, scatter_reduce's
+    # autograd for max and min (its ties split as the kernel's), over the
+    # edges inside segments
+    seg_of = torch.full((E,), -1, dtype=torch.long, device=flat.device)
+    inside = plan.order[int(plan.offsets[0]):int(plan.offsets[-1])].long()
+    seg_of[inside] = torch.repeat_interleave(
+        torch.arange(S, device=flat.device), plan.counts.long())
+    keep = seg_of >= 0
+    ids = seg_of[keep]
+    if op == "sum":
+        name = "index_select"
+        lib = lambda: torch.index_select(g_out, 0, ids)  # noqa: E731
+        lib_got = lib()
+    else:
+        name = f"scatter_reduce {'amax' if op == 'max' else 'amin'} backward"
+        src = flat[keep].detach().requires_grad_(True)
+        # initial value the op's identity: PyTorch counts the initial value
+        # among the ties where it equals the result (a zero initial value
+        # against ReLU messages whose maximum is 0), as JAX does -inf's
+        ident = -float("inf") if op == "max" else float("inf")
+        red = torch.full((S, d), ident, device=flat.device).scatter_reduce(
+            0, ids[:, None].expand(-1, d), src,
+            "amax" if op == "max" else "amin", include_self=False)
+        lib = lambda: torch.autograd.grad(  # noqa: E731
+            red, src, g_out, retain_graph=True)[0]
+        lib_got = lib()
+    lib_err = float((lib_got - got[keep]).abs().max())
+    lib_ratio = float(((lib_got - got[keep]).abs()
+                       / (GRAD_RTOL * got[keep].abs())).nan_to_num(
+        0.0, posinf=float("inf")).max())
+    print(f"  segment_reduce_grad {label}: {name} against the kernel: "
+          f"max_abs_err={lib_err:.3e} err/limit={lib_ratio:.4f} (same split "
+          f"of the ties: {lib_ratio <= 1})")
+    check(lib_ratio <= 1.0, f"segment_reduce_grad {label}: {name} is not "
+          f"the same function")
+    lib_ms = queued_ms(lib, SEGMENT_REPS)
+    bound = segment_grad_bound(plan, d, op)
+    stats["grad_timed"].append((label, ms, plain_ms, bound, lib_ms))
+    print(f"  segment_reduce_grad {label}: kernel {ms * 1e3:10.2f} us "
+          f"(device, queued events)  bound {bound * 1e3:9.2f} us (bytes)  "
+          f"plain {plain_ms * 1e3:10.2f} us  {name} {lib_ms * 1e3:10.2f} us"
+          f"  [{card}]")
+    del seg_of, ids, lib_got, got
+
+
+def gnn_train_cell(arch_id: str, shape_id: str, web, dev, gen, card: str,
+                   stats: dict) -> tuple[int, int]:
+    """One GNN cell's train step on the card through ``build_step`` on
+    ``make_inputs``, from ``init_params`` and ``adamw_init``: a finite
+    loss, parameters that moved, a second step from the same start with
+    the same bits (parameters, moments, loss), no float scatter recorded,
+    the launches of both kernels that the model's structure gives; ms a
+    step by CUDA events beside the least time, peak memory. The cell's
+    aggregations named in GRAD_CHECKS are then recorded from a forward and
+    held against float64 plain. Returns the two kernels' launches."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import segment_reduce
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.optim import adamw_init, global_norm
+
+    arch = get_arch(arch_id)
+    cfg = arch.config(shape_id=shape_id)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)        # earlier phases' tensors
+    inputs = arch.make_inputs(shape_id, gen, dev, graph=web)
+    params = arch.init_params(gen, dev, shape_id=shape_id)
+    start = [p.detach().clone() for p in tree_leaves(params)]
+    step = arch.build_step(shape_id)
+    recorder = float_scatter_recorder()
+    segment_reduce.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with recorder:
+        params, state, loss = step(params, adamw_init(params), inputs)
+        torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    fwd_l = segment_reduce.LAUNCHES["segment_reduce"]
+    grad_l = segment_reduce.LAUNCHES["segment_reduce_grad"]
+    peak = torch.cuda.max_memory_allocated(dev)
+    first = [p.detach().clone() for p in tree_leaves(params)]
+    moved = sum(int((a != b).sum()) for a, b in zip(first, start))
+    with torch.no_grad():
+        for p, s in zip(tree_leaves(params), start):
+            p.copy_(s)
+    # the JAX smoke_run's numbers at the start: the loss, the gradient norm
+    loss0, grads = arch.grad_step(shape_id)(params, inputs)
+    gnorm = float(global_norm(grads))
+    del grads
+    params, again, loss2 = step(params, adamw_init(params), inputs)
+    same = bool(torch.equal(loss, loss2)) and all(
+        torch.equal(a, b) for a, b in zip(first, tree_leaves(params))) and \
+        all(torch.equal(a, b) for a, b in zip(state.m + state.v,
+                                               again.m + again.v))
+    del first, start, again
+    ms = events_ms(lambda: step(params, state, inputs),
+                   GNN_TRAIN_REPS.get((arch_id, shape_id),
+                                      GNN_TRAIN_REPS_DEFAULT))
+    flops, nbytes = arch.model_flops(shape_id), arch.model_bytes(shape_id)
+    least = max(flops / F32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S)
+    want = gnn_train_launches(arch_id, cfg)
+    total = sum(p.numel() for p in tree_leaves(params))
+    print(f"  {arch_id} {shape_id} train step: loss {float(loss):.6g} "
+          f"(at the start; gradient norm {gnorm:.6g}); "
+          f"{moved} of {total} parameters moved; first step "
+          f"{t_first * 1e3:.3f} ms, {ms:.3f} ms a step by events; least "
+          f"{least * 1e3:.3f} ms ({flops:.4e} flops at 67 TFLOP/s float32, "
+          f"{nbytes:.4e} bytes at 3.35 TB/s; {least * 1e3 / ms:.4f} of it); "
+          f"launches segment_reduce {fwd_l} (want {want[0]}), "
+          f"segment_reduce_grad {grad_l} (want {want[1]}); float scatters "
+          f"{sorted(set(recorder.seen))}; peak {peak / 1e9:.2f} GB "
+          f"({(peak - held) / 1e9:.2f} GB above the {held / 1e9:.2f} GB held "
+          f"before the cell); bits repeat: {same}  [{card}]")
+    check(bool(torch.isfinite(loss)) and math.isfinite(gnorm),
+          f"{arch_id} {shape_id}: non-finite loss or gradient norm")
+    check(bool(torch.equal(loss0, loss)), f"{arch_id} {shape_id}: grad_step "
+          f"and the train step disagree on the loss")
+    check(moved > 0, f"{arch_id} {shape_id}: the step moved no parameter")
+    check(same, f"{arch_id} {shape_id}: a second step from the same start "
+          f"gave other bits")
+    check(not recorder.seen, f"{arch_id} {shape_id}: float scatters ran "
+          f"in the step: {sorted(set(recorder.seen))}")
+    check((fwd_l, grad_l) == want, f"{arch_id} {shape_id}: launches "
+          f"{(fwd_l, grad_l)}, not {want}")
+    stats["train_cells"].append((arch_id, shape_id, ms, least, peak))
+    if (arch_id, shape_id) in GNN_TRAIN_PROFILES:
+        gnn_profile(f"{arch_id} {shape_id} train step",
+                    lambda: step(params, state, inputs))
+    checks = GRAD_CHECKS.get((arch_id, shape_id), ())
+    del state, loss, loss2, loss0
+    if checks:
+        with torch.no_grad(), recorded_segments() as seen:
+            arch.forward_step(shape_id)(params, inputs)
+            kept = [seen[i] for i in checks]
+            seen.clear()
+        del params, inputs
+        torch.cuda.empty_cache()
+        for i, (values, plan, op) in zip(checks, kept):
+            segment_grad_check(f"{arch_id} {shape_id} layer 0 #{i}", values,
+                               plan, op, card, gen, stats, time_it=True)
+        del kept, values, plan
+    torch.cuda.empty_cache()
+    return fwd_l, grad_l
+
+
+def smoke_train_on_card(arch_id: str, dev) -> None:
+    """The smoke config's first TRAIN_SMOKE_STEPS train steps on the card
+    against the same on the CPU: losses within the CPU parity tests' rtol,
+    parameters and first moments within rtol |x| + rtol max|x| (second
+    moments twice that rtol), except parameter entries whose CPU gradient
+    was at rounding level at some step, which may flip Adam's sign: those
+    within 2 sum(lr) more (tests/test_torch_gnn_train.py's rule)."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+
+    arch = get_arch(arch_id)
+    rtol = GNN_RTOL[arch_id]
+    cparams, inputs = arch.smoke_case(torch.Generator().manual_seed(0),
+                                      "cpu")
+    gparams = copy.deepcopy(cparams).to(dev)
+    ginputs = {k: v.to(dev) for k, v in inputs.items()}
+    cstate, gstate = adamw_init(cparams), adamw_init(gparams)
+    grad_step = arch.grad_step(smoke=True)
+    train_step = arch.build_step(smoke=True)
+    opt = AdamWConfig()
+    tiny = [torch.zeros(p.shape, dtype=torch.bool)
+            for p in tree_leaves(cparams)]
+    lrs, lratio = [], 0.0
+    for k in range(TRAIN_SMOKE_STEPS):
+        closs, grads = grad_step(cparams, inputs)
+        for i, g in enumerate(grads):
+            a = g.abs().double()
+            tiny[i] |= a <= rtol * a + rtol * float(a.max())
+        cparams, cstate, _ = adamw_update(opt, cparams, grads, cstate)
+        gparams, gstate, gloss = train_step(gparams, gstate, ginputs)
+        lrs.append(opt.lr * min(1.0, (k + 1) / opt.warmup_steps))
+        lratio = max(lratio, abs(float(gloss) - float(closs))
+                     / (rtol * abs(float(closs))))
+    slack = 2.0 * sum(lrs)
+    pratio = flipped = 0
+    for i, (g, c) in enumerate(zip(tree_leaves(gparams),
+                                   tree_leaves(cparams))):
+        g, c = g.detach().cpu().double(), c.detach().double()
+        limit = rtol * c.abs() + rtol * float(c.abs().max())
+        err = (g - c).abs()
+        flipped += int((tiny[i] & (err > limit)).sum())
+        limit = torch.where(tiny[i], limit + slack, limit)
+        pratio = max(pratio, float((err / limit).max()))
+    mratio = 0.0
+    for moments, r in ((zip(gstate.m, cstate.m), rtol),
+                       (zip(gstate.v, cstate.v), 2 * rtol)):
+        for g, c in moments:
+            g, c = g.cpu().double(), c.double()
+            limit = r * c.abs() + r * float(c.abs().max())
+            mratio = max(mratio, float(((g - c).abs() / limit.clamp_min(
+                1e-30)).max()))
+    print(f"  {arch_id} smoke config, {TRAIN_SMOKE_STEPS} train steps card "
+          f"vs CPU: loss err/limit {lratio:.4f}, parameters err/limit "
+          f"{pratio:.4f} ({flipped} entries past the rtol rule, within the "
+          f"sign rule's 2 sum(lr) = {slack:.3g}), moments err/limit "
+          f"{mratio:.4f} (rtol {rtol})")
+    check(lratio <= 1.0 and pratio <= 1.0 and mratio <= 1.0,
+          f"{arch_id}: the smoke config's train steps on the card are not "
+          f"the CPU's")
+
+
+def phase15_gnn_train(dev, gen, card: str) -> tuple[dict, int]:
+    """GNN training on the card: 13 cells at full width through
+    ``build_step``, the backward kernel against float64 plain at four real
+    aggregations, each smoke configuration's train steps card = CPU.
+    Returns the backward kernel's row of the ``kernels`` line and the
+    forward kernel's launches in the steps."""
+    import torch
+
+    from repro_torch.ppr import load
+
+    print(f"phase 15: GNN training (the train step, AdamW, "
+          f"segment_reduce_grad), card {card}")
+    t_phase = time.perf_counter()
+    web = load("web-stanford", scale=1)
+    # the recorder sees a backward's float scatter on the card
+    recorder = float_scatter_recorder()
+    x = torch.ones((4, 2), device=dev, requires_grad=True)
+    with recorder:
+        torch.index_select(x, 0, torch.tensor([0, 0, 3], device=dev)) \
+            .sum().backward()
+    print(f"  recorder check: index_select's backward records "
+          f"{sorted(set(recorder.seen))}")
+    check(any(n.startswith("index_add") for n in recorder.seen),
+          "the float scatter recorder does not see a backward's index_add")
+    stats = {"grad_max_abs_err": 0.0, "train_cells": [], "grad_timed": []}
+    fwd_launches = grad_launches = 0
+    for arch_id, cells in GNN_CELLS:
+        for shape_id in cells:
+            t0 = time.perf_counter()
+            f, g = gnn_train_cell(arch_id, shape_id, web, dev, gen, card,
+                                  stats)
+            fwd_launches += f
+            grad_launches += g
+            print(f"  {arch_id} {shape_id} train wall "
+                  f"{time.perf_counter() - t0:.1f}s")
+    for arch_id, _ in GNN_CELLS:
+        smoke_train_on_card(arch_id, dev)
+    ms, plain_ms, bound, lib_ms = next(
+        t[1:] for t in stats["grad_timed"]
+        if t[0].startswith("gcn-cora ogb_products"))
+    print(f"  phase 15 wall {time.perf_counter() - t_phase:.1f}s")
+    return {"name": "segment_reduce_grad", "launches": grad_launches,
+            "max_abs_err": stats["grad_max_abs_err"], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
+            "library_ms": lib_ms}, fwd_launches
+
+
 def main() -> int:
     # the port must not need JAX or the JAX package
     sys.modules["jax"] = None
@@ -3802,14 +4301,15 @@ def main() -> int:
 
     from repro_torch.index import WalkIndex, walk_rows
     from repro_torch.kernels import (_build, ell_spmv, embedding_bag, ref,
-                                     walk_gather)
+                                     segment_reduce, walk_gather)
     from repro_torch.ppr import (ForaExecutor, ForaParams, LaneStreams,
                                  PprWorkload, forward_push, fora_fused, load,
                                  ppr_power_iteration, sample_walk_starts,
                                  small_test_graph)
     from repro_torch.ppr.forward_push import one_hot_seeds
     from repro_torch.ppr.graph import Graph, _resolve_push_layout
-    from repro_torch.ppr.power_iteration import default_iters
+    from repro_torch.ppr.power_iteration import (default_iters,
+                                                 power_iteration_coo)
     from repro_torch.ppr.random_walk import lane_weights, walk_length_for_tail
     from repro_torch import quickstart
 
@@ -4351,6 +4851,23 @@ def main() -> int:
           f"{ell_spmv.LAUNCHES['ell_spmv']}")
     check(ell_spmv.LAUNCHES["ell_spmv"] == 0,
           "the sliced table's oracle launched K4")
+    # the oracle's steps fold through segment_reduce: the same bits twice
+    osrcs = PprWorkload(web, 256, seed=0).sources[:CHECK_SOURCES]
+    segment_reduce.reset_launches()
+    t0 = time.perf_counter()
+    oracle = power_iteration_coo(web, osrcs, 0.2, default_iters(), dev)
+    torch.cuda.synchronize()
+    oracle_s = time.perf_counter() - t0
+    oracle_launches = segment_reduce.LAUNCHES["segment_reduce"]
+    again = power_iteration_coo(web, osrcs, 0.2, default_iters(), dev)
+    same = bool(torch.equal(oracle, again))
+    print(f"  sliced oracle ({CHECK_SOURCES} sources, {default_iters()} "
+          f"steps): {oracle_s:.2f}s, segment_reduce launches "
+          f"{oracle_launches}; a second run gives the same bits: {same}")
+    check(same, "the sliced power iteration gave other bits on a second run")
+    check(oracle_launches == default_iters(),
+          "the sliced oracle did not fold through segment_reduce each step")
+    del oracle, again
     profile_queries(web, 8)
 
     print("phase 4: index paths (FORA+), K3 on the walk index")
@@ -4728,6 +5245,9 @@ def main() -> int:
     print(f"  phase 13 wall {time.perf_counter() - t0:.1f}s")
     torch.cuda.empty_cache()
     segment_row = phase14_gnn(dev, gen, card)
+    torch.cuda.empty_cache()
+    grad_row, train_launches = phase15_gnn_train(dev, gen, card)
+    segment_row["launches"] += train_launches + oracle_launches
 
     summary = []
     for name, (ms, plain_ms, bound, by, lib_ms) in (
@@ -4739,7 +5259,7 @@ def main() -> int:
             "max_abs_err": stats[name]["max_abs_err"], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
             "library_ms": lib_ms})
-    for row in (k6, k5, fold_row, segment_row):
+    for row in (k6, k5, fold_row, segment_row, grad_row):
         summary.append({"name": row["name"], "route": "cuda",
                         "source": SOURCES[row["name"]],
                         "replaces": REPLACES[row["name"]],

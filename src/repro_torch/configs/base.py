@@ -1,5 +1,5 @@
 """Architecture definitions and their shape cells, for the serving kinds
-and the GNNs' forward: the port of ``repro/configs/base.py``.
+and the GNNs' training: the port of ``repro/configs/base.py``.
 
 Each architecture registers an ``ArchDef`` that can, for each shape cell
 of a serving kind (``prefill``, ``decode``, ``serve``, ``retrieval``):
@@ -15,10 +15,10 @@ of a serving kind (``prefill``, ``decode``, ``serve``, ``retrieval``):
   ``model_bytes``: the JAX package's accounting, for the serving kinds),
   which give a step's least time on a card.
 
-The GNN family's cells are of the train kind; the port runs their forward
-half (``GNNArch.forward_step``: ``apply`` and the loss value that the JAX
-train step differentiates). Training steps, meshes and partition specs and
-the optimizer come with the training and sharding slices.
+The GNN family's cells are of the train kind: ``GNNArch.build_step``
+returns the JAX package's train step (the loss's gradient under autograd,
+then AdamW), and ``GNNArch.forward_step`` its forward half. The LM and DIN
+train kinds, meshes and partition specs come with later slices.
 """
 
 from __future__ import annotations
@@ -34,12 +34,15 @@ from .._device import resolve_device
 from ..data import minibatch_stream
 from ..models import dimenet, gcn, graphcast, pna, transformer
 from ..models.gnn.common import GraphBatch, random_graph_batch
+from ..models.common import tree_leaves
 from ..models.recsys import din
+from ..optim import AdamWConfig, adamw_update, global_norm
 from ..ppr.datasets import load
 from ..ppr.graph import Graph
 
-_TRAIN_LATER = ("training steps are not ported yet (a later slice of the "
-                "port); the serving kinds are")
+_TRAIN_LATER = ("LM and DIN training steps are not ported yet (a later "
+                "slice of the port); their serving kinds and the GNNs' "
+                "training are")
 # the JAX package's attention key block (LMConfig.attn_block_kv), which its
 # prefill byte count re-reads the keys and values by
 _JAX_ATTN_BLOCK_KV = 1024
@@ -373,8 +376,8 @@ def _triplet_budget(m: int) -> int:
 
 
 class GNNArch(ArchDef):
-    """A GNN architecture over the four graph cells. The cells are of the
-    train kind; the port runs their forward half (:meth:`forward_step`)."""
+    """A GNN architecture over the four graph cells, all of the train kind
+    (:meth:`build_step`; :meth:`forward_step` is its forward half)."""
 
     shapes = GNN_SHAPES
 
@@ -406,8 +409,45 @@ class GNNArch(ArchDef):
         return self.model.init(self.config(smoke, shape_id), generator,
                                device)
 
-    def build_step(self, shape_id, *, smoke=False, **options):
-        raise NotImplementedError(_TRAIN_LATER)
+    def build_step(self, shape_id: str | None = None, *, smoke: bool = False,
+                   opt: AdamWConfig = AdamWConfig()) -> Callable:
+        """train_step(params, opt_state, inputs) -> (params, opt_state,
+        loss): the JAX package's train step for the cell's config (or,
+        with ``smoke``, the smoke config) on the inputs of
+        :meth:`make_inputs` (:meth:`smoke_case`): the loss and its
+        gradient (:meth:`grad_step`), then :func:`~repro_torch.optim.
+        adamw_update`, which writes the new parameters and moments into
+        the ones given. ``opt_state`` is ``adamw_init(params)`` at the
+        start."""
+        grad_step = self.grad_step(shape_id, smoke=smoke)
+
+        def train_step(params, opt_state, inputs):
+            loss, grads = grad_step(params, inputs)
+            params, opt_state, _ = adamw_update(opt, params, grads,
+                                                opt_state)
+            return params, opt_state, loss
+        return train_step
+
+    def grad_step(self, shape_id: str | None = None, *,
+                  smoke: bool = False) -> Callable:
+        """fn(params, inputs) -> (loss, grads): the loss of
+        :meth:`forward_step` and its gradient in every parameter, a tuple
+        in the JAX pytree's leaf order (``tree_leaves``), as
+        ``jax.value_and_grad`` gives them. The tree is made trainable
+        (``requires_grad_``); the aggregations' and gathers' backwards are
+        the port's kernels on the card (``ops.segment_reduce``,
+        ``ops.gather_rows``)."""
+        forward = self.forward_step(shape_id, smoke=smoke)
+
+        def loss_and_grads(params, inputs):
+            params.requires_grad_(True)
+            leaves = tree_leaves(params)
+            with torch.enable_grad():
+                _, loss = forward(params, inputs)
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                            materialize_grads=True)
+            return loss.detach(), grads
+        return loss_and_grads
 
     def forward_step(self, shape_id: str | None = None, *,
                      smoke: bool = False) -> Callable:
@@ -552,6 +592,17 @@ class GNNArch(ArchDef):
         params, inputs = self.smoke_case(generator, device)
         out, loss = self.forward_step(smoke=True)(params, inputs)
         res = {"loss": float(loss), "output_mean": float(out.mean())}
+        if not all(math.isfinite(v) for v in res.values()):
+            raise RuntimeError(f"{self.arch_id}: non-finite {res}")
+        return res
+
+    def train_run(self, generator: torch.Generator,
+                  device: str | torch.device = "cuda") -> dict[str, float]:
+        """The JAX ``smoke_run``'s counterpart: the smoke case's loss and
+        the global norm of its gradient at the initial parameters."""
+        params, inputs = self.smoke_case(generator, device)
+        loss, grads = self.grad_step(smoke=True)(params, inputs)
+        res = {"loss": float(loss), "grad_norm": float(global_norm(grads))}
         if not all(math.isfinite(v) for v in res.values()):
             raise RuntimeError(f"{self.arch_id}: non-finite {res}")
         return res

@@ -32,7 +32,8 @@ SOURCES: dict[str, str] = {"ell_spmm": "ell_spmm.cu",
                            "flash_attention": "flash_attention.cu",
                            "embedding_bag": "embedding_bag.cu",
                            "endpoint_fold": "endpoint_fold.cu",
-                           "segment_reduce": "segment_reduce.cu"}
+                           "segment_reduce": "segment_reduce.cu",
+                           "segment_grad": "segment_grad.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v")

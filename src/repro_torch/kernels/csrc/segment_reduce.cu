@@ -47,51 +47,24 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
-#include <math_constants.h>
+
+#include "segment_units.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kPer = 4;       // column units a lane holds at once
+using segment::blocks_for;
+using segment::group_of;
+using segment::identity;
+using segment::kMax;
+using segment::kMin;
+using segment::kPer;
+using segment::kSum;
+using segment::kThreads;
+using segment::load_unit;
+using segment::store_unit;
+using segment::Unit;
+
 constexpr int kUnroll = 4;    // edges whose loads a lane issues together
-constexpr int kBlocksPerSm = 16;
-
-enum Op { kSum = 0, kMax = 1, kMin = 2 };
-
-template <int V>
-struct Unit {
-  float v[V];
-};
-
-template <int V>
-__device__ __forceinline__ Unit<V> load_unit(const float* p) {
-  Unit<V> u;
-  if constexpr (V == 4) {
-    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
-    u.v[0] = t.x;
-    u.v[1] = t.y;
-    u.v[2] = t.z;
-    u.v[3] = t.w;
-  } else if constexpr (V == 2) {
-    const float2 t = __ldg(reinterpret_cast<const float2*>(p));
-    u.v[0] = t.x;
-    u.v[1] = t.y;
-  } else {
-    u.v[0] = __ldg(p);
-  }
-  return u;
-}
-
-template <int V>
-__device__ __forceinline__ void store_unit(float* p, const float (&a)[V]) {
-  if constexpr (V == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(a[0], a[1], a[2], a[3]);
-  } else if constexpr (V == 2) {
-    *reinterpret_cast<float2*>(p) = make_float2(a[0], a[1]);
-  } else {
-    *p = a[0];
-  }
-}
 
 template <int OP>
 __device__ __forceinline__ float combine(float a, float b) {
@@ -101,17 +74,6 @@ __device__ __forceinline__ float combine(float a, float b) {
     return fmaxf(a, b);
   } else {
     return fminf(a, b);
-  }
-}
-
-template <int OP>
-__device__ __forceinline__ float identity() {
-  if constexpr (OP == kSum) {
-    return 0.0f;
-  } else if constexpr (OP == kMax) {
-    return -CUDART_INF_F;
-  } else {
-    return CUDART_INF_F;
   }
 }
 
@@ -243,21 +205,6 @@ __global__ void __launch_bounds__(kThreads) segment_rows(
                          __ldg(offsets + s + 1), d, lane % group, group, dst);
     }
   }
-}
-
-// Lanes a segment: the column units rounded up to a power of two, at most
-// a warp.
-int group_of(int units) {
-  int g = 1;
-  while (g < units && g < 32) g <<= 1;
-  return g;
-}
-
-int blocks_for(int64_t items, int group, int sms) {
-  const int64_t per_block = static_cast<int64_t>(kThreads / 32) * (32 / group);
-  const int64_t want = (items + per_block - 1) / per_block;
-  const int64_t cap = static_cast<int64_t>(sms) * kBlocksPerSm;
-  return static_cast<int>(want < 1 ? 1 : (want < cap ? want : cap));
 }
 
 template <int OP, int V>

@@ -2,11 +2,15 @@
 
 A CUDA tensor goes to the hand-written kernel, a CPU tensor to the plain
 PyTorch version in :mod:`repro_torch.kernels.ref`. There is no other route:
-a CUDA call whose kernel does not build or launch raises.
+a CUDA call whose kernel does not build or launch raises. The same holds
+for the backwards that training takes through :func:`segment_reduce` and
+:func:`gather_rows`: on the card they are the port's kernels, never a plain
+version, ``index_add_`` or another float fold on atomics.
 """
 
 from __future__ import annotations
 
+import math
 from collections.abc import Sequence
 from dataclasses import dataclass
 
@@ -18,7 +22,8 @@ from .ell_spmv import (DensePlan, SlicedFold, ell_spmm_cuda,
 from .embedding_bag import embedding_bag_cuda
 from .endpoint_fold import endpoint_fold_cuda
 from .flash_attention import flash_attention_cuda
-from .segment_reduce import PIECE, segment_reduce_cuda
+from .segment_reduce import (PIECE, segment_reduce_cuda,
+                             segment_reduce_grad_cuda)
 from .walk_gather import walk_endpoint_gather_cuda
 
 
@@ -247,18 +252,96 @@ def segment_plan(index: torch.Tensor, num_segments: int) -> SegmentPlan:
                        piece_bounds.contiguous())
 
 
+def _segment_rows(values: torch.Tensor, plan: SegmentPlan,
+                  op: str) -> torch.Tensor:
+    """The reduction of contiguous (E, d) rows: (S, d)."""
+    if _on_cuda(values):
+        return segment_reduce_cuda(values, plan.order, plan.offsets,
+                                   plan.piece_offsets, plan.piece_bounds, op)
+    return ref.segment_reduce_ref(values, plan.order, plan.offsets, op)
+
+
+def segment_reduce_grad(g_out: torch.Tensor, values: torch.Tensor | None,
+                        out: torch.Tensor | None, plan: SegmentPlan,
+                        op: str) -> torch.Tensor:
+    """The gradient (E, d) of the reduction of (E, d) ``values`` over the
+    plan, given its output ``out`` (S, d) and that output's gradient
+    ``g_out``: ``ref.segment_reduce_grad_ref``'s rule (a sum's rows copied
+    to the segment's edges, a max's or min's split equally among the tied
+    edges column by column, 0 for an edge in no segment). ``values`` and
+    ``out`` are read for max and min only."""
+    if _on_cuda(g_out):
+        return segment_reduce_grad_cuda(g_out, values, out, plan.order,
+                                        plan.offsets, plan.piece_offsets,
+                                        plan.piece_bounds, op)
+    return ref.segment_reduce_grad_ref(g_out, values, out, plan.order,
+                                       plan.offsets, op)
+
+
+class _SegmentReduce(torch.autograd.Function):
+    """The reduction with its backward (:func:`segment_reduce_grad`). It
+    keeps the values and the output for max and min, nothing for a sum."""
+
+    @staticmethod
+    def forward(ctx, values, plan, op):
+        out = _segment_rows(values, plan, op)
+        ctx.plan, ctx.op = plan, op
+        if op != "sum":
+            ctx.save_for_backward(values, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g_out):
+        values, out = ctx.saved_tensors if ctx.op != "sum" else (None, None)
+        return (segment_reduce_grad(g_out.contiguous(), values, out,
+                                    ctx.plan, ctx.op), None, None)
+
+
 def segment_reduce(values: torch.Tensor, plan: SegmentPlan,
                    op: str) -> torch.Tensor:
     """``op`` in {"sum", "max", "min"} of values (E,) or (E, d) over the
     plan's segments: (S,) or (S, d), as ``jax.ops.segment_<op>`` gives it
     (an empty segment 0, -inf or +inf). On the card in one summation order
-    a cell, fixed by the plan, so a second call gives the same bits."""
-    if _on_cuda(values):
-        flat = values.reshape(values.shape[0], -1).contiguous()
-        out = segment_reduce_cuda(flat, plan.order, plan.offsets,
-                                  plan.piece_offsets, plan.piece_bounds, op)
-        return out.reshape((plan.num_segments,) + tuple(values.shape[1:]))
-    return ref.segment_reduce_ref(values, plan.order, plan.offsets, op)
+    a cell, fixed by the plan, so a second call gives the same bits.
+    Differentiable in ``values``: the backward is
+    :func:`segment_reduce_grad` over the same plan."""
+    flat = values.reshape(values.shape[0],
+                          math.prod(values.shape[1:])).contiguous()
+    out = _SegmentReduce.apply(flat, plan, op)
+    return out.reshape((plan.num_segments,) + tuple(values.shape[1:]))
+
+
+class _GatherRows(torch.autograd.Function):
+    """``x[index]`` whose backward is a segment sum over the plan of the
+    index: one more launch of the forward kernel, in one summation order,
+    instead of ``index_select``'s ``index_add_``."""
+
+    @staticmethod
+    def forward(ctx, x, index, plan):
+        ctx.plan, ctx.shape = plan, x.shape
+        return torch.index_select(x, 0, index)
+
+    @staticmethod
+    def backward(ctx, g):
+        rows = g.reshape(g.shape[0], math.prod(g.shape[1:])).contiguous()
+        summed = _segment_rows(rows, ctx.plan, "sum")[:ctx.shape[0]]
+        return summed.reshape(ctx.shape), None, None
+
+
+def gather_rows(x: torch.Tensor, index: torch.Tensor,
+                plan: SegmentPlan) -> torch.Tensor:
+    """Rows ``x[index]`` (one ``index_select``) with a gradient that is
+    ``segment_reduce(g, plan, "sum")`` cut to x's rows. ``plan`` is the
+    plan of ``index`` over at least x.shape[0] segments, built once per
+    index and batch, or of an index that differs from it only on rows
+    whose gradient is exactly zero (the masked edges a model multiplies by
+    0, sent to a trash segment past x's rows)."""
+    if plan.num_segments < x.shape[0] or \
+            plan.order.shape[0] != index.shape[0]:
+        raise ValueError(f"the plan ({plan.num_segments} segments of "
+                         f"{plan.order.shape[0]} entries) is not of an index "
+                         f"of {index.shape[0]} rows into {x.shape[0]}")
+    return _GatherRows.apply(x, index, plan)
 
 
 # ---------------------------------------------------------------------------

@@ -199,3 +199,44 @@ def segment_reduce_ref(values: torch.Tensor, order: torch.Tensor,
     values.shape[1:] in the values' dtype (float32 on the path; the card
     check runs it in float64)."""
     return segment_ranges_ref(values, order, offsets[:-1], offsets[1:], op)
+
+
+def segment_reduce_grad_ref(g_out: torch.Tensor, values: torch.Tensor | None,
+                            out: torch.Tensor | None, order: torch.Tensor,
+                            offsets: torch.Tensor, op: str) -> torch.Tensor:
+    """The gradient of :func:`segment_reduce_ref` with respect to its
+    values, given the output's gradient ``g_out`` (S,) + row shape: (E,) +
+    row shape in g_out's dtype. An edge e of segment s gets
+
+    * ``sum``: ``g_out[s]``;
+    * ``max``/``min``: ``g_out[s] * (1 / ties[s])`` where ``values[e] ==
+      out[s]``, else 0, column by column, with ``ties[s]`` the segment's
+      edges equal to ``out[s]`` in that column, plus one where ``out[s]`` is
+      the op's identity (-inf, +inf): ``jax.grad`` of
+      ``jax.ops.segment_max/min``, whose scatter counts its initial value
+      among the ties and multiplies by the reciprocal;
+
+    and an edge in no segment (its index outside [0, S)) gets 0. ``values``
+    and ``out`` (the forward's output) are read for max and min only. A
+    gather ``x[index]``'s gradient is ``segment_reduce_ref(g, plan of
+    index, "sum")``."""
+    if op not in _SEGMENT_IDENTITY:
+        raise ValueError(f"op must be one of {sorted(_SEGMENT_IDENTITY)}, "
+                         f"got {op!r}")
+    dev = g_out.device
+    E, S = order.shape[0], offsets.shape[0] - 1
+    lengths = (offsets[1:].long() - offsets[:-1].long()).clamp_min(0)
+    seg = torch.repeat_interleave(torch.arange(S, device=dev), lengths)
+    rows = order[int(offsets[0]):int(offsets[0]) + seg.shape[0]].long()
+    grad = torch.zeros((E,) + tuple(g_out.shape[1:]), dtype=g_out.dtype,
+                       device=dev)
+    if op == "sum":
+        grad[rows] = g_out[seg]
+        return grad
+    hit = values[rows] == out[seg]
+    ties = torch.zeros(out.shape, dtype=torch.int64, device=dev)
+    ties.index_add_(0, seg, hit.long())
+    ties = ties + (out == _SEGMENT_IDENTITY[op]).long()
+    share = g_out * (1.0 / ties.clamp_min(1).to(g_out.dtype))
+    grad[rows] = torch.where(hit, share[seg], 0.0)
+    return grad

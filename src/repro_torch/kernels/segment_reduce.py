@@ -1,4 +1,4 @@
-"""CUDA wrapper for the GNNs' segment reduction.
+"""CUDA wrappers for the GNNs' segment reduction and its backward.
 
 ``segment_reduce_cuda`` launches ``csrc/segment_reduce.cu``. It computes
 what the JAX package leaves to XLA's ``jax.ops.segment_sum``,
@@ -31,6 +31,20 @@ output and scratch with ``torch.empty``, launches on PyTorch's current
 stream, raises on a non-zero ``cudaGetLastError()``, and counts its calls
 in :data:`LAUNCHES` (one a call, although a call with pieces runs two CUDA
 kernels).
+
+``segment_reduce_grad_cuda`` launches ``csrc/segment_grad.cu``, the
+gradient of the reduction with respect to its values, over the forward's
+plan: a sum's gradient is the output gradient's row written to each edge
+of the segment, a max's or min's is split equally among the edges tied
+at the output, column by column, as ``jax.grad`` of
+``jax.ops.segment_max/min`` splits it, and an edge in no segment gets 0.
+It replaces no TPU kernel either: the reference differentiates XLA's
+segment ops, and has no Pallas backward. Every gradient row is written by
+one lane group, tie counts are integers, so a second launch gives the
+same bits; it is bound by bytes (the E gradient rows written once, and
+for max and min the E value rows read). One call counts once under
+``segment_reduce_grad``, although a plan with pieces runs two or three
+CUDA kernels.
 """
 
 from __future__ import annotations
@@ -42,7 +56,7 @@ import torch
 from . import _build
 
 # launches since the last reset_launches()
-LAUNCHES: dict[str, int] = {"segment_reduce": 0}
+LAUNCHES: dict[str, int] = {"segment_reduce": 0, "segment_reduce_grad": 0}
 
 PIECE = 128              # edges a piece of a long segment (the plan's cut)
 OPS = {"sum": 0, "max": 1, "min": 2}
@@ -54,6 +68,11 @@ _SIGNATURES = {
     "segment_reduce_launch": ([_P] * 7 + [_I] * 6 + [_P], _I),
     "segment_reduce_error_string": ([_I], ctypes.c_char_p),
 }
+_GRAD_SIGNATURES = {
+    "segment_reduce_grad_launch": ([_P] * 9 + [ctypes.c_int64] + [_I] * 6
+                                   + [_P], _I),
+    "segment_reduce_grad_error_string": ([_I], ctypes.c_char_p),
+}
 
 
 def reset_launches() -> None:
@@ -61,20 +80,24 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def unit_width(values: torch.Tensor) -> int:
-    """Floats a load of the kernel: 4 where d is a multiple of 4 and the
-    rows are 16-byte aligned, else 2 where d is even and 8-byte aligned,
-    else 1."""
-    d = values.shape[1]
-    ptr = values.data_ptr()
+def unit_width(*rows: torch.Tensor) -> int:
+    """Floats an access of the kernels: 4 where d (every tensor's row
+    length, the same) is a multiple of 4 and all the tensors are 16-byte
+    aligned, else 2 where d is even and they are 8-byte aligned, else 1."""
+    d = rows[0].shape[1]
     for vec in (4, 2):
-        if d % vec == 0 and ptr % (4 * vec) == 0:
+        if d % vec == 0 and all(t.data_ptr() % (4 * vec) == 0
+                                for t in rows):
             return vec
     return 1
 
 
 def _lib() -> ctypes.CDLL:
     return _build.load("segment_reduce", _SIGNATURES)
+
+
+def _grad_lib() -> ctypes.CDLL:
+    return _build.load("segment_grad", _GRAD_SIGNATURES)
 
 
 def _check_int32(name: str, t: torch.Tensor, dev: torch.device,
@@ -136,3 +159,79 @@ def segment_reduce_cuda(values: torch.Tensor, order: torch.Tensor,
                            f"({msg})")
     LAUNCHES["segment_reduce"] += 1
     return out
+
+
+def _check_rows(name: str, t: torch.Tensor, dev: torch.device,
+                shape: tuple[int, ...]) -> None:
+    if t.device != dev or t.dtype != torch.float32 or \
+            tuple(t.shape) != shape or not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous {shape} float32 on "
+                         f"{dev}, got {t.dtype} {tuple(t.shape)} on "
+                         f"{t.device} (contiguous: {t.is_contiguous()})")
+
+
+def segment_reduce_grad_cuda(g_out: torch.Tensor, values: torch.Tensor | None,
+                             out: torch.Tensor | None, order: torch.Tensor,
+                             offsets: torch.Tensor,
+                             piece_offsets: torch.Tensor,
+                             piece_bounds: torch.Tensor,
+                             op: str) -> torch.Tensor:
+    """The backward of :func:`segment_reduce_cuda` on the card: the (E, d)
+    float32 gradient of its values, given g_out (S, d), over the forward's
+    plan (order (E,), offsets and piece_offsets (S + 1,), piece_bounds
+    (2, P) int32). ``sum``: ``grad[e] = g_out[s]``; ``max``/``min``:
+    ``g_out[s] * (1 / ties)`` on the edges equal to the forward's output
+    ``out`` (S, d), column by column, with ``values`` (E, d) the forward's
+    input (both ignored for a sum); an edge in no segment gets 0 (see
+    ``ref.segment_reduce_grad_ref``). All contiguous on one CUDA device."""
+    dev = g_out.device
+    if dev.type != "cuda":
+        raise ValueError(f"g_out must be a CUDA tensor, got {dev}")
+    if op not in OPS:
+        raise ValueError(f"op must be one of {sorted(OPS)}, got {op!r}")
+    if g_out.dim() != 2:
+        raise ValueError(f"g_out must be (S, d), got {tuple(g_out.shape)}")
+    S, d = g_out.shape
+    E = order.shape[0] if order.dim() == 1 else -1
+    P = piece_bounds.shape[1] if piece_bounds.dim() == 2 else -1
+    if S < 1 or E < 0 or P < 0 or d < 1 or E * d > 2**62 or \
+            max(S, P, d) > _INT32_MAX or E > _INT32_MAX:
+        raise ValueError(f"shapes out of range: g_out {(S, d)}, order "
+                         f"{tuple(order.shape)}, piece_bounds "
+                         f"{tuple(piece_bounds.shape)} (need S >= 1, d >= 1,"
+                         f" each below 2^31)")
+    _check_rows("g_out", g_out, dev, (S, d))
+    _check_int32("order", order, dev, (E,))
+    _check_int32("offsets", offsets, dev, (S + 1,))
+    _check_int32("piece_offsets", piece_offsets, dev, (S + 1,))
+    _check_int32("piece_bounds", piece_bounds, dev, (2, P))
+    grad = torch.empty((E, d), dtype=torch.float32, device=dev)
+    rows = [g_out, grad]
+    if op == "sum":
+        values = out = ties = None
+    else:
+        if values is None or out is None:
+            raise ValueError(f"{op}'s backward needs the forward's values "
+                             f"and output")
+        _check_rows("values", values, dev, (E, d))
+        _check_rows("out", out, dev, (S, d))
+        rows += [values, out]
+        ties = torch.empty((P, d), dtype=torch.int32, device=dev)
+    lib = _grad_lib()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def ptr(t):
+        return None if t is None or t.numel() == 0 else t.data_ptr()
+
+    with _build.on_card(dev) as stream:
+        err = lib.segment_reduce_grad_launch(
+            g_out.data_ptr(), ptr(values), ptr(out), order.data_ptr(),
+            offsets.data_ptr(), piece_offsets.data_ptr(),
+            piece_bounds.data_ptr(), ptr(ties), grad.data_ptr(), E, S, P, d,
+            OPS[op], unit_width(*rows), sms, stream)
+    if err != 0:
+        msg = lib.segment_reduce_grad_error_string(err).decode()
+        raise RuntimeError(f"segment_reduce_grad launch failed: CUDA error "
+                           f"{err} ({msg})")
+    LAUNCHES["segment_reduce_grad"] += 1
+    return grad

@@ -176,8 +176,8 @@ def act_fn(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
 
 class MLP(nn.Module):
     """Dense layers ``x @ w + b`` with the JAX layout: ``weights[i]`` is
-    (d_in, d_out). Parameters are frozen: the serving paths need no
-    gradient (training is ported later)."""
+    (d_in, d_out). Parameters are made frozen (the serving paths need no
+    gradient); ``requires_grad_(True)`` makes them trainable."""
 
     def __init__(self, weights: Sequence[torch.Tensor],
                  biases: Sequence[torch.Tensor] | None = None):
@@ -199,7 +199,10 @@ class ParamTree(nn.Module):
     pytree: a dict becomes a submodule, a list an ``nn.ModuleList`` (its
     dicts submodules), a module (an :class:`MLP`) stays itself, and a
     tensor becomes a frozen parameter (the serving paths need no gradient).
-    ``tree["key"]`` reads as a dict."""
+    ``tree["key"]`` reads as a dict. The one way to make a tree trainable
+    is ``nn.Module.requires_grad_(True)``, which the GNN train step
+    (``GNNArch.build_step``) takes; :func:`tree_leaves` lists the
+    parameters in the JAX pytree's order."""
 
     def __init__(self, tree: Mapping):
         super().__init__()
@@ -222,6 +225,31 @@ class ParamTree(nn.Module):
     def keys(self) -> Iterator[str]:
         yield from self._parameters
         yield from self._modules
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a parameter tree in the order of ``jax.tree.leaves``
+    of the JAX package's pytree: a dict's (a :class:`ParamTree`'s) keys
+    sorted, a list's items in order, an :class:`MLP` as the JAX list of
+    {"w", "b"} layers (each layer's "b" before its "w"). Also takes that
+    pytree itself as nested dicts and lists of arrays, and a sequence of
+    leaves, which it returns as a list."""
+    if isinstance(tree, MLP):
+        out = []
+        for i, w in enumerate(tree.weights):
+            if tree.biases is not None:
+                out.append(tree.biases[i])
+            out.append(w)
+        return out
+    if isinstance(tree, ParamTree):
+        items = {**tree._parameters, **tree._modules}
+        return [leaf for key in sorted(items)
+                for leaf in tree_leaves(items[key])]
+    if isinstance(tree, Mapping):
+        return [leaf for key in sorted(tree) for leaf in tree_leaves(tree[key])]
+    if isinstance(tree, (nn.ModuleList, list, tuple)):
+        return [leaf for item in tree for leaf in tree_leaves(item)]
+    return [tree]
 
 
 def mlp_init(generator: torch.Generator, dims: Sequence[int],

@@ -5,8 +5,11 @@ Every aggregation is ``ops.segment_reduce`` over a :class:`SegmentPlan`
 (the stable sort of an index and its segment offsets), the port's
 counterpart of ``jax.ops.segment_sum/max/min``: on the card the
 hand-written ``csrc/segment_reduce.cu``, one summation order a cell, no
-float atomics. A plan is built once per index and batch and reused by
-every layer and aggregator over it. Counts of edges a segment (degrees,
+float atomics, and in training its backward ``csrc/segment_grad.cu``. A
+gather that carries a gradient (``h[src]``) takes the plan of its index,
+so that its backward is a segment sum too (``ops.gather_rows``). A plan
+is built once per index and batch and reused by every layer and
+aggregator over it. Counts of edges a segment (degrees,
 ``scatter_mean``'s divisor) come from the plan's offsets, exactly the
 ``segment_sum`` of ones the JAX package takes.
 
@@ -69,10 +72,16 @@ def scatter_min(values: torch.Tensor, plan: SegmentPlan) -> torch.Tensor:
     return ops.segment_reduce(values, plan, "min")
 
 
-def gather(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+def gather(x: torch.Tensor, index: torch.Tensor,
+           plan: SegmentPlan | None = None) -> torch.Tensor:
     """Rows ``x[index]`` as one ``index_select`` (int32 or int64 index),
     which on the H100 is faster than advanced indexing at d 47-75 and
-    level at d 16 (PERF.md, the GNN section)."""
+    level at d 16 (PERF.md, the GNN section). With the ``plan`` of the
+    index (``ops.gather_rows``), its gradient is a segment sum over that
+    plan instead of ``index_add_``; a gather that carries no gradient
+    (degrees, positions) takes none."""
+    if plan is not None:
+        return ops.gather_rows(x, index, plan)
     return torch.index_select(x, 0, index)
 
 

@@ -11,6 +11,10 @@ with numpy and gives the JAX loop's arrays, in its order. A triplet whose
 ``idx_ji`` lies outside [0, M) is padding: the triplet sum drops it, as
 ``segment_sum`` drops an index out of range, and the angle's gather reads
 a clamped index, as a JAX gather does.
+
+In training, the two gathers by ``idx_kj`` take its plan over the M edges,
+so their gradient is a segment sum; the basis values depend on the
+positions alone and enter the parameters' gradient as constants.
 """
 
 from __future__ import annotations
@@ -261,6 +265,7 @@ def apply(params: ParamTree, cfg: DimeNetConfig, batch: GraphBatch,
                           cfg.n_spherical, cfg.n_radial)    # (T, L*R)
 
     ji_plan = segment_plan(idx_ji, m_edges)     # the triplet sum's plan
+    kj_plan = segment_plan(idx_kj, m_edges)     # the gathers' gradient
     _, mdst = masked_edges(batch.edge_index, batch.edge_mask, n)
     dst_plan = segment_plan(mdst, n + 1)
     emask = batch.edge_mask.to(rbf.dtype)[:, None]
@@ -269,7 +274,8 @@ def apply(params: ParamTree, cfg: DimeNetConfig, batch: GraphBatch,
     for blk in params["blocks"]:
         g_rbf = rbf @ blk["w_rbf"]                          # (M, d)
         g_sbf = sbf @ blk["w_sbf"]                          # (T, nb)
-        m_kj = gather(msg, idx_kj) * gather(g_rbf, idx_kj)  # (T, d)
+        m_kj = (gather(msg, idx_kj, kj_plan)
+                * gather(g_rbf, idx_kj, kj_plan))          # (T, d)
         inter = bilinear(m_kj, blk["bilinear"], g_sbf)      # (T, d)
         agg = scatter_sum(inter, ji_plan)                   # sum over k
         msg = msg + mlp_apply(blk["upd"], torch.cat([msg, agg], -1),

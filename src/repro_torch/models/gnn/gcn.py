@@ -2,8 +2,11 @@
 ``repro/models/gnn/gcn.py``: the gcn-cora config, 2 layers, d=16,
 symmetric normalisation, the neighbour sum through ``ops.segment_reduce``.
 
-``apply`` and ``loss_fn`` are the forward half of the JAX package's train
-step. Its ``loss_fn_owner_computes`` (a ``shard_map`` over a ``data``
+``apply`` and ``loss_fn`` run under autograd in the train step
+(``GNNArch.build_step``): the gather ``h[src]`` takes the plan of the
+masked sources, whose masked rows carry zero gradient (their coefficient
+is 0), and the loss picks the label's log-probability by a one-hot
+product. Its ``loss_fn_owner_computes`` (a ``shard_map`` over a ``data``
 mesh) is not ported: the port has no data mesh yet.
 """
 
@@ -62,7 +65,8 @@ def apply(params: ParamTree, cfg: GCNConfig,
     """(N, n_classes) logits. The neighbour sum of a layer is one segment
     reduction over the masked destinations' plan (n + 1 segments, the
     trash row cut off: a masked edge has weight 0, so this is the JAX
-    package's sum over ``dst``); the degrees are the plans' counts."""
+    package's sum over ``dst``); the degrees are the plans' counts. The
+    gather's gradient is the segment sum over the masked sources' plan."""
     n = batch.node_feat.shape[0]
     src = batch.edge_index[0]
     msrc, mdst = masked_edges(batch.edge_index, batch.edge_mask, n)
@@ -75,7 +79,7 @@ def apply(params: ParamTree, cfg: GCNConfig,
     last = len(layers.weights) - 1
     for i, (w, b) in enumerate(zip(layers.weights, layers.biases)):
         h = h @ w + b                          # XW first (d_in -> d_hidden)
-        msg = gather(h, src) * coeff
+        msg = gather(h, src, src_plan) * coeff
         h = scatter_sum(msg, dst_plan)[:n] + h  # A_norm + I (self loop)
         if i < last:
             h = F.relu(h)
@@ -83,11 +87,15 @@ def apply(params: ParamTree, cfg: GCNConfig,
 
 
 def loss_of(logits: torch.Tensor, batch: GraphBatch) -> torch.Tensor:
-    """Masked mean negative log-likelihood of the labels, in float32."""
+    """Masked mean negative log-likelihood of the labels, in float32. The
+    label's log-probability is picked by a one-hot product (exact: the
+    other terms are zeros), whose backward is elementwise, where
+    ``torch.gather``'s would be a ``scatter_add_``."""
     mask = batch.node_mask.to(torch.float32)
     logp = F.log_softmax(logits.float(), dim=-1)
     labels = batch.labels.long().clamp_min(0)[:, None]
-    nll = -torch.gather(logp, 1, labels)[:, 0]
+    classes = torch.arange(logp.shape[-1], device=logp.device)
+    nll = -torch.where(classes == labels, logp, 0.0).sum(-1)
     return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
 
 

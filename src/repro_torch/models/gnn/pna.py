@@ -11,7 +11,10 @@ layer:
 δ is the mean log-degree of the training graph (a config constant here).
 Masked edges go to a trash node n, the four aggregators reduce over n + 1
 segments through one shared plan, and the trash row is cut off, as in the
-JAX package.
+JAX package. In training, the gathers ``h[src]`` and ``h[dst]`` take the
+plans of the masked sources and destinations (a masked edge's message is
+multiplied by 0, so its rows carry zero gradient), and the std's clamp
+passes half the gradient at exactly 0, as ``jnp.maximum`` does.
 """
 
 from __future__ import annotations
@@ -86,8 +89,9 @@ def apply(params: ParamTree, cfg: PNAConfig,
     valid = batch.edge_mask[:, None]
     h = mlp_apply(params["encoder"], batch.node_feat, "relu", final_act=True)
 
-    _, mdst = masked_edges(batch.edge_index, batch.edge_mask, n)
+    msrc, mdst = masked_edges(batch.edge_index, batch.edge_mask, n)
     plan = segment_plan(mdst, n + 1)        # all four aggregators' plan
+    src_plan = segment_plan(msrc, n + 1)    # the h[src] gather's gradient
     log_deg = torch.log1p(in_degree(plan, n))[:, None]
     amp = log_deg / cfg.delta
     att = cfg.delta / torch.clamp_min(log_deg, 1e-2)
@@ -95,13 +99,17 @@ def apply(params: ParamTree, cfg: PNAConfig,
 
     for layer in params["layers"]:
         m = mlp_apply(layer["msg"],
-                      torch.cat([gather(h, src), gather(h, dst)], -1),
+                      torch.cat([gather(h, src, src_plan),
+                                 gather(h, dst, plan)], -1),
                       "relu", final_act=True) * emask
         # masked aggregations (trash-node trick for max/min neutrality)
         mean_a = scatter_mean(m, plan)[:n]
         sum_sq = scatter_mean(m * m, plan)[:n]
-        std_a = torch.sqrt(torch.clamp_min(sum_sq - mean_a * mean_a, 0.0)
-                           + 1e-5)
+        # jnp.maximum(x, 0.) (repro/models/gnn/pna.py:78) passes half the
+        # gradient at x == 0 and clamp_min all of it; 0.5 (x + |x|) has
+        # clamp_min's bits and JAX's gradient
+        var = sum_sq - mean_a * mean_a
+        std_a = torch.sqrt(0.5 * (var + torch.abs(var)) + 1e-5)
         max_a = scatter_max(torch.where(valid, m, neg), plan)[:n]
         max_a = torch.where(torch.isfinite(max_a), max_a, 0.0)
         min_a = scatter_min(torch.where(valid, m, -neg), plan)[:n]

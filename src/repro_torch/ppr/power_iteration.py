@@ -12,8 +12,12 @@ weights are 1/deg_out(src), it is one ``ops.ell_spmv`` (K4 on the card,
 over the table's row plan ``in_plan``) a source and step, the sources run
 one after another as the JAX package vmaps over them. A graph whose
 in-degrees put it on the sliced table (every dataset stand-in: their Zipf
-targets make hubs) has no dense table to run K4 over, so its steps are a ``index_add_`` over the COO edge list, batched
-over sources: that is the layout's route, not a fallback.
+targets make hubs) has no dense table to run K4 over, so its steps run
+over the COO edge list, batched over sources: the (m, B) rows of the
+sources' mass gathered by ``edge_src``, then one ``ops.segment_reduce`` sum
+over the plan of ``edge_dst``, built once (on the card the segment
+reduction kernel, one summation order, so the rows repeat bit for bit).
+That is the layout's route, not a fallback.
 """
 
 from __future__ import annotations
@@ -44,18 +48,23 @@ def _seeds(sources: np.ndarray, n: int, dev: torch.device) -> torch.Tensor:
 def power_iteration_coo(graph: Graph, sources: np.ndarray, alpha: float,
                         iters: int, device: torch.device) -> torch.Tensor:
     """(B, n) PPR rows on ``device`` by ``iters`` steps over the COO edge
-    list with ``index_add_``, all sources at once."""
+    list, all sources at once: a step gathers the (m, B) rows of
+    ``pi / deg_out`` by ``edge_src`` and sums them by ``edge_dst`` with
+    ``ops.segment_reduce`` over the plan of ``edge_dst`` (each node's
+    in-edges in edge order)."""
     sources = np.asarray(sources, dtype=np.int64).reshape(-1)
     inv_deg = torch.as_tensor(
         (1.0 / np.maximum(graph.out_degree, 1)).astype(np.float32),
         device=device)
     edge_src = torch.as_tensor(graph.edge_src.astype(np.int64), device=device)
     edge_dst = torch.as_tensor(graph.edge_dst.astype(np.int64), device=device)
+    plan = ops.segment_plan(edge_dst, graph.n)
     seeds = _seeds(sources, graph.n, device)
     pi = seeds
     for _ in range(iters):
-        contrib = (pi * inv_deg)[:, edge_src]                 # (B, m)
-        moved = torch.zeros_like(pi).index_add_(1, edge_dst, contrib)
+        mass = (pi * inv_deg).t().contiguous()                # (n, B)
+        contrib = torch.index_select(mass, 0, edge_src)       # (m, B)
+        moved = ops.segment_reduce(contrib, plan, "sum").t()  # (B, n)
         pi = alpha * seeds + (1.0 - alpha) * moved
     return pi
 

@@ -1172,3 +1172,110 @@ def test_gnn_forward_on_card_matches_cpu_and_repeats(card, arch_id):
     torch.testing.assert_close(got.cpu(), want, rtol=rtol,
                                atol=rtol * float(want.abs().max()))
     assert float(loss) == pytest.approx(float(want_loss), rel=rtol)
+
+
+@pytest.mark.parametrize("op", ["sum", "max", "min"])
+@pytest.mark.parametrize("d", [1, 16, 75, 512])
+def test_segment_reduce_grad_matches_float64_plain_and_repeats(card, d, op):
+    """The backward kernel on the segment cases (a long segment cut into
+    pieces, empty and single-edge segments, edges in no segment), values on
+    a few levels so that max and min tie: within rtol 1e-5 of float64, the
+    same nonzero entries, bits repeating, through autograd too."""
+    from repro_torch.kernels import segment_reduce
+
+    values, index = _segment_case(3000, 64, d, seed=d + 1, device=card)
+    values = torch.round(values * 2.0)                 # ties
+    plan = ops.segment_plan(index, 64)
+    assert int(plan.piece_offsets[-1]) > 1
+    out = ops.segment_reduce(values, plan, op)
+    g_out = torch.randn(out.shape, generator=torch.Generator(card)
+                        .manual_seed(d), device=card)
+    segment_reduce.reset_launches()
+    got = ops.segment_reduce_grad(g_out, values, out, plan, op)
+    again = ops.segment_reduce_grad(g_out, values, out, plan, op)
+    torch.cuda.synchronize()
+    assert segment_reduce.LAUNCHES["segment_reduce_grad"] == 2
+    assert torch.equal(got, again)
+    want = ref.segment_reduce_grad_ref(g_out.double(), values.double(),
+                                       out.double(), plan.order,
+                                       plan.offsets, op)
+    assert torch.equal(got != 0, want != 0)
+    assert bool(((got.double() - want).abs()
+                 <= 1e-5 * want.abs()).all())
+    leaf = values.clone().requires_grad_(True)
+    (auto,) = torch.autograd.grad(ops.segment_reduce(leaf, plan, op), leaf,
+                                  g_out)
+    assert torch.equal(auto, got)
+    assert segment_reduce.LAUNCHES["segment_reduce_grad"] == 3
+
+
+@pytest.mark.parametrize("d", [1, 16, 75])
+def test_gather_rows_backward_on_card_is_the_segment_sum(card, d):
+    from repro_torch.kernels import segment_reduce
+
+    rng = np.random.default_rng(d)
+    x = torch.from_numpy(rng.standard_normal((300, d)).astype(np.float32))
+    index = torch.from_numpy(rng.integers(0, 300, 5000).astype(np.int32))
+    g = torch.from_numpy(rng.standard_normal((5000, d)).astype(np.float32))
+    leaf = x.to(card).requires_grad_(True)
+    plan = ops.segment_plan(index.to(card), 300)
+    segment_reduce.reset_launches()
+    (grad,) = torch.autograd.grad(
+        ops.gather_rows(leaf, index.to(card), plan), leaf, g.to(card))
+    (again,) = torch.autograd.grad(
+        ops.gather_rows(leaf, index.to(card), plan), leaf, g.to(card))
+    torch.cuda.synchronize()
+    assert segment_reduce.LAUNCHES["segment_reduce"] == 2
+    assert torch.equal(grad, again)
+    want = ref.segment_reduce_ref(g.double(), plan.order.cpu(),
+                                  plan.offsets.cpu(), "sum")[:300]
+    mag = ref.segment_reduce_ref(g.double().abs(), plan.order.cpu(),
+                                 plan.offsets.cpu(), "sum")[:300]
+    deg = plan.counts.cpu().double()[:300, None]
+    assert bool(((grad.cpu().double() - want).abs()
+                 <= deg * 2.0**-24 * mag + 1e-30).all())
+
+
+@pytest.mark.parametrize("arch_id", ["gcn-cora", "pna", "graphcast",
+                                     "dimenet"])
+def test_gnn_train_step_on_card_matches_cpu_and_repeats(card, arch_id):
+    """One smoke train step on the card against the CPU's (loss at the
+    model's rtol; parameters within rtol |p| + rtol max|p|, and 2 lr more
+    where the CPU gradient is at rounding level, whose Adam sign may
+    flip), and a second step from the same start with the same bits."""
+    import copy
+
+    from repro_torch.kernels import segment_reduce
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.optim import adamw_init
+
+    arch = get_arch(arch_id)
+    rtol = 1e-5 if arch_id == "gcn-cora" else 1e-4
+    params, inputs = arch.smoke_case(torch.Generator().manual_seed(0), "cpu")
+    start = copy.deepcopy(params)
+    _, grads = arch.grad_step(smoke=True)(copy.deepcopy(params), inputs)
+    tiny = [g.abs() <= rtol * g.abs() + rtol * float(g.abs().max())
+            for g in grads]
+    step = arch.build_step(smoke=True)
+    want, _, want_loss = step(params, adamw_init(params), inputs)
+    inputs_c = {k: v.to(card) for k, v in inputs.items()}
+    segment_reduce.reset_launches()
+    runs = []
+    for _ in range(2):
+        p = copy.deepcopy(start).to(card)
+        p, s, loss = step(p, adamw_init(p), inputs_c)
+        runs.append((p, s, loss))
+    torch.cuda.synchronize()
+    assert segment_reduce.LAUNCHES["segment_reduce_grad"] > 0
+    (p1, s1, l1), (p2, s2, l2) = runs
+    assert torch.equal(l1, l2)
+    assert all(torch.equal(a, b)
+               for a, b in zip(tree_leaves(p1), tree_leaves(p2)))
+    assert all(torch.equal(a, b) for a, b in zip(s1.m + s1.v, s2.m + s2.v))
+    assert float(l1) == pytest.approx(float(want_loss), rel=rtol)
+    lr = 3e-4 / 100                       # the first step's warm-up rate
+    for a, b, t in zip(tree_leaves(p1), tree_leaves(want), tiny):
+        b = b.detach().double()
+        limit = rtol * b.abs() + rtol * float(b.abs().max())
+        limit = torch.where(t, limit + 2 * lr, limit)
+        assert bool(((a.detach().cpu().double() - b).abs() <= limit).all())

@@ -39,6 +39,7 @@ from repro_torch.data import neighbor_sampler as t_sampler
 from repro_torch.kernels import segment_reduce
 from repro_torch.models.gnn import GraphBatch
 from repro_torch.models.gnn import dimenet as tdimenet
+from repro_torch.optim import adamw_init
 from repro_torch.ppr import datasets as t_datasets
 
 ARCHS = {"gcn-cora": (jgcn, 1e-5), "pna": (jpna, 1e-4),
@@ -276,8 +277,11 @@ def test_forward_step_on_a_cell_and_infer_run():
     again, loss2 = fwd(params, inp)
     assert out.shape == (3840, 2) and torch.isfinite(out).all()
     assert torch.equal(out, again) and float(loss) == float(loss2)
-    with pytest.raises(NotImplementedError):
-        arch.build_step("molecule")
+    state = adamw_init(params)
+    params, state, step_loss = arch.build_step("molecule")(params, state, inp)
+    assert float(step_loss) == float(loss) and int(state.step) == 1
+    moved, _ = fwd(params, inp)
+    assert torch.isfinite(moved).all() and not torch.equal(moved, out)
     for arch_id in ARCHS:
         res = get_arch(arch_id).infer_run(torch.Generator().manual_seed(0),
                                           "cpu")

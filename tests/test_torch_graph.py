@@ -209,6 +209,9 @@ def test_import_without_jax_loads_no_repro():
             "import repro_torch.models.gnn.graphcast\n"
             "import repro_torch.models.gnn.dimenet\n"
             "import repro_torch.kernels.segment_reduce\n"
+            "import repro_torch.optim, repro_torch.optim.adamw\n"
+            "from repro_torch.kernels.ops import gather_rows, "
+            "segment_reduce_grad\n"
             "from repro_torch.configs import gcn_cora, pna_arch, "
             "graphcast_arch, dimenet_arch\n"
             "from repro_torch.kernels.ops import segment_plan, "

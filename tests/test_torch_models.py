@@ -40,6 +40,7 @@ from repro_torch.configs import (DIN_SHAPES, LM_SHAPES, gemma_2b, get_arch,
 from repro_torch.kernels import flash_attention
 from repro_torch.models import common as tcommon
 from repro_torch.models import transformer as tt
+from repro_torch.optim import adamw_init
 
 # a second config beside gemma's smoke one: MHA, QKV bias, untied head
 _TINY = dict(name="tiny", n_layers=2, d_model=64, n_heads=4, n_kv_heads=4,
@@ -365,8 +366,13 @@ def test_unported_kinds_and_archs_raise():
         get_arch("din").build_step("train_batch")
     with pytest.raises(NotImplementedError, match="later slice"):
         get_arch("gemma-2b").model_flops("train_4k")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        get_arch("pna").build_step("full_graph_sm")
+    pna = get_arch("pna")                      # GNN training is ported
+    gen = torch.Generator().manual_seed(0)
+    params = pna.init_params(gen, "cpu", shape_id="full_graph_sm")
+    _, state, loss = pna.build_step("full_graph_sm")(
+        params, adamw_init(params),
+        pna.make_inputs("full_graph_sm", gen, "cpu"))
+    assert torch.isfinite(loss) and int(state.step) == 1
     with pytest.raises(KeyError, match="later slice"):
         get_arch("ppr-fora")
     with pytest.raises(KeyError, match="unknown arch"):
