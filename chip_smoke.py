@@ -42,7 +42,8 @@ drives the port's main path, in phases:
    Web-Stanford stand-in through ``ForaExecutor`` into ``dna_real``, with
    FORA checked against power iteration on three sources (the sliced
    table's COO loop, a ``segment_reduce`` a step: K4 launches no time; run
-   twice, it must give the same bits);
+   twice, it must give the same bits; its last step's reduction held
+   against float64 plain and timed as phase 14 holds the GNNs');
 4. the index paths (FORA+): rows of each walk index rebuilt on the CPU
    must equal the card's; the dense path through
    ``ForaExecutor(index_budget=DENSE_INDEX_WIDTH)`` at coverage 1.0; the
@@ -209,18 +210,23 @@ drives the port's main path, in phases:
    must give a finite output and loss of the right shapes, the same bits
    from a second forward, and the segment_reduce launches of the model's
    structure. ``csrc/segment_reduce.cu`` is held against its float64
-   plain version at four real layer-0 aggregations (GCN's on
-   ogb_products, PNA's four aggregators and GraphCast's on minibatch_lg,
-   DimeNet's triplet sum on molecule): a sum within deg 2^-24 sum|v| +
-   1e-30 a cell, max and min equal, bits repeating; the limit must refuse
-   a version that drops each segment's last edge and one that reads each
-   segment's end one edge late. Each smoke configuration runs on the card
+   plain version at real aggregations: GCN's two layers on ogb_products
+   (d 16 and 47, the contiguous route) and its gathers' backward sums
+   (the gathered route), PNA's four aggregators and GraphCast's layer 0
+   on minibatch_lg, DimeNet's triplet sum on molecule: a sum within deg
+   2^-24 sum|v| + 1e-30 a cell, max and min equal, bits repeating; the
+   limit must refuse a version that drops each segment's last edge, one
+   that reads each segment's end one edge late and one that drops a
+   segment's part before its first run boundary (the carry). Where the
+   kernel is slower than one of its library calls, the floor of
+   ``tools/segment_floors.cu`` at that shape is printed beside it. Each
+   smoke configuration runs on the card
    and on the CPU within the CPU parity tolerance. Printed: ms a forward
    by CUDA events beside ``forward_flops``/``forward_bytes``' least time,
    peak memory, profiles of GCN on ogb_products and GraphCast on
    minibatch_lg split into the plans, GEMMs, gathers, segment_reduce and
    the rest with the idle share (not gated), and the kernel's device time
-   at the four aggregations (queued behind a sleep kernel, CUDA events)
+   at those aggregations (queued behind a sleep kernel, CUDA events)
    beside its bound, its plain version and ``index_add_``,
    ``scatter_reduce`` (amax) and ``torch.segment_reduce``;
 15. GNN training on the same 13 cells through ``get_arch(id).build_step``
@@ -233,13 +239,15 @@ drives the port's main path, in phases:
    backward ``index_add`` first), and the launches of ``segment_reduce``
    and ``segment_reduce_grad`` that the model's structure gives.
    ``csrc/segment_grad.cu`` is held against its float64 plain version at
-   four real layer-0 aggregations (GCN's sum on ogb_products, PNA's max
-   and min on minibatch_lg with their ties and trash segment,
-   GraphCast's sum on minibatch_lg, DimeNet's triplet sum on molecule)
-   with a seeded output gradient: rtol 1e-5, the tied entries exactly
-   the plain version's, bits repeating; the limit must refuse a backward
-   that gives the whole gradient to the first tied edge and one that
-   leaves each segment's last edge unwritten. Each smoke configuration's
+   five real aggregations (GCN's two layers on ogb_products, the
+   contiguous route; PNA's max and min on minibatch_lg with their ties
+   and trash segment, GraphCast's sum on minibatch_lg, DimeNet's triplet
+   sum on molecule, the gathered route) with a seeded output gradient:
+   rtol 1e-5, the tied entries exactly the plain version's, the rows of
+   edges in no segment 0, bits repeating; the limit must refuse a
+   backward that gives the whole gradient to the first tied edge, one
+   that leaves each segment's last edge unwritten and one that gives
+   each segment's first edge the row before it. Each smoke configuration's
    three train steps run on the card against the CPU's. Printed: ms a
    step by CUDA events beside ``model_flops``/``model_bytes``' least
    time, peak memory, profiles of GCN on ogb_products and GraphCast on
@@ -268,6 +276,7 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 FLOORS_SRC = ROOT / "tools" / "ell_floors.cu"
+SEGMENT_FLOORS_SRC = ROOT / "tools" / "segment_floors.cu"
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 FP32_FLOPS_PER_S = 67e12           # H100 SXM float32 outside tensor cores
 # kernel against its float64 plain version: every output within RTOL of
@@ -383,11 +392,15 @@ GNN_CELLS = (("gcn-cora", ("full_graph_sm", "minibatch_lg", "ogb_products",
              ("pna", ("full_graph_sm", "minibatch_lg", "molecule")),
              ("graphcast", ("full_graph_sm", "minibatch_lg", "molecule")),
              ("dimenet", ("full_graph_sm", "minibatch_lg", "molecule")))
-# the layer-0 aggregations held against float64 plain and timed: the
-# first n segment_reduce calls of the cell's forward
-GNN_CHECKS = {("gcn-cora", "ogb_products"): 1, ("pna", "minibatch_lg"): 4,
+# the aggregations held against float64 plain and timed: the first n
+# segment_reduce calls of the cell's forward (GCN's: layers 0 and 1)
+GNN_CHECKS = {("gcn-cora", "ogb_products"): 2, ("pna", "minibatch_lg"): 4,
               ("graphcast", "minibatch_lg"): 1, ("dimenet", "molecule"): 1}
 GNN_PROFILES = {("gcn-cora", "ogb_products"), ("graphcast", "minibatch_lg")}
+# the cells whose gathers' backward sums (segment_reduce over the plan of
+# the gather's index) are held against float64 plain and timed
+GATHER_CHECKS = {("gcn-cora", "ogb_products")}
+SEGMENT_FLOORS_LIB = None      # tools/segment_floors.cu's library, once built
 GNN_REPS = {("gcn-cora", "ogb_products"): 5, ("graphcast", "minibatch_lg"): 3,
             ("dimenet", "minibatch_lg"): 3}
 GNN_REPS_DEFAULT = 10
@@ -395,8 +408,8 @@ GNN_REPS_DEFAULT = 10
 GNN_RTOL = {"gcn-cora": 1e-5, "pna": 1e-4, "graphcast": 1e-4,
             "dimenet": 1e-4}
 F32_FLOPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
-SEGMENT_KERNELS = ("segment_rows", "segment_pieces")
-GRAD_KERNELS = ("grad_rows", "grad_pieces", "grad_piece_ties")
+SEGMENT_KERNELS = ("reduce_level",)
+GRAD_KERNELS = ("ties_first", "ties_level", "grad_flat")
 GATHER_OPS = ("aten::index_select", "aten::index", "aten::gather")
 SEGMENT_REPS = 20
 # phase 15: GNN training at the same 13 cells
@@ -407,7 +420,7 @@ GNN_TRAIN_REPS_DEFAULT = 5
 # the aggregations whose backward is held against float64 plain and timed:
 # indices into the cell's forward segment_reduce calls (PNA's layer 0: #2
 # max, #3 min)
-GRAD_CHECKS = {("gcn-cora", "ogb_products"): (0,),
+GRAD_CHECKS = {("gcn-cora", "ogb_products"): (0, 1),
                ("pna", "minibatch_lg"): (2, 3),
                ("graphcast", "minibatch_lg"): (0,),
                ("dimenet", "molecule"): (0,)}
@@ -1608,17 +1621,18 @@ def phase7_din(dev, gen, card: str) -> dict:
             "library_ms": lib_ms}
 
 
-def start_floors_build():
-    """nvcc started on ``tools/ell_floors.cu`` (measurement only) with the
-    port's flags, beside the port's own builds. Returns (process, the
-    library it writes)."""
+def start_floors_build(src=FLOORS_SRC):
+    """nvcc started on a measurement-only source under ``tools/``
+    (``ell_floors.cu``, ``segment_floors.cu``) with the port's flags,
+    beside the port's own builds. Returns (process, the library it
+    writes)."""
     from repro_torch.kernels import _build
 
-    out = _build.BUILD_DIR.parent / "tools" / "libell_floors.so"
+    out = _build.BUILD_DIR.parent / "tools" / f"lib{src.stem}.so"
     out.parent.mkdir(parents=True, exist_ok=True)
     proc = subprocess.Popen(
         [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(out),
-         str(FLOORS_SRC)], stdout=subprocess.PIPE,
+         str(src)], stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True)
     return proc, out
 
@@ -3497,15 +3511,18 @@ def gnn_output_shape(arch, shape_id: str) -> tuple[int, int]:
 
 
 @contextmanager
-def recorded_segments():
-    """While open, every ``ops.segment_reduce`` call of the GNN modules is
-    recorded, (values, plan, op), into the list it yields."""
+def recorded_segments(last: bool = False):
+    """While open, every ``ops.segment_reduce`` call (with ``last``, only
+    the latest) is recorded, (values, plan, op), into the list it
+    yields."""
     from repro_torch.kernels import ops
 
     seen: list = []
     reduce = ops.segment_reduce
 
     def recording(values, plan, op):
+        if last:
+            seen.clear()
         seen.append((values, plan, op))
         return reduce(values, plan, op)
 
@@ -3517,10 +3534,38 @@ def recorded_segments():
 
 
 @contextmanager
+def recorded_gathers():
+    """While open, every ``ops.gather_rows`` call is recorded, (rows,
+    index, plan), into the list it yields: the plan whose segment sum is
+    the gather's backward."""
+    from repro_torch.kernels import ops
+
+    seen: list = []
+    gather = ops.gather_rows
+
+    def recording(x, index, plan):
+        seen.append((x, index, plan))
+        return gather(x, index, plan)
+
+    ops.gather_rows = recording
+    try:
+        yield seen
+    finally:
+        ops.gather_rows = gather
+
+
+def check_label(arch_id: str, shape_id: str, i: int) -> str:
+    """The label of a cell's i-th recorded aggregation: GCN's are its
+    layers, the others' the first layer's."""
+    layer = i if arch_id == "gcn-cora" else 0
+    return f"{arch_id} {shape_id} layer {layer} #{i}"
+
+
+@contextmanager
 def annotated_plans():
     """While open, each GNN model's ``segment_plan`` runs inside a
     ``record_function`` range named "gnn:plan" (the stable sort, the
-    offsets and the pieces)."""
+    offsets and the keys)."""
     from torch.profiler import record_function
 
     from repro_torch.kernels import ops
@@ -3528,9 +3573,9 @@ def annotated_plans():
 
     mods = (dimenet, gcn, graphcast, pna)
 
-    def annotated(index, num_segments):
+    def annotated(index, num_segments, **kw):
         with record_function("gnn:plan"):
-            return ops.segment_plan(index, num_segments)
+            return ops.segment_plan(index, num_segments, **kw)
 
     for m in mods:
         m.segment_plan = annotated
@@ -3543,7 +3588,7 @@ def annotated_plans():
 
 def gnn_profile(label: str, fn) -> None:
     """Where one forward spends the card's time, under ``torch.profiler``:
-    ``segment_reduce`` by kernel name; the plans (sort, offsets, pieces) by
+    ``segment_reduce`` by kernel name; the plans (sort, offsets, keys) by
     their range; GEMMs and gathers by the op that launched each kernel;
     ``segment_reduce_grad`` by kernel name; the rest (elementwise, norms,
     concatenations, AdamW); and the share of the wall time the card was
@@ -3630,114 +3675,226 @@ def queued_ms(fn, reps: int) -> float:
 
 def segment_bound(plan, d: int) -> float:
     """Least ms of a reduction on the card: the rows inside segments read
-    once, their order entries and the offsets read once, the output
-    written once, over the memory rate (float32, int32)."""
+    once, their order entries (or keys, on the contiguous route) and the
+    offsets read once, the output written once, over the memory rate
+    (float32, int32)."""
     off = plan.offsets
     rows = int(off[-1] - off[0])
     S = plan.num_segments
     return (rows * d + rows + S + 1 + S * d) * 4 / HBM_BYTES_PER_S * 1e3
 
 
+SEG_IDENT = {"sum": 0.0, "max": -math.inf, "min": math.inf}
+
+
+def plain_fold(rows, seg, S: int, op: str):
+    """The float64 plain fold of (P, w) rows into S segments by seg (P,)."""
+    import torch
+
+    out = torch.full((S, rows.shape[1]), SEG_IDENT[op], dtype=rows.dtype,
+                     device=rows.device)
+    if op == "sum":
+        return out.index_add_(0, seg, rows)
+    return out.scatter_reduce_(0, seg[:, None].expand_as(rows), rows,
+                               "amax" if op == "max" else "amin")
+
+
+def column_chunks(E: int, d: int) -> list[tuple[int, int]]:
+    """Column slices whose float64 copy of E rows stays near 2 GB."""
+    w = max(1, min(d, (2 << 30) // max(8 * E, 1)))
+    return [(c, min(c + w, d)) for c in range(0, d, w)]
+
+
+def segment_positions(plan):
+    """The positions inside segments, int64 on the plan's device: their
+    rows, their segments, their segments' starts and ends, and the
+    positions themselves."""
+    import torch
+
+    lo, hi = int(plan.offsets[0]), int(plan.offsets[-1])
+    seg = plan.keys[lo:hi].long()
+    rows = plan.rows()[lo:hi].long()
+    off = plan.offsets.long()
+    return rows, seg, off[:-1][seg], off[1:][seg], torch.arange(
+        lo, hi, device=seg.device)
+
+
+def segment_floors(lib_path, flat, plan, card: str, label: str,
+                   write: bool) -> float:
+    """One floor of ``tools/segment_floors.cu`` (measurement only) at a
+    recorded shape, in device time: the read floor (every position's row
+    through the order or as a stream, and its key, read once) or, with
+    ``write``, the write floor (the (E, d) gradient written once as 16-byte
+    units from the keys alone)."""
+    import ctypes
+
+    import torch
+
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib = ctypes.CDLL(str(lib_path))
+    for fn, args, res in (
+            ("segment_read_floor_launch", [P, P, P, L, I, I, P, P], I),
+            ("segment_write_floor_launch", [P, L, I, P, P], I),
+            ("segment_floor_warps", [], I),
+            ("segment_floors_error_string", [I], ctypes.c_char_p)):
+        getattr(lib, fn).argtypes, getattr(lib, fn).restype = args, res
+    E, d = flat.shape
+    dev = flat.device
+
+    def run(err):
+        check(err == 0, f"segment floor kernel: CUDA error {err} "
+              f"({lib.segment_floors_error_string(err).decode()})")
+
+    stream = lambda: torch.cuda.current_stream(dev).cuda_stream  # noqa
+    if write:
+        grad = torch.empty((E, d), device=dev)
+        ms = queued_ms(lambda: run(lib.segment_write_floor_launch(
+            plan.keys.data_ptr(), E, d, grad.data_ptr(), stream())),
+            SEGMENT_REPS)
+        what = "the gradient written once as 16-byte units, keys read once"
+        del grad
+    else:
+        sums = torch.empty(lib.segment_floor_warps(), device=dev)
+        order = None if plan.order is None else plan.order.data_ptr()
+        vec = 4 if d % 4 == 0 else 1
+        ms = queued_ms(lambda: run(lib.segment_read_floor_launch(
+            flat.data_ptr(), order, plan.keys.data_ptr(), E, d, vec,
+            sums.data_ptr(), stream())), SEGMENT_REPS)
+        what = ("each position's row " + ("through the order" if order
+                                          else "as one stream")
+                + " and its key read once")
+    print(f"  {label}: floor {ms * 1e3:10.2f} us (device, queued events; "
+          f"{what})  [{card}]")
+    return ms
+
+
 def segment_check(label: str, values, plan, op: str, card: str,
-                  stats: dict, time_it: bool) -> None:
+                  stats: dict, time_it: bool, floors_lib=None) -> None:
     """The kernel against its float64 plain version on one recorded
-    aggregation: sum within deg 2^-24 sum|v| + 1e-30 a cell, max and min
-    equal; a second launch the same bits; a version that drops each
-    segment's last edge and one that reads each segment's end one edge late
-    refused. With ``time_it``, the kernel's time beside its bound, the plain
-    version's and the three library calls'."""
+    aggregation, on the route its plan gives (the contiguous route where
+    the plan has no order): sum within deg 2^-24 sum|v| + 1e-30 a cell,
+    max and min equal; a second launch the same bits; versions that drop
+    each segment's last edge, read each segment's end one edge late, and
+    drop the carry of a segment across its first run boundary refused.
+    Checked in column chunks (float64 copies near 2 GB). With ``time_it``,
+    the kernel's time beside its bound, the plain version's and the three
+    library calls'; where the kernel is slower than the fastest of them,
+    the read floor (``tools/segment_floors.cu``) beside it."""
     import torch
 
     from repro_torch.kernels import ref
-    from repro_torch.kernels.segment_reduce import segment_reduce_cuda
+    from repro_torch.kernels import segment_reduce as sr
 
     flat = values.reshape(values.shape[0], -1).contiguous()
     E, d = flat.shape
-    args = (plan.order, plan.offsets, plan.piece_offsets, plan.piece_bounds)
-    kern = lambda: segment_reduce_cuda(flat, *args, op)  # noqa: E731
+    S = plan.num_segments
+    kern = lambda: sr.segment_reduce_cuda(  # noqa: E731
+        flat, plan.order, plan.keys, plan.offsets, op)
     torch.cuda.synchronize()
     out = kern()
     again = kern()
     torch.cuda.synchronize()
     check(bool(torch.equal(out, again)), f"segment_reduce {label}: a second "
           f"launch gave other bits")
-    v64 = flat.double()
-    starts, ends = plan.offsets[:-1], plan.offsets[1:]
-    want = ref.segment_ranges_ref(v64, plan.order, starts, ends, op)
+    del again
+    rows, seg, starts, ends, pos = segment_positions(plan)
+    R1, RL = sr.run_lengths(E, d, sr.unit_width(d))
+    boundary = (starts // R1 + 1) * R1
+    carried = (boundary < ends) & (pos < boundary)
+    late = (ends < E) & (pos == ends - 1)       # a segment's last position
+    late_rows = plan.rows().long()[ends[late]]
+    broken = {"each segment's last edge dropped": pos != ends - 1,
+              "each segment's end read one edge late": None,
+              "a run boundary's carry dropped": ~carried}
     deg = plan.counts.double()[:, None]
-    if op == "sum":
-        mag = ref.segment_ranges_ref(v64.abs(), plan.order, starts, ends,
-                                     "sum")
-        limit = deg * 2.0**-24 * mag + 1e-30
-        del mag
+    ratio, err = 0.0, 0.0
+    bad_ratio = dict.fromkeys(broken, 0.0)
+    for c0, c1 in column_chunks(E, d):
+        part = flat[:, c0:c1]
+        r64 = part[rows].double()
+        want = plain_fold(r64, seg, S, op)
+        got = out[:, c0:c1].double()
+        if op == "sum":
+            limit = deg * 2.0**-24 * plain_fold(r64.abs(), seg, S, "sum") \
+                + 1e-30
 
-        def ratio_of(got):
-            return float(((got.double() - want).abs() / limit).max())
-    else:
-        limit = None
-
-        def ratio_of(got):
-            return 0.0 if torch.equal(got.double(), want) else float("inf")
-    ratio = ratio_of(out)
-    err = float((out.double() - want).abs().nan_to_num(0.0).max())
+            def ratio_of(x):
+                return float(((x - want).abs() / limit).max())
+        else:
+            def ratio_of(x):
+                return 0.0 if torch.equal(x, want) else float("inf")
+        ratio = max(ratio, ratio_of(got))
+        err = max(err, float((got - want).abs().nan_to_num(0.0).max()))
+        for name, keep in broken.items():
+            if keep is None:
+                extra = part[late_rows].double()
+                bad = plain_fold(torch.cat([r64, extra]),
+                                 torch.cat([seg, seg[late]]), S, op)
+            else:
+                bad = plain_fold(r64[keep], seg[keep], S, op)
+            bad_ratio[name] = max(bad_ratio[name], ratio_of(bad))
+            del bad
+        del r64, want, got
     stats["max_abs_err"] = max(stats["max_abs_err"], err)
-    long_segs = int((plan.piece_offsets[1:] > plan.piece_offsets[:-1]).sum())
-    rule = "deg 2^-24 sum|v|" if limit is not None else "bit-equal"
+    rule = "deg 2^-24 sum|v|" if op == "sum" else "bit-equal"
+    route = "gathered" if plan.order is not None else "contiguous"
+    crossing = int(((boundary < ends) & (pos == starts)).sum())
     print(f"  segment_reduce {label}: {op} of E={E} rows, d={d}, into "
-          f"S={plan.num_segments} segments (largest "
-          f"{int(plan.counts.max())} edges, {long_segs} cut into pieces), "
-          f"max_abs_err={err:.3e} err/limit={ratio:.4f} "
-          f"{'ok' if ratio <= 1 else 'FAIL'} ({rule}); bits repeat")
+          f"S={S} segments on the {route} route (largest "
+          f"{int(plan.counts.max())} edges; runs of {R1} then {RL}, "
+          f"{len(sr.levels(E, d))} levels, {crossing} segments "
+          f"carried across a run boundary), max_abs_err={err:.3e} "
+          f"err/limit={ratio:.4f} {'ok' if ratio <= 1 else 'FAIL'} "
+          f"({rule}); bits repeat")
     check(ratio <= 1.0, f"segment_reduce {label}: error above its limit "
           f"(ratio {ratio})")
-    E_all = int(plan.order.shape[0])
-    for bad, lo, hi in (
-            ("each segment's last edge dropped", starts,
-             torch.maximum(ends - 1, starts)),
-            ("each segment's end read one edge late", starts,
-             torch.clamp(ends + 1, max=E_all))):
-        got = ref.segment_ranges_ref(v64, plan.order, lo, hi, op)
-        r = ratio_of(got)
-        print(f"  segment_reduce {label} broken: {bad:40s} err/limit="
+    for name, r in bad_ratio.items():
+        print(f"  segment_reduce {label} broken: {name:40s} err/limit="
               f"{r:.4g} {'refused' if r > 1 else 'PASSED'}")
         check(r > 1.0, f"segment_reduce {label}: the check passes a broken "
-              f"version ({bad})")
-        del got
-    del want, limit, v64
+              f"version ({name})")
+    del rows, seg, starts, ends, pos, boundary, carried, late, late_rows
+    del broken
     if not time_it:
         return
     ms = queued_ms(kern, SEGMENT_REPS)
     plain_ms = events_ms(lambda: ref.segment_reduce_ref(
-        flat, plan.order, plan.offsets, op), 3)
+        flat, plan.rows(), plan.offsets, op), 3)
     # the library calls, never on the path: index_add_ and scatter_reduce
     # (amax) over the in-segment rows with their segment ids, and
     # torch.segment_reduce over the rows already sorted by segment
-    S = plan.num_segments
     seg_of = torch.full((E,), -1, dtype=torch.long, device=flat.device)
-    inside = plan.order[int(plan.offsets[0]):int(plan.offsets[-1])].long()
-    seg_of[inside] = torch.repeat_interleave(
-        torch.arange(S, device=flat.device), plan.counts.long())
+    lo, hi = int(plan.offsets[0]), int(plan.offsets[-1])
+    inside = plan.rows()[lo:hi].long()
+    seg_of[inside] = plan.keys[lo:hi].long()
     keep = seg_of >= 0
-    rows, ids = flat[keep], seg_of[keep]
-    sorted_rows = flat[inside]
+    lib_rows, ids = flat[keep], seg_of[keep]
+    sorted_rows = flat[inside] if plan.order is not None else flat[lo:hi]
     lengths = plan.counts.long()
     lib = {
         "index_add_": lambda: torch.zeros((S, d), device=flat.device)
-        .index_add_(0, ids, rows),
+        .index_add_(0, ids, lib_rows),
         "scatter_reduce amax": lambda: torch.full(
             (S, d), -float("inf"), device=flat.device).scatter_reduce_(
-            0, ids[:, None].expand(-1, d), rows, "amax"),
+            0, ids[:, None].expand(-1, d), lib_rows, "amax"),
         f"torch.segment_reduce {op}": lambda: torch.segment_reduce(
             sorted_rows, op, lengths=lengths, axis=0, unsafe=True)}
     lib_ms = {name: queued_ms(fn, SEGMENT_REPS) for name, fn in lib.items()}
     bound = segment_bound(plan, d)
-    stats["timed"].append((label, ms, plain_ms, bound, lib_ms["index_add_"]))
+    stats["timed"].append((label, ms, plain_ms, bound,
+                           lib_ms[f"torch.segment_reduce {op}"]))
     print(f"  segment_reduce {label}: kernel {ms * 1e3:10.2f} us (device, "
           f"queued events)  bound {bound * 1e3:9.2f} us (bytes)  plain "
           f"{plain_ms * 1e3:10.2f} us  " + "  ".join(
               f"{name} {t * 1e3:10.2f} us" for name, t in lib_ms.items())
           + f"  [{card}]")
-    del seg_of, rows, ids, sorted_rows
+    del seg_of, lib_rows, ids, sorted_rows, keep, inside
+    if floors_lib is not None and ms > min(lib_ms.values()):
+        floor = segment_floors(floors_lib, flat, plan, card,
+                               f"segment_reduce {label}", write=False)
+        print(f"  segment_reduce {label}: slower than "
+              f"{min(lib_ms, key=lib_ms.get)}; the kernel reaches "
+              f"{floor / ms:.3f} of the read floor")
 
 
 def gnn_cell(arch_id: str, shape_id: str, web, dev, gen, card: str,
@@ -3773,7 +3930,7 @@ def gnn_cell(arch_id: str, shape_id: str, web, dev, gen, card: str,
     fwd(params, inputs)                                   # warm up
     torch.cuda.synchronize()
     segment_reduce.reset_launches()
-    with recorded_segments() as seen:
+    with recorded_segments() as seen, recorded_gathers() as gathers:
         t0 = time.perf_counter()
         out, loss = fwd(params, inputs)
         torch.cuda.synchronize()
@@ -3807,7 +3964,9 @@ def gnn_cell(arch_id: str, shape_id: str, web, dev, gen, card: str,
     stats["cells"].append((arch_id, shape_id, ms, least, peak))
     calls = GNN_CHECKS.get((arch_id, shape_id), 0)
     keep[(arch_id, shape_id)] = seen[:calls]
-    del seen
+    if (arch_id, shape_id) in GATHER_CHECKS:
+        keep["gathers"] = [(x.shape[1], plan) for x, _, plan in gathers]
+    del seen, gathers
     if (arch_id, shape_id) in GNN_PROFILES:
         gnn_profile(f"{arch_id} {shape_id} forward",
                     lambda: fwd(params, inputs))
@@ -3838,11 +3997,23 @@ def phase14_gnn(dev, gen, card: str) -> dict:
             t0 = time.perf_counter()
             launches += gnn_cell(arch_id, shape_id, web, dev, gen, card,
                                  stats, keep)
+            gathers = keep.pop("gathers", [])
             for (a, s), calls in keep.items():
                 for i, (values, plan, op) in enumerate(calls):
-                    segment_check(f"{a} {s} layer 0 #{i}", values, plan,
-                                  op, card, stats, time_it=True)
+                    segment_check(check_label(a, s, i), values, plan, op,
+                                  card, stats, time_it=True,
+                                  floors_lib=SEGMENT_FLOORS_LIB)
             del keep
+            # the gathers' backward sums: a seeded output gradient summed
+            # over the plan of each gather's index
+            for i, (d, plan) in enumerate(gathers):
+                g = torch.randn((plan.num_positions, d), generator=gen,
+                                device=gen.device).to(dev)
+                segment_check(f"{arch_id} {shape_id} layer {i} gather "
+                              f"backward", g, plan, "sum", card, stats,
+                              time_it=True, floors_lib=SEGMENT_FLOORS_LIB)
+                del g
+            del gathers
             torch.cuda.empty_cache()
             print(f"  {arch_id} {shape_id} wall "
                   f"{time.perf_counter() - t0:.1f}s")
@@ -3869,7 +4040,7 @@ def phase14_gnn(dev, gen, card: str) -> dict:
               f"on the card is not the CPU's")
     ms, plain_ms, bound, lib_ms = next(
         (t[1], t[2], t[3], t[4]) for t in stats["timed"]
-        if t[0].startswith("gcn-cora ogb_products"))
+        if t[0].startswith("gcn-cora ogb_products layer 0"))
     print(f"  phase 14 wall {time.perf_counter() - t_phase:.1f}s")
     return {"name": "segment_reduce", "launches": launches,
             "max_abs_err": stats["max_abs_err"], "ms": ms,
@@ -3903,11 +4074,11 @@ def float_scatter_recorder():
 
 def segment_grad_bound(plan, d: int, op: str) -> float:
     """Least ms of the backward on the card: the g_out rows of the
-    segments that have edges read once, the order and offsets read once,
-    every gradient row written once, and for max and min the value rows
-    of the edges inside segments and the output rows of those segments
-    read once (float32, int32)."""
-    E, S = int(plan.order.shape[0]), plan.num_segments
+    segments that have edges read once, the order (or keys) and offsets
+    read once, every gradient row written once, and for max and min the
+    value rows of the edges inside segments and the output rows of those
+    segments read once (float32, int32)."""
+    E, S = plan.num_positions, plan.num_segments
     live = int((plan.counts > 0).sum())
     inside = int(plan.offsets[-1] - plan.offsets[0])
     words = live * d + E + S + 1 + E * d
@@ -3916,50 +4087,47 @@ def segment_grad_bound(plan, d: int, op: str) -> float:
     return words * 4 / HBM_BYTES_PER_S * 1e3
 
 
-def segment_grad_broken(kind: str, g_out, values, out, plan, op: str):
-    """The float64 plain backward broken one way: ``first`` gives the whole
-    gradient to the first tied edge of each segment and column (for a sum,
-    to the first edge of each segment) and 0 to the others; ``last`` leaves
-    each segment's last edge unwritten (0)."""
+def segment_grad_broken(kind: str, want, hit, g64, seg, pos, starts, ends):
+    """The float64 plain backward's rows at the positions inside segments,
+    broken one way: ``first`` gives the whole gradient to the first tied
+    edge of each segment and column (for a sum, to the first edge of each
+    segment) and 0 to the others; ``last`` leaves each segment's last edge
+    unwritten (0); ``shift`` gives each segment's first edge the row of the
+    position before it (the segment before's last edge)."""
     import torch
 
-    from repro_torch.kernels import ref
-
-    grad = ref.segment_reduce_grad_ref(g_out, values, out, plan.order,
-                                       plan.offsets, op)
-    off = plan.offsets.long()
-    lengths = (off[1:] - off[:-1]).clamp_min(0)
-    seg = torch.repeat_interleave(torch.arange(plan.num_segments,
-                                               device=off.device), lengths)
-    pos = torch.arange(seg.shape[0], device=off.device) + off[0]
-    rows = plan.order[pos].long()
+    bad = want.clone()
     if kind == "last":
-        ends = pos == (off[1:][seg] - 1)
-        grad[rows[ends]] = 0.0
-        return grad
-    if op == "sum":
-        first = (pos == off[:-1][seg])[:, None]
-        grad[rows] = torch.where(first, g_out[seg], 0.0)
-        return grad
-    hit = (values[rows] == out[seg]).long()
-    seen = torch.cumsum(hit, 0)
-    before = (seen - hit)[(off[:-1] - off[0]).clamp(max=max(len(pos) - 1,
-                                                           0))][seg]
-    first = (hit == 1) & (seen - before == 1)
-    grad[rows] = torch.where(first, g_out[seg], 0.0)
-    return grad
+        bad[pos == ends - 1] = 0.0
+        return bad
+    if kind == "shift":
+        first = torch.nonzero(pos == starts).flatten()
+        first = first[first > 0]
+        bad[first] = want[first - 1]
+        return bad
+    if hit is None:
+        return torch.where((pos == starts)[:, None], g64[seg], 0.0)
+    h = hit.long()
+    seen = torch.cumsum(h, 0)
+    before = (seen - h)[(starts - pos[0]).clamp(max=max(len(pos) - 1, 0))]
+    return torch.where((h == 1) & (seen - before == 1), g64[seg], 0.0)
 
 
 def segment_grad_check(label: str, values, plan, op: str, card: str,
-                       gen, stats: dict, time_it: bool) -> None:
+                       gen, stats: dict, time_it: bool,
+                       floors_lib=None) -> None:
     """The backward kernel against its float64 plain version on one
-    recorded aggregation, with a seeded output gradient: within rtol 1e-5
-    of the float64 gradient, the tied entries (nonzero) exactly the plain
-    version's for max and min; a second launch the same bits; the limit
-    refuses a backward that gives the whole gradient to the first tied edge
-    and one that leaves each segment's last edge unwritten. With
-    ``time_it``, its time beside its bound, the plain version's and
-    PyTorch's own backward of the same function."""
+    recorded aggregation, on the route its plan gives, with a seeded
+    output gradient: within rtol 1e-5 of the float64 gradient, the tied
+    entries (nonzero) exactly the plain version's for max and min, the
+    rows of edges in no segment 0; a second launch the same bits; the
+    limit refuses a backward that gives the whole gradient to the first
+    tied edge, one that leaves each segment's last edge unwritten and one
+    that gives each segment's first edge the row of the position before.
+    Checked in column chunks. With ``time_it``, its time beside its bound,
+    the plain version's and PyTorch's own backward of the same function;
+    where the kernel is slower than it, the write floor
+    (``tools/segment_floors.cu``) beside it."""
     import torch
 
     from repro_torch.kernels import ref
@@ -3969,13 +4137,14 @@ def segment_grad_check(label: str, values, plan, op: str, card: str,
     flat = values.reshape(values.shape[0], -1).contiguous()
     E, d = flat.shape
     S = plan.num_segments
-    pargs = (plan.order, plan.offsets, plan.piece_offsets, plan.piece_bounds)
+    pargs = (plan.order, plan.keys, plan.offsets)
     out = segment_reduce_cuda(flat, *pargs, op)
     g_out = torch.randn((S, d), generator=gen, device=gen.device).to(
         flat.device)
     vals, outs = (None, None) if op == "sum" else (flat, out)
     kern = lambda: segment_reduce_grad_cuda(  # noqa: E731
-        g_out, vals, outs, *pargs, op)
+        g_out, vals, outs, plan.order, plan.keys, plan.index, plan.offsets,
+        op)
     torch.cuda.synchronize()
     got = kern()
     again = kern()
@@ -3983,56 +4152,85 @@ def segment_grad_check(label: str, values, plan, op: str, card: str,
     check(bool(torch.equal(got, again)), f"segment_reduce_grad {label}: a "
           f"second launch gave other bits")
     del again
-    g64, v64, o64 = g_out.double(), flat.double(), out.double()
-    want = ref.segment_reduce_grad_ref(g64, v64, o64, plan.order,
-                                       plan.offsets, op)
+    rows, seg, starts, ends, pos = segment_positions(plan)
+    none = torch.ones(E, dtype=torch.bool, device=flat.device)
+    none[rows] = False
+    outside = int(none.sum())
+    check(not bool(got[none].any()), f"segment_reduce_grad {label}: an edge "
+          f"in no segment has a nonzero gradient")
+    del none
 
-    def ratio_of(grad):
-        err = (grad.double() - want).abs()
+    def ratio_of(x, want):
+        err = (x - want).abs()
         return float((err / (GRAD_RTOL * want.abs())).nan_to_num(
-            0.0, posinf=float("inf")).max())
+            0.0, posinf=float("inf")).max()) if len(err) else 0.0
 
-    ratio = ratio_of(got)
-    marks = bool(torch.equal(got != 0, want != 0))
-    err = float((got.double() - want).abs().max())
+    ident = SEG_IDENT[op]
+    ratio, err, marks, hits = 0.0, 0.0, True, 0
+    kinds = {"first": "whole gradient to the first tied edge",
+             "last": "each segment's last edge unwritten",
+             "shift": "each first edge the row before it"}
+    bad_ratio = dict.fromkeys(kinds, 0.0)
+    for c0, c1 in column_chunks(E, d):
+        g64 = g_out[:, c0:c1].double()
+        if op == "sum":
+            hit = None
+            want = g64[seg]
+        else:
+            o64 = out[:, c0:c1].double()
+            hit = flat[rows, c0:c1].double() == o64[seg]
+            ties = plain_fold(hit.double(), seg, S, "sum") + (o64 == ident)
+            share = g64 * (1.0 / ties.clamp_min(1.0))
+            want = torch.where(hit, share[seg], 0.0)
+            hits += int(hit.sum())
+            del o64, ties, share
+        mine = got[rows, c0:c1].double()
+        ratio = max(ratio, ratio_of(mine, want))
+        err = max(err, float((mine - want).abs().max()) if len(want) else 0.0)
+        marks = marks and bool(torch.equal(mine != 0, want != 0))
+        del mine
+        for kind in kinds:
+            bad = segment_grad_broken(kind, want, hit, g64, seg, pos, starts,
+                                      ends)
+            bad_ratio[kind] = max(bad_ratio[kind], ratio_of(bad, want))
+            del bad
+        del want, hit, g64
     stats["grad_max_abs_err"] = max(stats["grad_max_abs_err"], err)
-    ties = ""
+    ties_note = ""
     if op != "sum":
-        hits = int((want != 0).sum())
-        ties = f", {hits} tied entries marked as the plain version's: {marks}"
-    outside = int(plan.offsets[0]) + E - int(plan.offsets[-1])
+        ties_note = (f", {hits} tied entries marked as the plain version's: "
+                     f"{marks}")
+    route = "gathered" if plan.order is not None else "contiguous"
     print(f"  segment_reduce_grad {label}: {op} of E={E} rows, d={d}, S={S} "
-          f"segments (largest {int(plan.counts.max())} edges, {outside} "
-          f"edges in none), max_abs_err={err:.3e} err/limit={ratio:.4f} "
+          f"segments on the {route} route (largest "
+          f"{int(plan.counts.max())} edges, {outside} edges in none), "
+          f"max_abs_err={err:.3e} err/limit={ratio:.4f} "
           f"{'ok' if ratio <= 1 else 'FAIL'} (rtol {GRAD_RTOL} of float64)"
-          f"{ties}; bits repeat")
+          f"{ties_note}; bits repeat")
     check(ratio <= 1.0, f"segment_reduce_grad {label}: error above its "
           f"limit (ratio {ratio})")
     check(op == "sum" or marks, f"segment_reduce_grad {label}: the tied "
           f"entries are not the plain version's")
-    for kind, what in (("first", "whole gradient to the first tied edge"),
-                       ("last", "each segment's last edge unwritten")):
-        bad = segment_grad_broken(kind, g64, v64, o64, plan, op)
-        r = ratio_of(bad)
+    for kind, what in kinds.items():
+        r = bad_ratio[kind]
         print(f"  segment_reduce_grad {label} broken: {what:38s} err/limit="
               f"{r:.4g} {'refused' if r > 1 else 'PASSED'}")
         check(r > 1.0, f"segment_reduce_grad {label}: the check passes a "
               f"broken version ({what})")
-        del bad
-    del want, g64, v64, o64
+    del rows, seg, starts, ends, pos, got
     if not time_it:
         return
     ms = queued_ms(kern, SEGMENT_REPS)
     plain_ms = events_ms(lambda: ref.segment_reduce_grad_ref(
-        g_out, vals, outs, plan.order, plan.offsets, op), 3)
+        g_out, vals, outs, plan.rows(), plan.offsets, op), 3)
     # PyTorch's own backward of the same function, never on the path: a
     # gather of g_out by each edge's segment for a sum, scatter_reduce's
     # autograd for max and min (its ties split as the kernel's), over the
     # edges inside segments
+    kernel_grad = kern()
     seg_of = torch.full((E,), -1, dtype=torch.long, device=flat.device)
-    inside = plan.order[int(plan.offsets[0]):int(plan.offsets[-1])].long()
-    seg_of[inside] = torch.repeat_interleave(
-        torch.arange(S, device=flat.device), plan.counts.long())
+    lo, hi = int(plan.offsets[0]), int(plan.offsets[-1])
+    seg_of[plan.rows()[lo:hi].long()] = plan.keys[lo:hi].long()
     keep = seg_of >= 0
     ids = seg_of[keep]
     if op == "sum":
@@ -4045,22 +4243,30 @@ def segment_grad_check(label: str, values, plan, op: str, card: str,
         # initial value the op's identity: PyTorch counts the initial value
         # among the ties where it equals the result (a zero initial value
         # against ReLU messages whose maximum is 0), as JAX does -inf's
-        ident = -float("inf") if op == "max" else float("inf")
         red = torch.full((S, d), ident, device=flat.device).scatter_reduce(
             0, ids[:, None].expand(-1, d), src,
             "amax" if op == "max" else "amin", include_self=False)
         lib = lambda: torch.autograd.grad(  # noqa: E731
             red, src, g_out, retain_graph=True)[0]
         lib_got = lib()
-    lib_err = float((lib_got - got[keep]).abs().max())
-    lib_ratio = float(((lib_got - got[keep]).abs()
-                       / (GRAD_RTOL * got[keep].abs())).nan_to_num(
-        0.0, posinf=float("inf")).max())
+    # compared in row chunks of about 1 GB
+    rows_in = keep.nonzero().flatten()
+    lib_err = lib_ratio = 0.0
+    step = max(1, (1 << 28) // d)
+    for r0 in range(0, len(rows_in), step):
+        mine = kernel_grad[rows_in[r0:r0 + step]]
+        diff = (lib_got[r0:r0 + step] - mine).abs()
+        lib_err = max(lib_err, float(diff.max()))
+        lib_ratio = max(lib_ratio, float((diff / (GRAD_RTOL * mine.abs()))
+                                         .nan_to_num(0.0, posinf=float("inf"))
+                                         .max()))
+        del mine, diff
     print(f"  segment_reduce_grad {label}: {name} against the kernel: "
           f"max_abs_err={lib_err:.3e} err/limit={lib_ratio:.4f} (same split "
           f"of the ties: {lib_ratio <= 1})")
     check(lib_ratio <= 1.0, f"segment_reduce_grad {label}: {name} is not "
           f"the same function")
+    del kernel_grad, lib_got, rows_in
     lib_ms = queued_ms(lib, SEGMENT_REPS)
     bound = segment_grad_bound(plan, d, op)
     stats["grad_timed"].append((label, ms, plain_ms, bound, lib_ms))
@@ -4068,7 +4274,12 @@ def segment_grad_check(label: str, values, plan, op: str, card: str,
           f"(device, queued events)  bound {bound * 1e3:9.2f} us (bytes)  "
           f"plain {plain_ms * 1e3:10.2f} us  {name} {lib_ms * 1e3:10.2f} us"
           f"  [{card}]")
-    del seg_of, ids, lib_got, got
+    del seg_of, ids, keep
+    if floors_lib is not None and ms > lib_ms:
+        floor = segment_floors(floors_lib, flat, plan, card,
+                               f"segment_reduce_grad {label}", write=True)
+        print(f"  segment_reduce_grad {label}: slower than {name}; the "
+              f"kernel reaches {floor / ms:.3f} of the write floor")
 
 
 def gnn_train_cell(arch_id: str, shape_id: str, web, dev, gen, card: str,
@@ -4166,8 +4377,9 @@ def gnn_train_cell(arch_id: str, shape_id: str, web, dev, gen, card: str,
         del params, inputs
         torch.cuda.empty_cache()
         for i, (values, plan, op) in zip(checks, kept):
-            segment_grad_check(f"{arch_id} {shape_id} layer 0 #{i}", values,
-                               plan, op, card, gen, stats, time_it=True)
+            segment_grad_check(check_label(arch_id, shape_id, i), values,
+                               plan, op, card, gen, stats, time_it=True,
+                               floors_lib=SEGMENT_FLOORS_LIB)
         del kept, values, plan
     torch.cuda.empty_cache()
     return fwd_l, grad_l
@@ -4276,7 +4488,7 @@ def phase15_gnn_train(dev, gen, card: str) -> tuple[dict, int]:
         smoke_train_on_card(arch_id, dev)
     ms, plain_ms, bound, lib_ms = next(
         t[1:] for t in stats["grad_timed"]
-        if t[0].startswith("gcn-cora ogb_products"))
+        if t[0].startswith("gcn-cora ogb_products layer 0"))
     print(f"  phase 15 wall {time.perf_counter() - t_phase:.1f}s")
     return {"name": "segment_reduce_grad", "launches": grad_launches,
             "max_abs_err": stats["grad_max_abs_err"], "ms": ms,
@@ -4321,14 +4533,20 @@ def main() -> int:
 
     t0 = time.perf_counter()
     floors_build, floors_lib = start_floors_build()
+    seg_build, seg_floors_lib = start_floors_build(SEGMENT_FLOORS_SRC)
     try:
         libs = _build.build()
     finally:
         floors_log, _ = floors_build.communicate()
+        seg_log, _ = seg_build.communicate()
     check(floors_build.returncode == 0,
           f"nvcc failed for {FLOORS_SRC.name}:\n{floors_log}")
-    print(f"build: {sorted(libs)} and {FLOORS_SRC.name} in "
-          f"{time.perf_counter() - t0:.1f}s")
+    check(seg_build.returncode == 0,
+          f"nvcc failed for {SEGMENT_FLOORS_SRC.name}:\n{seg_log}")
+    global SEGMENT_FLOORS_LIB
+    SEGMENT_FLOORS_LIB = seg_floors_lib
+    print(f"build: {sorted(libs)}, {FLOORS_SRC.name} and "
+          f"{SEGMENT_FLOORS_SRC.name} in {time.perf_counter() - t0:.1f}s")
     for name in libs:
         for line in _build.log_path(name).read_text().splitlines():
             if "registers" in line or "spill" in line or "error" in line:
@@ -4855,8 +5073,9 @@ def main() -> int:
     osrcs = PprWorkload(web, 256, seed=0).sources[:CHECK_SOURCES]
     segment_reduce.reset_launches()
     t0 = time.perf_counter()
-    oracle = power_iteration_coo(web, osrcs, 0.2, default_iters(), dev)
-    torch.cuda.synchronize()
+    with recorded_segments(last=True) as oracle_step:
+        oracle = power_iteration_coo(web, osrcs, 0.2, default_iters(), dev)
+        torch.cuda.synchronize()
     oracle_s = time.perf_counter() - t0
     oracle_launches = segment_reduce.LAUNCHES["segment_reduce"]
     again = power_iteration_coo(web, osrcs, 0.2, default_iters(), dev)
@@ -4868,6 +5087,12 @@ def main() -> int:
     check(oracle_launches == default_iters(),
           "the sliced oracle did not fold through segment_reduce each step")
     del oracle, again
+    values, plan, op = oracle_step[0]
+    segment_check(f"sliced oracle web-stanford last step, {CHECK_SOURCES} "
+                  f"sources", values, plan, op, card,
+                  {"max_abs_err": 0.0, "timed": []}, time_it=True,
+                  floors_lib=SEGMENT_FLOORS_LIB)
+    del oracle_step, values, plan
     profile_queries(web, 8)
 
     print("phase 4: index paths (FORA+), K3 on the walk index")

@@ -22,8 +22,7 @@ from .ell_spmv import (DensePlan, SlicedFold, ell_spmm_cuda,
 from .embedding_bag import embedding_bag_cuda
 from .endpoint_fold import endpoint_fold_cuda
 from .flash_attention import flash_attention_cuda
-from .segment_reduce import (PIECE, segment_reduce_cuda,
-                             segment_reduce_grad_cuda)
+from .segment_reduce import segment_reduce_cuda, segment_reduce_grad_cuda
 from .walk_gather import walk_endpoint_gather_cuda
 
 
@@ -191,74 +190,98 @@ class SegmentPlan:
     """Where each segment's rows lie, built once per index and reused by
     every reduction over it (a GNN's layers and aggregators).
 
-    ``order`` (E,) int32 is the stable sort of the index, so segment s is
-    ``order[offsets[s]:offsets[s+1]]`` in ascending edge id; ``offsets``
-    (S + 1,) int32 (an index outside [0, S) falls before ``offsets[0]`` or
-    after ``offsets[S]``: in no segment). The kernel's pieces: a segment
-    of more than ``PIECE`` edges is cut into pieces of ``PIECE``
-    consecutive entries of ``order``; segment s owns pieces
-    ``piece_offsets[s] : piece_offsets[s+1]`` and piece p covers
-    ``piece_bounds[0, p] : piece_bounds[1, p]`` (pieces past
-    ``piece_offsets[S]`` are empty: the number of pieces is bounded by
-    2 E / PIECE without reading it back to the host)."""
+    The plan's positions are the edges in segment order: ``keys`` (E,)
+    int32 is the stable sort of the index, clamped to [-1, S] (-1 and S:
+    an index outside [0, S), in no segment), and segment s is the
+    positions ``offsets[s]:offsets[s+1]`` (``offsets`` (S + 1,) int32), in
+    ascending edge id. ``order`` (E,) int32 is the sort's permutation:
+    position p holds the row ``order[p]`` of the values (the gathered
+    route), and ``index`` (E,) int32 is the index itself, each edge's
+    segment in edge order (the backward writes the gradient by it), or
+    None where no backward over the gathered route needs it. A plan whose
+    ``order`` is None (:meth:`contiguous`) is of values that the caller
+    has laid out in plan order already, row p at position p: the kernels
+    then read and write rows as one stream, and the keys serve for both.
 
-    order: torch.Tensor
+    The kernels over it (``csrc/segment_reduce.cu``, ``segment_grad.cu``)
+    replace XLA's ``jax.ops.segment_sum/max/min`` and their autodiff
+    (``repro/models/gnn/common.py:44-61``; no TPU kernel). Bytes bound them
+    on the H100, and the plan is laid out for that: the keys let them cut
+    the positions into runs of equal length, one a group of lanes,
+    whatever the segments' lengths, and fold the parts of a segment that
+    crosses runs by a fixed tree (its geometry depends on E and d alone,
+    not on the plan); the contiguous view lets them stream rows without
+    the order; the index lets the backward write the gradient in edge
+    order as one stream."""
+
+    order: torch.Tensor | None
+    keys: torch.Tensor
     offsets: torch.Tensor
-    piece_offsets: torch.Tensor
-    piece_bounds: torch.Tensor
+    index: torch.Tensor | None = None
 
     @property
     def num_segments(self) -> int:
         return self.offsets.shape[0] - 1
 
     @property
+    def num_positions(self) -> int:
+        return self.keys.shape[0]
+
+    @property
     def counts(self) -> torch.Tensor:
         """(S,) int32 edges a segment: ``segment_sum`` of ones, exactly."""
         return self.offsets[1:] - self.offsets[:-1]
 
+    def contiguous(self) -> "SegmentPlan":
+        """The same segments over values laid out in plan order (row p of
+        the values at position p, e.g. ``x[plan.order]``): no order."""
+        return SegmentPlan(None, self.keys, self.offsets)
 
-def segment_plan(index: torch.Tensor, num_segments: int) -> SegmentPlan:
+    def rows(self) -> torch.Tensor:
+        """(E,) the row of each position: ``order``, or 0..E-1."""
+        if self.order is not None:
+            return self.order
+        return torch.arange(self.num_positions, dtype=torch.int32,
+                            device=self.keys.device)
+
+
+def segment_plan(index: torch.Tensor, num_segments: int, *,
+                 keep_index: bool = True) -> SegmentPlan:
     """The :class:`SegmentPlan` of an integer index (E,) over
     ``num_segments`` segments, on the index's device, with torch ops alone:
-    a stable ``torch.sort``, ``torch.searchsorted`` for the offsets (no
-    ``bincount``, which reads the largest value back to the host), and the
-    pieces from the offsets. No host sync."""
+    a stable ``torch.sort`` (its keys kept, clamped to [-1, S]) and
+    ``torch.searchsorted`` for the offsets (no ``bincount``, which reads
+    the largest value back to the host). No host sync. ``keep_index``
+    keeps the index (as int32; the tensor itself where it is one) for the
+    backward of a reduction over the plan; a plan that only serves a
+    gather's backward (a forward sum) need not keep it."""
     if index.dim() != 1 or index.dtype.is_floating_point:
         raise ValueError(f"index must be a 1-D integer tensor, got "
                          f"{index.dtype} {tuple(index.shape)}")
     if num_segments < 1:
         raise ValueError(f"need num_segments >= 1, got {num_segments}")
     dev = index.device
-    E, S = index.shape[0], num_segments
+    S = num_segments
     if index.dtype not in (torch.int32, torch.int64):
         index = index.long()
     keys, order = torch.sort(index, stable=True)
     bounds = torch.arange(S + 1, device=dev, dtype=keys.dtype)
     offsets = torch.searchsorted(keys, bounds).to(torch.int32)
-    counts = offsets[1:] - offsets[:-1]
-    pieces = torch.where(counts > PIECE, (counts + PIECE - 1) // PIECE, 0)
-    piece_offsets = torch.zeros(S + 1, dtype=torch.int32, device=dev)
-    piece_offsets[1:] = torch.cumsum(pieces, 0)
-    P = 2 * -(-E // PIECE)
-    p = torch.arange(P, device=dev, dtype=torch.int32)
-    seg = torch.searchsorted(piece_offsets[1:], p, right=True)
-    live = seg < S
-    seg = seg.clamp(max=S - 1)
-    start = offsets[seg] + (p - piece_offsets[seg]) * PIECE
-    end = torch.minimum(start + PIECE, offsets[seg + 1])
-    piece_bounds = torch.stack([torch.where(live, start, 0),
-                                torch.where(live, end, 0)]).to(torch.int32)
-    return SegmentPlan(order.to(torch.int32), offsets, piece_offsets,
-                       piece_bounds.contiguous())
+    kept = None
+    if keep_index:
+        kept = (index if index.dtype == torch.int32
+                else index.clamp(-1, S).to(torch.int32)).contiguous()
+    return SegmentPlan(order.to(torch.int32), keys.clamp(-1, S).to(
+        torch.int32), offsets, kept)
 
 
 def _segment_rows(values: torch.Tensor, plan: SegmentPlan,
                   op: str) -> torch.Tensor:
     """The reduction of contiguous (E, d) rows: (S, d)."""
     if _on_cuda(values):
-        return segment_reduce_cuda(values, plan.order, plan.offsets,
-                                   plan.piece_offsets, plan.piece_bounds, op)
-    return ref.segment_reduce_ref(values, plan.order, plan.offsets, op)
+        return segment_reduce_cuda(values, plan.order, plan.keys,
+                                   plan.offsets, op)
+    return ref.segment_reduce_ref(values, plan.rows(), plan.offsets, op)
 
 
 def segment_reduce_grad(g_out: torch.Tensor, values: torch.Tensor | None,
@@ -272,9 +295,9 @@ def segment_reduce_grad(g_out: torch.Tensor, values: torch.Tensor | None,
     ``out`` are read for max and min only."""
     if _on_cuda(g_out):
         return segment_reduce_grad_cuda(g_out, values, out, plan.order,
-                                        plan.offsets, plan.piece_offsets,
-                                        plan.piece_bounds, op)
-    return ref.segment_reduce_grad_ref(g_out, values, out, plan.order,
+                                        plan.keys, plan.index, plan.offsets,
+                                        op)
+    return ref.segment_reduce_grad_ref(g_out, values, out, plan.rows(),
                                        plan.offsets, op)
 
 
@@ -337,9 +360,9 @@ def gather_rows(x: torch.Tensor, index: torch.Tensor,
     whose gradient is exactly zero (the masked edges a model multiplies by
     0, sent to a trash segment past x's rows)."""
     if plan.num_segments < x.shape[0] or \
-            plan.order.shape[0] != index.shape[0]:
+            plan.num_positions != index.shape[0]:
         raise ValueError(f"the plan ({plan.num_segments} segments of "
-                         f"{plan.order.shape[0]} entries) is not of an index "
+                         f"{plan.num_positions} entries) is not of an index "
                          f"of {index.shape[0]} rows into {x.shape[0]}")
     return _GatherRows.apply(x, index, plan)
 

@@ -1,6 +1,7 @@
 """GCN (Kipf & Welling, arXiv:1609.02907), the port of
 ``repro/models/gnn/gcn.py``: the gcn-cora config, 2 layers, d=16,
-symmetric normalisation, the neighbour sum through ``ops.segment_reduce``.
+symmetric normalisation, the neighbour sum through ``ops.segment_reduce``
+over messages laid out in the destinations' plan order.
 
 ``apply`` and ``loss_fn`` run under autograd in the train step
 (``GNNArch.build_step``): the gather ``h[src]`` takes the plan of the
@@ -62,25 +63,34 @@ def param_count(cfg: GCNConfig) -> int:
 
 def apply(params: ParamTree, cfg: GCNConfig,
           batch: GraphBatch) -> torch.Tensor:
-    """(N, n_classes) logits. The neighbour sum of a layer is one segment
-    reduction over the masked destinations' plan (n + 1 segments, the
-    trash row cut off: a masked edge has weight 0, so this is the JAX
-    package's sum over ``dst``); the degrees are the plans' counts. The
-    gather's gradient is the segment sum over the masked sources' plan."""
+    """(N, n_classes) logits. The edges are laid out once in the order of
+    the masked destinations' plan (n + 1 segments, the trash row cut off:
+    a masked edge has weight 0, so this is the JAX package's sum over
+    ``dst``): the sources and coefficients are permuted by the plan's
+    order, so that each layer's messages come out in plan order and its
+    neighbour sum reads them as one stream (the plan's contiguous route;
+    a segment's edges keep their ascending edge id). The degrees are the
+    plans' counts. The gather's gradient is the segment sum over the plan
+    of the permuted masked sources."""
     n = batch.node_feat.shape[0]
-    src = batch.edge_index[0]
     msrc, mdst = masked_edges(batch.edge_index, batch.edge_mask, n)
     dst_plan = segment_plan(mdst, n + 1)
-    src_plan = segment_plan(msrc, n + 1)
-    coeff = sym_norm_coeff(batch.edge_index, batch.edge_mask, n, dst_plan,
-                           src_plan)[:, None]
+    order = dst_plan.order
+    src = torch.index_select(batch.edge_index[0], 0, order)
+    src_plan = segment_plan(torch.index_select(msrc, 0, order), n + 1,
+                            keep_index=False)
+    coeff = torch.index_select(
+        sym_norm_coeff(batch.edge_index, batch.edge_mask, n, dst_plan,
+                       src_plan), 0, order)[:, None]
+    sums = dst_plan.contiguous()
+    del dst_plan, order, msrc, mdst
     layers = params["layers"]
     h = batch.node_feat
     last = len(layers.weights) - 1
     for i, (w, b) in enumerate(zip(layers.weights, layers.biases)):
         h = h @ w + b                          # XW first (d_in -> d_hidden)
         msg = gather(h, src, src_plan) * coeff
-        h = scatter_sum(msg, dst_plan)[:n] + h  # A_norm + I (self loop)
+        h = scatter_sum(msg, sums)[:n] + h     # A_norm + I (self loop)
         if i < last:
             h = F.relu(h)
     return h

@@ -1084,11 +1084,11 @@ def test_mesh_over_several_cards_matches_one_card(cards, layout):
 
 def _segment_case(E: int, S: int, d: int, seed: int, device):
     """Values (E, d) and an index with empty segments, single-edge
-    segments, one long segment (several plan pieces) and indices outside
-    [0, S), unsorted."""
+    segments, one long segment (over many runs of the kernels' fold) and
+    indices outside [0, S), unsorted."""
     rng = np.random.default_rng(seed)
     index = rng.integers(0, S // 2, E)
-    index[: E // 3] = 1                                 # the long segment
+    index[: E // 3] = 1                     # the long segment: many runs
     index[-4:] = [-1, S, S + 3, S - 1]                  # dropped, and one
     index[-8:-4] = S // 2 + np.arange(4) * 2            # single edges
     rng.shuffle(index)
@@ -1097,24 +1097,39 @@ def _segment_case(E: int, S: int, d: int, seed: int, device):
             torch.from_numpy(index.astype(np.int32)).to(device))
 
 
+def _route(values, plan, route):
+    """The values and plan of one route: the plan's order (gathered), or
+    the values laid out in plan order over its contiguous view."""
+    if route == "gathered":
+        return values, plan
+    return values[plan.order.long()].contiguous(), plan.contiguous()
+
+
+@pytest.mark.parametrize("route", ["gathered", "contiguous"])
 @pytest.mark.parametrize("op", ["sum", "max", "min"])
-@pytest.mark.parametrize("d", [1, 16, 75, 512])
-def test_segment_reduce_matches_float64_plain_and_repeats(card, d, op):
+@pytest.mark.parametrize("d", [1, 16, 47, 75, 512])
+def test_segment_reduce_matches_float64_plain_and_repeats(card, d, op,
+                                                          route):
     from repro_torch.kernels import segment_reduce
 
     values, index = _segment_case(3000, 64, d, seed=d, device=card)
     plan = ops.segment_plan(index, 64)
-    assert int(plan.piece_offsets[-1]) > 1          # the long one is cut
+    R1, _ = segment_reduce.run_lengths(3000, d, segment_reduce.unit_width(d))
+    assert int(plan.counts.max()) > 2 * R1        # the long one: many runs
+    vals, rplan = _route(values, plan, route)
     segment_reduce.reset_launches()
-    got = ops.segment_reduce(values, plan, op)
-    again = ops.segment_reduce(values, plan, op)
+    got = ops.segment_reduce(vals, rplan, op)
+    again = ops.segment_reduce(vals, rplan, op)
     torch.cuda.synchronize()
     assert segment_reduce.LAUNCHES["segment_reduce"] == 2
     assert torch.equal(got, again)
+    # the card's order, written in torch on the CPU: the same bits
+    assert torch.equal(got.cpu(), segment_reduce.card_order_reduce(
+        values.cpu(), plan.order.cpu(), plan.keys.cpu(), 64, op))
     want = ref.segment_reduce_ref(values.double(), plan.order, plan.offsets,
                                   op)
     if op == "sum":
-        # a left fold of deg float32 adds errs by at most deg 2^-24 sum|v|
+        # any order of deg float32 adds errs by at most deg 2^-24 sum|v|
         deg = plan.counts.double()[:, None]
         mag = ref.segment_reduce_ref(values.double().abs(), plan.order,
                                      plan.offsets, "sum")
@@ -1127,9 +1142,9 @@ def test_segment_reduce_matches_float64_plain_and_repeats(card, d, op):
     ident = {"sum": 0.0, "max": -np.inf, "min": np.inf}[op]
     assert bool((got[empty] == ident).all())
     # the 1-D form
-    flat = ops.segment_reduce(values[:, 0].contiguous(), plan, op)
-    assert torch.equal(flat, ops.segment_reduce(values[:, :1].contiguous(),
-                                                plan, op)[:, 0])
+    flat = ops.segment_reduce(vals[:, 0].contiguous(), rplan, op)
+    assert torch.equal(flat, ops.segment_reduce(vals[:, :1].contiguous(),
+                                                rplan, op)[:, 0])
 
 
 def test_segment_reduce_refuses_bad_arguments(card):
@@ -1137,16 +1152,19 @@ def test_segment_reduce_refuses_bad_arguments(card):
 
     values, index = _segment_case(500, 16, 8, seed=1, device=card)
     plan = ops.segment_plan(index, 16)
-    args = (plan.order, plan.offsets, plan.piece_offsets, plan.piece_bounds)
+    args = (plan.order, plan.keys, plan.offsets)
     with pytest.raises(ValueError, match="float32"):
         segment_reduce_cuda(values.double(), *args, "sum")
     with pytest.raises(ValueError, match="contiguous"):
         segment_reduce_cuda(values.t(), *args, "sum")
     with pytest.raises(ValueError, match="order"):
         segment_reduce_cuda(values, plan.order.cpu(), *args[1:], "sum")
+    with pytest.raises(ValueError, match="keys"):
+        segment_reduce_cuda(values, plan.order, plan.keys[1:], plan.offsets,
+                            "sum")
     with pytest.raises(ValueError, match="offsets"):
-        segment_reduce_cuda(values, plan.order, plan.offsets.long(),
-                            *args[2:], "sum")
+        segment_reduce_cuda(values, plan.order, plan.keys,
+                            plan.offsets.long(), "sum")
     with pytest.raises(ValueError, match="op"):
         segment_reduce_cuda(values, *args, "mean")
 
@@ -1174,42 +1192,52 @@ def test_gnn_forward_on_card_matches_cpu_and_repeats(card, arch_id):
     assert float(loss) == pytest.approx(float(want_loss), rel=rtol)
 
 
+@pytest.mark.parametrize("route", ["gathered", "contiguous"])
 @pytest.mark.parametrize("op", ["sum", "max", "min"])
-@pytest.mark.parametrize("d", [1, 16, 75, 512])
-def test_segment_reduce_grad_matches_float64_plain_and_repeats(card, d, op):
-    """The backward kernel on the segment cases (a long segment cut into
-    pieces, empty and single-edge segments, edges in no segment), values on
-    a few levels so that max and min tie: within rtol 1e-5 of float64, the
-    same nonzero entries, bits repeating, through autograd too."""
+@pytest.mark.parametrize("d", [1, 16, 47, 75, 512])
+def test_segment_reduce_grad_matches_float64_plain_and_repeats(card, d, op,
+                                                               route):
+    """The backward kernel on both routes on the segment cases (one long
+    segment over many runs, whose max and min tie across them; empty and
+    single-edge segments; edges in no segment), values on a few levels so
+    that max and min tie: within rtol 1e-5 of float64, the same nonzero
+    entries, bits repeating, through autograd too."""
     from repro_torch.kernels import segment_reduce
 
     values, index = _segment_case(3000, 64, d, seed=d + 1, device=card)
-    values = torch.round(values * 2.0)                 # ties
+    values = torch.round(values * 2.0).clamp(-3.0, 3.0)   # ties
     plan = ops.segment_plan(index, 64)
-    assert int(plan.piece_offsets[-1]) > 1
-    out = ops.segment_reduce(values, plan, op)
+    R1, _ = segment_reduce.run_lengths(3000, d, segment_reduce.unit_width(d))
+    assert int(plan.counts.max()) > 2 * R1
+    vals, rplan = _route(values, plan, route)
+    out = ops.segment_reduce(vals, rplan, op)
     g_out = torch.randn(out.shape, generator=torch.Generator(card)
                         .manual_seed(d), device=card)
     segment_reduce.reset_launches()
-    got = ops.segment_reduce_grad(g_out, values, out, plan, op)
-    again = ops.segment_reduce_grad(g_out, values, out, plan, op)
+    got = ops.segment_reduce_grad(g_out, vals, out, rplan, op)
+    again = ops.segment_reduce_grad(g_out, vals, out, rplan, op)
     torch.cuda.synchronize()
     assert segment_reduce.LAUNCHES["segment_reduce_grad"] == 2
     assert torch.equal(got, again)
-    want = ref.segment_reduce_grad_ref(g_out.double(), values.double(),
-                                       out.double(), plan.order,
+    want = ref.segment_reduce_grad_ref(g_out.double(), vals.double(),
+                                       out.double(), rplan.rows(),
                                        plan.offsets, op)
     assert torch.equal(got != 0, want != 0)
     assert bool(((got.double() - want).abs()
                  <= 1e-5 * want.abs()).all())
-    leaf = values.clone().requires_grad_(True)
-    (auto,) = torch.autograd.grad(ops.segment_reduce(leaf, plan, op), leaf,
+    if op != "sum":
+        ties = (vals[plan.offsets[1]:plan.offsets[2]] if route ==
+                "contiguous" else vals[plan.order[plan.offsets[1]:
+                                                  plan.offsets[2]].long()])
+        assert int((ties == out[1]).sum(0).max()) > 1   # ties over runs
+    leaf = vals.clone().requires_grad_(True)
+    (auto,) = torch.autograd.grad(ops.segment_reduce(leaf, rplan, op), leaf,
                                   g_out)
     assert torch.equal(auto, got)
     assert segment_reduce.LAUNCHES["segment_reduce_grad"] == 3
 
 
-@pytest.mark.parametrize("d", [1, 16, 75])
+@pytest.mark.parametrize("d", [1, 16, 47, 75])
 def test_gather_rows_backward_on_card_is_the_segment_sum(card, d):
     from repro_torch.kernels import segment_reduce
 

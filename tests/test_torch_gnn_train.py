@@ -512,12 +512,15 @@ def test_train_step_runs_only_the_kernels(arch_id, monkeypatch):
         return stand_in
 
     monkeypatch.setattr(ops, "_on_cuda", lambda x: True)
+    def rows(o, keys):
+        return torch.arange(keys.shape[0]) if o is None else o
+
     monkeypatch.setattr(ops, "segment_reduce_cuda", plain(
-        "segment_reduce", lambda v, o, off, po, pb, op:
-        ref.segment_reduce_ref(v, o, off, op)))
+        "segment_reduce", lambda v, o, k, off, op:
+        ref.segment_reduce_ref(v, rows(o, k), off, op)))
     monkeypatch.setattr(ops, "segment_reduce_grad_cuda", plain(
-        "segment_reduce_grad", lambda g, v, out, o, off, po, pb, op:
-        ref.segment_reduce_grad_ref(g, v, out, o, off, op)))
+        "segment_reduce_grad", lambda g, v, out, o, k, ix, off, op:
+        ref.segment_reduce_grad_ref(g, v, out, rows(o, k), off, op)))
     arch = get_arch(arch_id)
     params, inputs = arch.smoke_case(torch.Generator().manual_seed(1), "cpu")
     state = adamw_init(params)

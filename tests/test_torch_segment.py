@@ -38,7 +38,7 @@ def _check(got: np.ndarray, want: np.ndarray, op: str) -> None:
 
 # (E, S, d, index range): unsorted indices, empty segments (S well above
 # the edges' spread), indices outside [0, S) (dropped), d = 1 as a 1-D
-# values vector, a narrow and a wide row, and long segments (pieces)
+# values vector, a narrow and a wide row, and long segments (many runs)
 CASES = [(400, 60, 7, (0, 60)), (300, 80, 0, (0, 40)),
          (500, 10, 16, (-3, 13)), (2000, 4, 75, (0, 4)),
          (64, 200, 3, (0, 200)), (0, 5, 4, (0, 5)),
@@ -94,70 +94,134 @@ def test_empty_segments_give_the_identities():
 
 @pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
 def test_segment_plan_order_offsets_and_pieces(dtype):
+    """The plan's positions: order the stable argsort, keys the sorted
+    index clamped to [-1, S], offsets its searchsorted bounds; the
+    index kept for the backward (int32); the contiguous view shares keys
+    and offsets and has no order and no index. The pieces
+    of the kernels' fold are not the plan's: they are the run lengths and
+    levels, from E and d alone, and every level covers its positions with
+    whole runs until one run holds them all."""
     rng = np.random.default_rng(11)
     S, E = 12, 3000
-    # a skewed index: segment 2 holds ~half the edges (several pieces)
+    # a skewed index: segment 2 holds ~half the edges (many runs)
     index = np.where(rng.random(E) < 0.5, 2,
-                     rng.integers(-1, S + 1, E)).astype(np.int64)
+                     rng.integers(-3, S + 3, E)).astype(np.int64)
     plan = ops.segment_plan(torch.from_numpy(index).to(dtype), S)
-    assert plan.order.dtype == plan.offsets.dtype == torch.int32
-    np.testing.assert_array_equal(plan.order.numpy(),
-                                  np.argsort(index, kind="stable"))
+    assert plan.order.dtype == plan.keys.dtype == plan.offsets.dtype == \
+        torch.int32
+    order = np.argsort(index, kind="stable")
+    np.testing.assert_array_equal(plan.order.numpy(), order)
+    np.testing.assert_array_equal(plan.keys.numpy(),
+                                  np.clip(index[order], -1, S))
     np.testing.assert_array_equal(
         plan.offsets.numpy(), np.searchsorted(np.sort(index),
                                               np.arange(S + 1)))
-    assert plan.num_segments == S
+    assert plan.num_segments == S and plan.num_positions == E
     np.testing.assert_array_equal(
         plan.counts.numpy(), np.bincount(index[(index >= 0) & (index < S)],
                                          minlength=S))
-    off = plan.offsets.numpy()
-    pieces = plan.piece_offsets.numpy()
-    bounds = plan.piece_bounds.numpy()
-    P = bounds.shape[1]
-    assert P == 2 * -(-E // segment_reduce.PIECE)
-    assert pieces[-1] <= P
-    for s in range(S):
-        cnt = off[s + 1] - off[s]
-        mine = range(pieces[s], pieces[s + 1])
-        if cnt <= segment_reduce.PIECE:
-            assert len(mine) == 0
-            continue
-        assert len(mine) == -(-cnt // segment_reduce.PIECE)
-        spans = [(bounds[0, p], bounds[1, p]) for p in mine]
-        assert spans[0][0] == off[s] and spans[-1][1] == off[s + 1]
-        assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
-        assert all(0 < e - b <= segment_reduce.PIECE for b, e in spans)
-    # pieces past the last are empty
-    assert (bounds[0, pieces[-1]:] == bounds[1, pieces[-1]:]).all()
+    # the index itself where it is int32, else clamped to [-1, S]
+    np.testing.assert_array_equal(np.clip(plan.index.numpy(), -1, S),
+                                  np.clip(index, -1, S))
+    assert plan.index.dtype == torch.int32
+    assert ops.segment_plan(torch.from_numpy(index).to(dtype), S,
+                            keep_index=False).index is None
+    flat = plan.contiguous()
+    assert flat.order is None and flat.index is None and \
+        flat.keys is plan.keys and flat.offsets is plan.offsets
+    assert torch.equal(flat.rows(), torch.arange(E, dtype=torch.int32))
+    assert torch.equal(plan.rows(), plan.order)
+    for d in (1, 16, 47, 75, 128, 512):
+        vec = segment_reduce.unit_width(d)
+        group, per = segment_reduce.layout(d, vec)
+        assert group * per * vec >= min(d, 128 * vec) and group <= 32
+        assert segment_reduce.batch(per, vec) * per * vec <= 16
+        R1, RL = segment_reduce.run_lengths(E, d, vec)
+        assert R1 % segment_reduce.batch(per, vec) == 0
+        assert RL % segment_reduce.batch(per, vec) == 0
+        G = segment_reduce.THREADS // group
+        lv = segment_reduce.levels(E, d)
+        assert lv[0] == (E, R1) and all(R == RL for _, R in lv[1:])
+        for (n, R), (m, _) in zip(lv, lv[1:]):
+            assert m == 2 * -(-(-(-n // R)) // G)     # two slots a block
+        n, R = lv[-1]
+        assert -(-(-(-n // R)) // G) <= 1             # one block holds all
 
 
-def test_pieces_fold_equals_the_plain_fold():
-    """The card's order for a long segment (its pieces' left folds, then
-    those folded in piece order), written in torch, against the plain
-    version: max and min equal, the sum within the float32 rounding of
-    the two orders."""
-    rng = np.random.default_rng(3)
-    index = torch.from_numpy(rng.integers(0, 3, 1000).astype(np.int32))
-    values = torch.from_numpy(rng.standard_normal((1000, 4)).astype(
-        np.float32))
-    plan = ops.segment_plan(index, 3)
-    for op in ("sum", "max", "min"):
-        plain = ops.segment_reduce(values, plan, op)
-        parts = ref.segment_ranges_ref(values, plan.order,
-                                       plan.piece_bounds[0],
-                                       plan.piece_bounds[1], op)
-        rows = []
-        for s in range(3):
-            p0, p1 = int(plan.piece_offsets[s]), int(plan.piece_offsets[s + 1])
-            assert p1 - p0 > 1
-            rows.append(ref.segment_reduce_ref(
-                parts[p0:p1], torch.arange(p1 - p0, dtype=torch.int32),
-                torch.tensor([0, p1 - p0], dtype=torch.int32), op)[0])
-        card = torch.stack(rows)
-        if op == "sum":
-            torch.testing.assert_close(card, plain, rtol=1e-5, atol=1e-5)
-        else:
-            assert torch.equal(card, plain)
+# (E, S, d, segment 1's share of the edges, outside): segments crossing
+# run boundaries, one segment over many runs (several levels), empty
+# segments, edges outside [0, S), and the odd widths 47 and 75
+FOLD_CASES = [(700, 40, 4, 0.0, True), (3000, 64, 47, 0.6, True),
+              (2500, 300, 75, 0.3, False), (1200, 5, 16, 0.9, True),
+              (900, 600, 2, 0.0, True)]
+
+
+def _fold_case(E, S, d, share, outside, seed):
+    rng = np.random.default_rng(seed)
+    index = rng.integers(0, max(S // 2, 1), E)
+    index[rng.random(E) < share] = 1
+    if outside:
+        index[:6] = [-1, S, S + 3, -7, S - 1, 0]
+    rng.shuffle(index)
+    values = rng.standard_normal((E, d)).astype(np.float32)
+    return values, index.astype(np.int32)
+
+
+@pytest.mark.parametrize("op", ["sum", "max", "min"])
+@pytest.mark.parametrize("E,S,d,share,outside", FOLD_CASES)
+def test_pieces_fold_equals_the_plain_fold(E, S, d, share, outside, op):
+    """The card's order (``segment_reduce.card_order_reduce``: runs,
+    slots, phantoms and levels, each add in float32 as the kernel makes
+    it) against the float64 plain version and ``jax.ops.segment_*``: max
+    and min equal, the sum within deg 2^-24 sum|v| (any order of deg
+    float32 adds), on both routes (the contiguous one over the values in
+    plan order gives the same bits)."""
+    values, index = _fold_case(E, S, d, share, outside, seed=E + d)
+    plan = ops.segment_plan(torch.from_numpy(index), S)
+    v = torch.from_numpy(values)
+    R1, RL = segment_reduce.run_lengths(E, d, segment_reduce.unit_width(d))
+    off = plan.offsets.long()
+    live = off[1:] > off[:-1]
+    crossing = (off[:-1] // R1 != (off[1:] - 1) // R1) & live
+    assert bool(crossing.any())              # partials carried across runs
+    assert share == 0 or int(plan.counts.max()) > 2 * R1   # several runs
+    card = segment_reduce.card_order_reduce(v, plan.order, plan.keys, S, op)
+    flat = segment_reduce.card_order_reduce(v[plan.order.long()], None,
+                                            plan.keys, S, op)
+    assert torch.equal(card, flat)
+    want = ref.segment_reduce_ref(v.double(), plan.order, plan.offsets, op)
+    if op == "sum":
+        mag = ref.segment_reduce_ref(v.double().abs(), plan.order,
+                                     plan.offsets, "sum")
+        limit = plan.counts.double()[:, None] * 2.0**-24 * mag + 1e-30
+        assert bool(((card.double() - want).abs() <= limit).all())
+    else:
+        assert torch.equal(card.double(), want)
+    _check(card.numpy(), _jax(values, index, S, op), op)
+
+
+def test_card_order_is_not_the_left_fold():
+    """Where a segment crosses runs, the card's sum folds the runs'
+    partials (in the block, then across blocks), not the edges left to
+    right: the two orders differ in the last bits on a long segment of
+    values of mixed magnitude."""
+    rng = np.random.default_rng(4)
+    E = 20000                            # three blocks: two levels
+    index = np.zeros(E, np.int32)
+    values = (rng.standard_normal((E, 1))
+              * 10.0 ** rng.integers(-4, 4, (E, 1))).astype(np.float32)
+    plan = ops.segment_plan(torch.from_numpy(index), 1)
+    v = torch.from_numpy(values)
+    card = segment_reduce.card_order_reduce(v, plan.order, plan.keys, 1,
+                                            "sum")
+    left = torch.zeros(1)
+    for x in v[:, 0]:
+        left = left + x
+    assert len(segment_reduce.levels(E, 1)) >= 2
+    assert not torch.equal(card[0], left)
+    want = float(values.astype(np.float64).sum())
+    assert abs(float(card[0]) - want) <= E * 2.0**-24 * float(
+        np.abs(values).sum())
 
 
 def test_cpu_tensor_goes_to_the_plain_version():
@@ -171,9 +235,10 @@ def test_cpu_tensor_goes_to_the_plain_version():
                                                    plan.offsets, "sum"))
     assert got.tolist() == [[2.0, 3.0], [6.0, 7.0], [4.0, 6.0]]
     with pytest.raises(ValueError, match="CUDA"):
-        segment_reduce.segment_reduce_cuda(v, plan.order, plan.offsets,
-                                           plan.piece_offsets,
-                                           plan.piece_bounds, "sum")
+        segment_reduce.segment_reduce_cuda(v, plan.order, plan.keys,
+                                           plan.offsets, "sum")
+    assert torch.equal(ops.segment_reduce(v[plan.order.long()],
+                                          plan.contiguous(), "sum"), got)
 
 
 def test_plan_refuses_bad_arguments():
