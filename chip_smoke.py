@@ -32,9 +32,9 @@ drives the port's main path, in phases:
    last cell; K1 and K4 reading each row one cell short of its extent, K1
    reading the threshold at the row instead of the source, K1's frontier
    route losing one word of its bitmap, and, in phase 9, a live endpoint
-   fold that drops each cell's last lane, ignores the weights or drops
-   each tile's last 32-lane chunk), and a second launch must give the same
-   bits. Then the lane
+   fold that drops each cell's last lane, ignores the weights, drops
+   each 8,192-lane block's last 32 lanes or sums on a scale 2^32 too
+   coarse), and a second launch must give the same bits. Then the lane
    streams drawn on the card must equal those drawn on the CPU;
 2. the dense path: ``fora_fused`` on ``small_test_graph(n=2000)``, against
    exact PPR whose every step is one K4 launch a source;
@@ -119,8 +119,11 @@ drives the port's main path, in phases:
    endpoint fold (``csrc/endpoint_fold.cu``) against its float64 plain
    version (rtol 1e-5 + 1e-6 * max, the check of phase 1) on real walk
    endpoints of the paper path's queries at its calibrated 2^20 lanes and
-   B in {1, 3, 8}, on random weights, and with every lane at one hub,
-   bits repeating; the limit must refuse the three broken folds above.
+   B in {1, 3, 8}, on random weights, and with every lane at one hub;
+   each case must also equal its emulation (``ref.endpoint_fold_fixed_ref``)
+   bit for bit and give the same bits on a second launch, under a lane
+   permutation, and for each row folded alone (B = 1 and 3 the first rows
+   of B = 8); the limit must refuse the four broken folds above.
    Then 256 queries through an 8-lane ``QueryEngine`` (K2 at B = 8, the
    fold on each walking group), launches by kernel counted; a second run
    with the same insertion schedule must give the same bits; each row
@@ -130,9 +133,11 @@ drives the port's main path, in phases:
    batch width put across a CDF boundary); within eps of power iteration
    on 3 sources; no row short of its walks without ``walks_short``. Per
    query ms, the insert-to-harvest latency, a profile of 16 queries with
-   its idle share, the fold's time at B = 1 and 8 beside its bound, its
-   plain version and ``index_add_``; and Monte Carlo PPR on the dense path
-   within eps of K4's oracle;
+   its idle share, the fold's time at B = 1 and 8 (by kernel and by
+   events) beside its bound, its plain version and ``index_add_``; and
+   Monte Carlo PPR on the dense path within eps of K4's oracle. The fold's
+   launches are counted on phases 3, 9, 11 and 12 and go into its row of
+   the kernels line (``launches_by_path``);
 10. dynamic graphs on the same graph: 8 seeded ``MutationLog`` batches of
    256 edges applied by ``DynamicGraph`` on the card, each timed; after
    each, the walk view's live prefix must equal a fresh build's arrays and
@@ -284,7 +289,12 @@ FP32_FLOPS_PER_S = 67e12           # H100 SXM float32 outside tensor cores
 # kernels sum nonnegative terms along chains of at most ~100 float32 adds
 # (K2: at most 64 units a lane, 4 cells a unit, a butterfly of 5 and a
 # hub's fold of 733 chunks over 32 lanes; K3: at most 31 a level of its
-# four), so their relative error stays under 100 * 2**-24 = 6e-6.
+# four), so their relative error stays under 100 * 2**-24 = 6e-6. The
+# endpoint fold sums in fixed point (csrc/endpoint_fold.cu's header): a
+# cell of k lanes is off by at most k * 2**(e + l - 63) before its float32
+# rounding (max weight < 2**e, W <= 2**l lanes), within ATOL_FRAC of the
+# largest output for any weights up to 2**21 lanes, and at most 2**(l - 62)
+# + 2**-24 of the cell for the walks' rows of equal weights.
 RTOL = 1e-5
 ATOL_FRAC = 1e-6
 LIBRARY_RTOL = 1e-3      # torch.sparse.mm's summation order is its own
@@ -480,6 +490,9 @@ ENGINE_QUERIES = 256
 ENGINE_SWEEPS = 4
 ENGINE_PROFILED = 16           # queries of the profiled engine run
 FOLD_BS = (1, 3, 8)
+FOLD_BLOCK = 8192              # a broken fold drops each block's last 32 lanes
+FOLD_SCALE_CUT = 32            # a broken fold on a scale 2^32 too coarse
+FOLD_LAUNCHES: dict[str, int] = {}   # the fold's launches by path, as run
 # engine row against its chunked answer: the sliced push's rtol, and at
 # most MOVED_MAX walkers' weight r_sum / w_eff on each entry above it (a
 # walk start that a push at another batch width put across a CDF boundary)
@@ -2083,6 +2096,10 @@ def phase9_engine(web, small, dev, gen, card: str) -> dict:
     stats = {"max_abs_err": 0.0, "ratio": 0.0}
 
     def fold_check(label, p, w, broken=()):
+        """The kernel against float64 (RTOL, ATOL_FRAC) and its emulation
+        (bit for bit), the same bits on a second launch, under a lane
+        permutation and for each row alone; each broken fold's output must
+        fail the float64 limit. Returns the kernel's output."""
         torch.cuda.synchronize()
         out = endpoint_fold.endpoint_fold_cuda(p, w, web.n)
         torch.cuda.synchronize()
@@ -2092,36 +2109,62 @@ def phase9_engine(web, small, dev, gen, card: str) -> dict:
         err, ratio = err_ratio(out, want, RTOL)
         stats["max_abs_err"] = max(stats["max_abs_err"], err)
         stats["ratio"] = max(stats["ratio"], ratio)
-        check(bool(torch.equal(out, endpoint_fold.endpoint_fold_cuda(
-            p, w, web.n))), f"endpoint_fold {label}: a second launch gave "
-              "other bits")
+        fixed = ref.endpoint_fold_fixed_ref(p, w, web.n)
+        same = {"emulation": bool(torch.equal(out, fixed)),
+                "second launch": bool(torch.equal(
+                    out, endpoint_fold.endpoint_fold_cuda(p, w, web.n)))}
+        perm = torch.argsort(torch.rand(p.shape, generator=gen, device=dev),
+                             dim=1)
+        same["lanes permuted"] = bool(torch.equal(
+            out, endpoint_fold.endpoint_fold_cuda(
+                torch.gather(p, 1, perm).contiguous(),
+                torch.gather(w, 1, perm).contiguous(), web.n)))
+        if p.shape[0] > 1:
+            same["rows alone"] = all(bool(torch.equal(
+                out[b], endpoint_fold.endpoint_fold_cuda(
+                    p[b:b + 1].contiguous(), w[b:b + 1].contiguous(),
+                    web.n)[0])) for b in range(p.shape[0]))
         print(f"  endpoint_fold {label:44s} max_abs_err={err:.3e} "
               f"max|want|={float(want.abs().max()):.3e} err/limit="
-              f"{ratio:.4f} {'ok' if ratio <= 1 else 'FAIL'}")
+              f"{ratio:.4f} {'ok' if ratio <= 1 else 'FAIL'}; same bits: "
+              + ", ".join(f"{k} {v}" for k, v in same.items()))
         check(ratio <= 1.0, f"endpoint_fold {label}: error {err} above the "
               f"limit (ratio {ratio})")
-        for bad, bw in broken:
-            _, r = err_ratio(ref.endpoint_fold_ref(p, bw.double(), web.n),
-                             want, RTOL)
+        for what, ok in same.items():
+            check(ok, f"endpoint_fold {label}: other bits ({what})")
+        for bad, bad_out in broken:
+            _, r = err_ratio(bad_out, want, RTOL)
             print(f"  endpoint_fold {'broken: ' + bad:44s} err/limit="
-                  f"{r:.4g} {'refused' if r > 1 else 'PASSED'}")
+                  f"{r:.4g} {'refused' if r > 1 else 'PASSED'}; bits of the "
+                  f"emulation {bool(torch.equal(bad_out, fixed))}")
             check(r > 1.0, f"endpoint_fold: the check passes a broken fold "
                   f"({bad})")
+        return out
 
+    path_out = {}
     for B in FOLD_BS:
-        fold_check(f"paper path B={B} W={W} (r_sum/w_eff)",
-                   pos[:B].contiguous(), path_w[:B].contiguous())
+        p, w = pos[:B].contiguous(), path_w[:B].contiguous()
+        broken = () if B < max(FOLD_BS) else (
+            (f"scale cut by 2^{FOLD_SCALE_CUT}", ref.endpoint_fold_fixed_ref(
+                p, w, web.n, scale_cut=FOLD_SCALE_CUT)),)
+        path_out[B] = fold_check(f"paper path B={B} W={W} (r_sum/w_eff)", p,
+                                 w, broken)
+    widest = path_out[max(FOLD_BS)]
+    check(all(bool(torch.equal(o, widest[:B])) for B, o in path_out.items()),
+          "endpoint_fold: a row's bits depend on the batch it is folded in")
     rand_w = torch.rand(pos.shape, generator=gen, device=dev)
-    tile = endpoint_fold.TILE
     lane = torch.arange(W, device=dev)
+    broken_w = (("last lane of each cell dropped",
+                 last_lane_of_cell(pos, rand_w)),
+                ("weights ignored (row mean)",
+                 rand_w.mean(dim=1, keepdim=True).expand_as(rand_w)),
+                (f"each {FOLD_BLOCK}-lane block's last 32 lanes dropped",
+                 torch.where((lane % FOLD_BLOCK >= FOLD_BLOCK - 32)[None],
+                             0.0, rand_w)))
     fold_check(f"paper path B={max(FOLD_BS)} random weights", pos, rand_w,
-               broken=(("last lane of each cell dropped",
-                        last_lane_of_cell(pos, rand_w)),
-                       ("weights ignored (row mean)",
-                        rand_w.mean(dim=1, keepdim=True).expand_as(rand_w)),
-                       (f"each {tile}-lane tile's last chunk dropped",
-                        torch.where((lane % tile >= tile - 32)[None], 0.0,
-                                    rand_w))))
+               broken=tuple((bad, ref.endpoint_fold_ref(pos, bw.double(),
+                                                        web.n))
+                            for bad, bw in broken_w))
     hub = torch.full((1, W), web.n // 2, dtype=torch.int32, device=dev)
     fold_check(f"hub: every lane at node {web.n // 2}, B=1", hub,
                rand_w[:1].contiguous())
@@ -2151,7 +2194,7 @@ def phase9_engine(web, small, dev, gen, card: str) -> dict:
           "the engine never launched the endpoint fold")
     check(launches["ell_spmm"] == 0 and launches["walk_endpoint_gather"] == 0,
           "the engine on the sliced table launched K1 or K3")
-    fold_launches = launches["endpoint_fold"]
+    FOLD_LAUNCHES["phase 9 engine"] = launches["endpoint_fold"]
     # a second run with the same insertion schedule: the same bits
     again, _, steps2 = run_engine(ex, ENGINE_LANES, qids)
     same = sum(bool(np.array_equal(again[q].pi, rows[q].pi)) for q in qids)
@@ -2270,7 +2313,9 @@ def phase9_engine(web, small, dev, gen, card: str) -> dict:
     check(mrel < 0.5, f"Monte Carlo PPR rel err {mrel} >= eps")
     check(k4 > 0 and endpoint_fold.LAUNCHES["endpoint_fold"] == len(msrcs),
           "Monte Carlo PPR: K4 or the fold not launched")
-    return {"name": "endpoint_fold", "launches": fold_launches,
+    FOLD_LAUNCHES["phase 9 Monte Carlo PPR"] = endpoint_fold.LAUNCHES[
+        "endpoint_fold"]
+    return {"name": "endpoint_fold", "launches": launches["endpoint_fold"],
             "max_abs_err": stats["max_abs_err"], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
             "library_ms": lib_ms}
@@ -2565,6 +2610,7 @@ def phase11_daemon(web, dev, gen, card: str) -> float:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launches()
+    FOLD_LAUNCHES["phase 11 daemon"] = counts["endpoint_fold"]
     print(f"  daemon: {DAEMON_JOBS} Poisson jobs (rate {DAEMON_RATE}/s) of "
           f"{DAEMON_QUERIES} queries, T = {deadline:.4f}s = X t_avg / "
           f"{DAEMON_SPREAD} (t_avg {t_avg * 1e3:.3f} ms over "
@@ -2798,6 +2844,8 @@ def phase12_sharded(web, pokec, small, dev, gen, card: str, psrcs,
     four, ms_four = queries(sg4, workload, params, SHARD_QUERIES,
                             SHARD_LANES)
     four_launches = {**ell_spmv.LAUNCHES, **endpoint_fold.LAUNCHES}
+    FOLD_LAUNCHES[f"phase 12 {SHARD_K} shards"] = four_launches[
+        "endpoint_fold"]
     sweeps = sum(int(r.push_iters) for r in four)
     four_again, _ = queries(sg4, workload, params, SHARD_QUERIES,
                             SHARD_LANES)
@@ -4512,8 +4560,9 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
 
     from repro_torch.index import WalkIndex, walk_rows
-    from repro_torch.kernels import (_build, ell_spmv, embedding_bag, ref,
-                                     segment_reduce, walk_gather)
+    from repro_torch.kernels import (_build, ell_spmv, embedding_bag,
+                                     endpoint_fold, ref, segment_reduce,
+                                     walk_gather)
     from repro_torch.ppr import (ForaExecutor, ForaParams, LaneStreams,
                                  PprWorkload, forward_push, fora_fused, load,
                                  ppr_power_iteration, sample_walk_starts,
@@ -5050,6 +5099,7 @@ def main() -> int:
     print("phase 3: paper path, ForaExecutor -> dna_real on the "
           "full-size web-stanford stand-in")
     ell_spmv.reset_launches()
+    endpoint_fold.reset_launches()
     t0 = time.perf_counter()
     out = quickstart.run(scale=1, num_queries=256,
                          check_sources=CHECK_SOURCES, device="cuda",
@@ -5057,14 +5107,19 @@ def main() -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches["ell_spmm_sliced"] = ell_spmv.LAUNCHES["ell_spmm_sliced"]
+    FOLD_LAUNCHES["phase 3 paper path"] = endpoint_fold.LAUNCHES[
+        "endpoint_fold"]
     print(f"  paper path: {json.dumps(out)}")
-    print(f"  wall {wall:.1f}s launches={dict(ell_spmv.LAUNCHES)}")
+    print(f"  wall {wall:.1f}s launches={dict(ell_spmv.LAUNCHES)}, "
+          f"endpoint fold {FOLD_LAUNCHES['phase 3 paper path']}")
     check(out["graph"]["n"] == 281903, "not the full-size graph")
     check(out["layout"] == "sliced", "paper path must be sliced")
     check(out["accepted"], "dna_real result not accepted")
     check(out["fora_max_rel_err"] < 0.5,
           f"FORA rel err {out['fora_max_rel_err']} >= eps")
     check(launches["ell_spmm_sliced"] > 0, "paper path never launched K2")
+    check(FOLD_LAUNCHES["phase 3 paper path"] > 0,
+          "paper path never launched the endpoint fold")
     print(f"  exact PPR on the sliced table (COO loop): K4 launches "
           f"{ell_spmv.LAUNCHES['ell_spmv']}")
     check(ell_spmv.LAUNCHES["ell_spmv"] == 0,
@@ -5473,6 +5528,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     grad_row, train_launches = phase15_gnn_train(dev, gen, card)
     segment_row["launches"] += train_launches + oracle_launches
+    # the fold's launches on every path that drove it (counts zeroed before
+    # each, read after)
+    fold_row["launches"] = sum(FOLD_LAUNCHES.values())
+    fold_row["launches_by_path"] = dict(FOLD_LAUNCHES)
+    print(f"endpoint fold launches by path: {FOLD_LAUNCHES}")
 
     summary = []
     for name, (ms, plain_ms, bound, by, lib_ms) in (

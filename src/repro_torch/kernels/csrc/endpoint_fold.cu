@@ -1,4 +1,4 @@
-// Live walk-endpoint fold in one summation order.
+// Live walk-endpoint fold as an order-free fixed-point sum.
 //
 //   out[b, t] = sum_i w[b,i] * [pos[b,i] == t]
 //
@@ -11,420 +11,334 @@
 // This is the JAX package's segment_sum of the live walk phase
 // (repro/ppr/random_walk.py, residual_walks and source_walks), an XLA op,
 // not a Pallas kernel; the port's plain version is index_add_, which sums
-// with float atomics on a card, so its last bits changed from run to run.
-// Here a cell's sum has five levels, each added in lane order: its lanes
-// within a 32-lane chunk, the chunk sums within a group of 32 chunks (1,024
-// lanes), the group sums within a tile of kTile lanes, the tile sums within
-// a group of 32 tiles, and those groups' sums. The order is fixed by the
-// cell's own lanes, not by the grid, so a second launch gives the same
-// bits, and a hub that every lane reaches rounds at most 31 times a level
-// (about 115 adds at W = 2^22: 6.9e-6 of the sum of its weights, under the
-// check's 1e-5) instead of once a lane. No float atomics. A lane of weight
-// 0 (past its row's active walks) or with pos outside [0, n) takes no part;
-// adding 0 changes no bit of a sum of nonnegative terms.
+// with float atomics on a card, so its last bits change from run to run.
+// Here every lane's weight becomes an integer on a scale set by its row,
+// and the integers are added with 64-bit integer atomics: an integer sum
+// has the same bits in any order, so a second launch, another grid, a
+// permutation of a row's lanes or the row's place in a batch give the same
+// bits. No float atomics, no sort. A lane of weight 0 (past its row's
+// active walks) or with pos outside [0, n) takes no part, in the sums and
+// in the scale.
 //
-// 1. sort_tiles, one 1,024-thread block a tile of kTile = 8,192 lanes of
-//    one row. Warp w takes the tile's chunks 8w..8w+7; in each, a lane's
-//    cell is grouped with its peers by __match_any_sync and the first lane
-//    of each cell keeps the cell and the chunk's sum in lane order (as K3's
-//    gather_cells). The tile's entries are then sorted by the key (cell,
-//    slot), the slot being the entry's lane in the tile, which names its
-//    value (the value stays in place): a bitonic sort whose keys stay in
-//    registers, thread (w, lane) holding positions 256 w + 32 k + lane,
-//    which is the slot of its k-th chunk's entry. Strides 1-16 are warp
-//    shuffles, 32-128 swaps of a thread's own keys, and only the 15 stages
-//    of strides 256-4,096 go through shared memory, each warp on
-//    consecutive words. Keys are 32 bits where n < 2^19 (then a cell and a
-//    slot fit), else 64. The first entry of each cell's run adds the run's
-//    values in slot order, group by group, and the tile writes its sorted
-//    cells (-1 but at the run's head) and sums, and where each bucket of
-//    kRange cells begins among them, bucket-major. A tile with no kept
-//    entry (all its lanes past the active walks) writes only empty buckets.
-// 2. fold_buckets, one block a bucket of kRange = 512 cells of one row: it
-//    loads its runs' bounds for up to kWindow tiles at once; then for each
-//    group of 32 tiles, each tile's run of the bucket (its cells are
-//    distinct) goes to a table of (tile in group, cell) in shared memory,
-//    with a bit of the cell's mask, a warp loading 4 steps of 32 entries at
-//    once; then a thread a cell adds its tiles' sums in tile order (the set
-//    bits, lowest first) into the group's sum, and the group's sum into the
-//    cell's total. The block writes each cell of its bucket once, zeros
-//    included: no memset.
+// The arithmetic (kernels/ref.py, endpoint_fold_fixed_ref, repeats it step
+// by step in torch and gives these bits exactly):
+// * M = the largest weight of a row's lanes that take part, E its biased
+//   float32 exponent (M's bits >> 23, 0 where no lane takes part), so that
+//   M < 2^e with e = E - 126; l = ceil(log2 W);
+// * the row's scale S = 2^s with s = 62 - l - e = 188 - l - E;
+// * a lane's q = round-half-even(double(w) * 2^s), an int64: the product
+//   is exact (a power of two), so this rounding is the lane's only one;
+// * a cell's sum Q = sum of its lanes' q, exact in int64;
+// * out = float32(double(Q) * 2^-s): int64 to float64 to nearest, an exact
+//   product, float64 to float32 to nearest.
 //
-// What bounds it on the H100: bytes. The function reads pos and the weights
-// once (8 bytes a lane) and writes the (B, n) output once; it adds one
-// float a lane. This design adds the tiles' scratch (8 bytes a lane, written
-// once, read once) and the bucket table (4 bytes a bucket and tile), and a
-// tile's sort 30 barriers. index_add_ reads the same inputs but, on the
-// paper path's hub, serialises its atomics on one address.
+// Range: w < 2^e gives w * 2^s < 2^(62 - l), so q <= 2^(62 - l), and the W
+// <= 2^l lanes of a row sum to at most 2^62: no cell overflows int64.
+//
+// Error bound. A lane's rounding is at most half a unit, 2^-(s+1) =
+// 2^(e + l - 63) in weight units (and at most w itself, which rounds to 0
+// below half a unit). A cell of k lanes is off by at most
+// k * 2^(e + l - 63) before its two final roundings (2^-53 and 2^-24 of
+// the result). For a row whose weights are all equal (or 0), w >= 2^(e-1)
+// and every lane rounds alike, so the relative error is at most
+// 2^(l - 62) + 2^-53 + 2^-24: about 6.0e-8 at l = 22. Every path of the
+// port gives such rows: r_sum / w_eff on the active lanes and 0 beyond
+// (random_walk.py lane_weights, fora.py), 0 where the walk index covers a
+// lane, 1/W in Monte Carlo PPR.
+// For other weights the bound is absolute: with k <= W <= 2^l and the
+// largest output >= M >= 2^(e-1), a cell's error is at most 2^(2l - 62)
+// of the largest output: 2^-22 = 2.4e-7 at l = 20 (the paper path), 2^-20
+// = 9.5e-7 at l = 21, both under chip_smoke.py's ATOL_FRAC of 1e-6. At
+// l = 22 (2^22 lanes, the lane cap reached on the Pokec-order path) the
+// bound is 3.8e-6: a row of mixed weights that puts more than 2^20 lanes,
+// each of a weight near half a unit (about 2^(e - 41)), into one cell can
+// pass ATOL_FRAC. The design does not guard against that row (a second
+// word a cell would, at twice the atomics); the input class for which
+// the check's limit is guaranteed is therefore: any finite nonnegative
+// weights up to W = 2^21 lanes, and rows of equal weights at any W.
+//
+// The kernels, three a call:
+// 1. scale_rows, a block a slice of a row: the largest participating
+//    weight's bits of its lanes (float bits order as integers for
+//    nonnegative floats) to parts[b, g], and zeros of its slice of the
+//    (B, n) int64 sums. No atomics, no memset.
+// 2. add_lanes, a block a span of kSpan lanes of a row: it reduces the
+//    row's parts to s (block 0 stores s for step 3), then each thread
+//    takes kPer lanes, a warp 32 consecutive lanes at a time (the walks'
+//    starts are stratified, so neighbouring lanes often end at one node).
+//    Lanes of one cell within a warp combine by __match_any_sync and an
+//    exact int64 sum (three 21-bit limbs, each added by
+//    __reduce_add_sync). The first of them then adds the sum to the
+//    block's table of kTable cells in shared memory (twice the block's
+//    lanes, linear probes), or with a global 64-bit atomicAdd where its
+//    cell has no slot. A cell claims a slot where two lanes of a warp
+//    share it, or on one lane in 2^kSampleBits (by the lane's index);
+//    other lanes only look for the cell's slot. So a cell that many lanes
+//    reach (a hub, the walks' popular endpoints) soon has a slot and
+//    takes one global atomic a block, while a cell met once costs one
+//    global atomic and a shared load: on the H100 a shared atomic costs
+//    more than a global one to a distinct address, so a table that every
+//    lane claims into is slower on uniform endpoints, while global atomics
+//    alone queue on a popular cell (python3 tools/fold_probe.py --variants
+//    times these choices). The 64-bit shared adds are two 32-bit atomics
+//    and a carry (a 64-bit shared atomicAdd compiles to a compare-and-swap
+//    loop). The block then adds its table's cells to the global sums.
+// 3. write_out, a thread a cell: the float conversion above, every cell
+//    written once, zeros included.
+//
+// What bounds it on the H100: bytes. The function reads pos and the
+// weights once (8 bytes a lane) and writes the (B, n) output once. This
+// design reads the lanes twice (steps 1 and 2: 16 bytes a lane; step 2
+// streams them past L2) and writes, adds to and reads back 8 bytes a cell
+// of sums, which stay in the 50 MB L2 (2.3 MB a row at the paper path's
+// n). What it reaches is set by L2's atomics: one global atomic a lane on
+// uniform endpoints, fewer but queued on the walks' own, where popular
+// cells that no slot caught still meet on one address.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kTile = 8192;                 // lanes a sort block folds
-constexpr int kSortThreads = 1024;
-constexpr int kPer = kTile / kSortThreads;  // keys a thread holds: 8
-constexpr int kSlotBits = 13;               // log2(kTile)
-constexpr int kGroupBits = 10;              // 32 chunks: 1,024 lanes
-constexpr int kWarpSpan = 32 * kPer;        // positions a warp holds: 256
-constexpr int kRange = 512;                 // cells a fold block owns
-constexpr int kFoldThreads = kRange;
-constexpr int kTileGroup = 32;              // tiles a fold group, one bit each
-constexpr int kWindow = 256;                // tiles whose bounds a block holds
-constexpr int kSteps = 4;                   // run steps a warp loads at once
-constexpr int kSmallN = 1 << (32 - kSlotBits);  // n below it: 32-bit keys
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+constexpr int kPer = 8;                   // lanes a thread of add_lanes takes
+constexpr int kSpan = kThreads * kPer;    // lanes a block of add_lanes: 4,096
+constexpr int kMaxParts = 256;            // scale_rows blocks a row, at most
+static_assert(kMaxParts <= kThreads, "add_lanes reads a part a thread");
+constexpr int kSampleBits = 1;            // a lone lane claims 1 time in 2
+constexpr int kTableBits = 13;
+constexpr int kTable = 1 << kTableBits;   // cells of a block's table: 8,192
+constexpr int kTableBytes = kTable * (8 + 4);
+constexpr int kProbes = 32;
+constexpr int kOutPer = 4;                // cells a thread of write_out
+constexpr int kLimb = 21;                 // bits of a limb of q
+constexpr unsigned long long kLimbMask = (1ull << kLimb) - 1;
 
-template <typename Key>
-struct SortShared {
-  Key key[kTile];                   // (cell << kSlotBits) | slot, or none
-  float value[kTile];               // by slot: the chunk's sum of its cell
-};
-
-struct FoldShared {
-  float table[kTileGroup * kRange];  // (tile in group, cell) sums
-  unsigned mask[kRange];             // per cell: tiles of the group present
-  float total[kRange];               // per cell: closed groups' sum
-  int first[kWindow];                // per tile of the window: its run
-  int end[kWindow];                  //   of this bucket
-};
-
-// The key of no entry, above every real key.
-template <typename Key>
-__device__ __forceinline__ Key no_key() {
-  return static_cast<Key>(~static_cast<Key>(0));
+// The lane's cell, or -1 where it takes no part.
+__device__ __forceinline__ int cell_of(int p, float w, int n) {
+  return (w > 0.f && p >= 0 && p < n) ? p : -1;
 }
 
-template <typename Key>
-__device__ __forceinline__ int cell_of(Key key) {
-  return static_cast<int>(key >> kSlotBits);
+// 2^k as a double, exact, for -1022 <= k <= 1023.
+__device__ __forceinline__ double pow2(int k) {
+  return __longlong_as_double(static_cast<long long>(k + 1023) << 52);
 }
 
-__device__ __forceinline__ uint32_t shfl_xor_key(uint32_t x, int mask) {
-  return __shfl_xor_sync(0xffffffffu, x, mask);
-}
-
-__device__ __forceinline__ unsigned long long shfl_xor_key(
-    unsigned long long x, int mask) {
-  const unsigned lo = __shfl_xor_sync(0xffffffffu,
-                                      static_cast<unsigned>(x), mask);
-  const unsigned hi = __shfl_xor_sync(0xffffffffu,
-                                      static_cast<unsigned>(x >> 32), mask);
-  return (static_cast<unsigned long long>(hi) << 32) | lo;
-}
-
-// The bitonic network's step for the key at position p, whose partner is
-// at p ^ stride: the lower position of an ascending block keeps the min.
-template <typename Key>
-__device__ __forceinline__ Key bitonic_keep(Key a, Key b, int p, int size,
-                                            int stride) {
-  const bool up = (p & size) == 0;
-  const bool lower = (p & stride) == 0;
-  return (lower == up) ? (a < b ? a : b) : (a < b ? b : a);
-}
-
-// A stage whose partners are keys of one thread: key k pairs with k ^ S
-// (positions base + 32 k, stride 32 S). S is a compile-time constant so
-// the keys stay in registers.
-template <int S, typename Key>
-__device__ __forceinline__ void register_stage(Key (&v)[kPer], int base,
-                                               int size) {
-#pragma unroll
-  for (int k = 0; k < kPer; ++k) {
-    if ((k & S) == 0) {
-      const bool up = ((base + 32 * k) & size) == 0;
-      const Key a = v[k];
-      const Key b = v[k | S];
-      if ((a > b) == up) {
-        v[k] = b;
-        v[k | S] = a;
-      }
-    }
-  }
-}
-
-// Bitonic sort of the tile's keys, ascending; thread (warp, lane) holds
-// positions base + 32 k, base = 256 warp + lane. Leaves them in key[].
-template <typename Key>
-__device__ void sort_keys(Key (&v)[kPer], Key* key, int base) {
-  for (int size = 2; size <= kTile; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      if (stride >= kWarpSpan) {
-        __syncthreads();
-#pragma unroll
-        for (int k = 0; k < kPer; ++k) key[base + 32 * k] = v[k];
-        __syncthreads();
-#pragma unroll
-        for (int k = 0; k < kPer; ++k) {
-          const int p = base + 32 * k;
-          v[k] = bitonic_keep(v[k], key[p ^ stride], p, size, stride);
-        }
-      } else if (stride >= 32) {
-        if (stride == 32) {
-          register_stage<1>(v, base, size);
-        } else if (stride == 64) {
-          register_stage<2>(v, base, size);
-        } else {
-          register_stage<4>(v, base, size);
-        }
-      } else {
-#pragma unroll
-        for (int k = 0; k < kPer; ++k) {
-          const int p = base + 32 * k;
-          v[k] = bitonic_keep(v[k], shfl_xor_key(v[k], stride), p, size,
-                              stride);
-        }
-      }
-    }
-  }
+// The largest of the block's values; valid in thread 0.
+__device__ __forceinline__ unsigned block_max(unsigned v, unsigned* warp_max) {
+  v = __reduce_max_sync(0xffffffffu, v);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (lane == 0) warp_max[warp] = v;
   __syncthreads();
-#pragma unroll
-  for (int k = 0; k < kPer; ++k) key[base + 32 * k] = v[k];
-  __syncthreads();
+  if (warp == 0) {
+    v = lane < kWarps ? warp_max[lane] : 0u;
+    v = __reduce_max_sync(0xffffffffu, v);
+  }
+  return v;
 }
 
-// Tile blockIdx.x of row blockIdx.y: lanes [t * kTile, (t + 1) * kTile).
-template <typename Key>
-__global__ void __launch_bounds__(kSortThreads)
-sort_tiles(const int32_t* __restrict__ pos, const float* __restrict__ weights,
-           int32_t* __restrict__ cells, float* __restrict__ sums,
-           int32_t* __restrict__ starts, int n, int W, int tiles, int nb) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  SortShared<Key>& sh = *reinterpret_cast<SortShared<Key>*>(smem);
-  __shared__ int kept_total;
+// Slice blockIdx.x of row blockIdx.y: lanes [g * lanes, (g + 1) * lanes)
+// and cells [g * cells, (g + 1) * cells).
+__global__ void __launch_bounds__(kThreads)
+scale_rows(const int32_t* __restrict__ pos, const float* __restrict__ weights,
+           unsigned* __restrict__ parts, unsigned long long* __restrict__ sums,
+           int n, int W, int lanes, int cells) {
+  __shared__ unsigned warp_max[kWarps];
+  const int g = blockIdx.x;
+  const long long row = blockIdx.y;
+  const long long lo = static_cast<long long>(g) * lanes;
+  const long long hi = min(static_cast<long long>(W), lo + lanes);
+  unsigned m = 0u;
+#pragma unroll 4
+  for (long long i = lo + threadIdx.x; i < hi; i += kThreads) {
+    const float w = weights[row * W + i];
+    if (cell_of(pos[row * W + i], w, n) >= 0) m = max(m, __float_as_uint(w));
+  }
+  const long long c_hi = min(static_cast<long long>(n),
+                             static_cast<long long>(g + 1) * cells);
+  for (long long c = static_cast<long long>(g) * cells + threadIdx.x;
+       c < c_hi; c += kThreads) {
+    sums[row * n + c] = 0ull;
+  }
+  m = block_max(m, warp_max);
+  if (threadIdx.x == 0) parts[row * gridDim.x + g] = m;
+}
+
+// A lane's integer, round-half-even(w * 2^s): the product is exact.
+__device__ __forceinline__ unsigned long long lane_q(float w, double scale) {
+  return static_cast<unsigned long long>(
+      __double2ll_rn(__dmul_rn(static_cast<double>(w), scale)));
+}
+
+// The exact sum of q over the lanes of `peers` (all of them call it).
+__device__ __forceinline__ unsigned long long group_sum(unsigned peers,
+                                                        unsigned long long q) {
+  const unsigned long long s0 = __reduce_add_sync(
+      peers, static_cast<unsigned>(q & kLimbMask));
+  const unsigned long long s1 = __reduce_add_sync(
+      peers, static_cast<unsigned>((q >> kLimb) & kLimbMask));
+  const unsigned long long s2 = __reduce_add_sync(
+      peers, static_cast<unsigned>(q >> (2 * kLimb)));
+  return s0 + (s1 << kLimb) + (s2 << (2 * kLimb));
+}
+
+__device__ __forceinline__ int table_slot(int cell) {
+  return static_cast<int>((static_cast<unsigned>(cell) * 2654435761u)
+                          >> (32 - kTableBits));
+}
+
+// value += q in shared memory as two 32-bit atomics and the low word's
+// carry (a 64-bit shared atomicAdd compiles to a compare-and-swap loop):
+// the two words hold the sum mod 2^64 exactly, in any order.
+__device__ __forceinline__ void table_add(unsigned long long* value,
+                                          unsigned long long q) {
+  unsigned* word = reinterpret_cast<unsigned*>(value);
+  const unsigned lo = static_cast<unsigned>(q);
+  const unsigned old = atomicAdd(word, lo);
+  atomicAdd(word + 1, static_cast<unsigned>(q >> 32) + (old + lo < old));
+}
+
+// Adds q to cell c's slot of the block's table and returns true, or
+// returns false where the cell has none. A cell that `claims` takes a free
+// slot on its way (up to kProbes linear probes); one that does not only
+// looks for a slot that another cell's lanes claimed before.
+__device__ __forceinline__ bool table_put(int* key,
+                                          unsigned long long* value, int c,
+                                          unsigned long long q, bool claims) {
+  int j = table_slot(c);
+  for (int t = 0; t < kProbes; ++t) {
+    const int held = claims ? atomicCAS(&key[j], -1, c)
+                            : *static_cast<volatile int*>(&key[j]);
+    if (held == c || (claims && held == -1)) {
+      table_add(&value[j], q);
+      return true;
+    }
+    if (held == -1) return false;
+    j = (j + 1) & (kTable - 1);
+  }
+  return false;
+}
+
+// Span blockIdx.x of row blockIdx.y: lanes [x * kSpan, (x + 1) * kSpan).
+__global__ void __launch_bounds__(kThreads)
+add_lanes(const int32_t* __restrict__ pos, const float* __restrict__ weights,
+          const unsigned* __restrict__ parts, int nparts,
+          int* __restrict__ shift, unsigned long long* __restrict__ sums,
+          int n, int W, int log_w) {
+  extern __shared__ __align__(16) unsigned long long value[];  // kTable
+  int* key = reinterpret_cast<int*>(value + kTable);           // kTable
+  __shared__ unsigned warp_max[kWarps];
+  __shared__ int row_shift;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int base = warp * kWarpSpan + lane;   // position (and slot) of k = 0
-  const int t = blockIdx.x;
-  const long long in_row = static_cast<long long>(blockIdx.y) * W;
-  const long long first_lane = static_cast<long long>(t) * kTile;
-  const long long out_row =
-      (static_cast<long long>(blockIdx.y) * tiles + t) * kTile;
-  // bucket k's first entry in this tile: starts[(row * (nb + 1) + k) *
-  // tiles + t], so a fold block reads its bucket's bounds contiguously
-  int32_t* start = starts +
-      static_cast<long long>(blockIdx.y) * (nb + 1) * tiles + t;
-  if (tid == 0) kept_total = 0;
+  const long long row = blockIdx.y;
+  const long long first = static_cast<long long>(blockIdx.x) * kSpan;
 
-  // the warp's chunks: each cell's lanes of a chunk added in lane order by
-  // the first of them, which keeps the entry; the others hold no key
-  Key v[kPer];
-  int cell[kPer];
-  float x[kPer];
-  int kept = 0;
+  // the row's lanes in flight while the scale is reduced
+  int p[kPer];
+  float w[kPer];
 #pragma unroll
   for (int k = 0; k < kPer; ++k) {
-    const long long i = first_lane + base + 32 * k;
-    cell[k] = -1;
-    x[k] = 0.f;
-    if (i < W) {
-      const int p = pos[in_row + i];
-      const float w = weights[in_row + i];
-      if (w != 0.f && p >= 0 && p < n) {
-        cell[k] = p;
-        x[k] = w;
-      }
-    }
+    const long long i = first + k * kThreads + tid;
+    p[k] = i < W ? __ldcs(pos + row * W + i) : -1;
+    w[k] = i < W ? __ldcs(weights + row * W + i) : 0.f;
   }
-#pragma unroll
-  for (int k = 0; k < kPer; ++k) {
-    const int slot = base + 32 * k;
-    const unsigned peers = __match_any_sync(0xffffffffu, cell[k]);
-    float s = 0.f;
-    for (int j = 0; j < 32; ++j) {
-      const float w = __shfl_sync(0xffffffffu, x[k], j);
-      if ((peers >> j) & 1u) s += w;
-    }
-    const bool keep = cell[k] >= 0 && lane == __ffs(peers) - 1;
-    v[k] = keep ? (static_cast<Key>(cell[k]) << kSlotBits)
-                      | static_cast<Key>(slot)
-                : no_key<Key>();
-    sh.value[slot] = s;
-    kept += keep;
+  const unsigned m = block_max(
+      tid < nparts ? parts[row * nparts + tid] : 0u, warp_max);
+  if (tid == 0) {
+    row_shift = 188 - log_w - static_cast<int>(m >> 23);
+    if (blockIdx.x == 0) shift[row] = row_shift;
+  }
+  for (int j = tid; j < kTable; j += kThreads) {
+    key[j] = -1;
+    value[j] = 0ull;
   }
   __syncthreads();
-  if (kept) atomicAdd(&kept_total, kept);
-  if (!__syncthreads_or(kept)) {
-    for (int k = tid; k <= nb; k += kSortThreads) {
-      start[static_cast<long long>(k) * tiles] = 0;
-    }
-    return;
-  }
+  const double scale = pow2(row_shift);
+  unsigned long long* out = sums + row * n;
 
-  // sort the keys, ascending: entries of no cell go last
-  sort_keys(v, sh.key, base);
-
-  const int m = kept_total;
-  for (int p = tid; p < m; p += kSortThreads) {
-    const int c = cell_of(sh.key[p]);
-    const int prev = p == 0 ? -1 : cell_of(sh.key[p - 1]);
-    float total = 0.f;
-    if (c != prev) {
-      // the run's head adds the run: slots ascending, so chunks in order,
-      // summed by group of 32 chunks, then the groups in order
-      float group = 0.f;
-      int g = 0;
-      for (int q = p; q < m; ++q) {
-        const Key key = sh.key[q];
-        if (cell_of(key) != c) break;
-        const int slot = static_cast<int>(key & (kTile - 1));
-        if ((slot >> kGroupBits) != g) {
-          total += group;
-          group = 0.f;
-          g = slot >> kGroupBits;
-        }
-        group += sh.value[slot];
-      }
-      total += group;
-    }
-    cells[out_row + p] = c != prev ? c : -1;
-    sums[out_row + p] = total;
-    // where each bucket of kRange cells begins among the sorted entries
-    const int bucket = c / kRange;
-    const int prev_bucket = p == 0 ? -1 : prev / kRange;
-    for (int k = prev_bucket + 1; k <= bucket; ++k) {
-      start[static_cast<long long>(k) * tiles] = p;
-    }
-    if (p == m - 1) {
-      for (int k = bucket + 1; k <= nb; ++k) {
-        start[static_cast<long long>(k) * tiles] = m;
-      }
-    }
-  }
-}
-
-// Bucket blockIdx.x (cells [c0, c0 + kRange)) of row blockIdx.y.
-__global__ void __launch_bounds__(kFoldThreads)
-fold_buckets(const int32_t* __restrict__ cells,
-             const float* __restrict__ sums,
-             const int32_t* __restrict__ starts, float* __restrict__ out,
-             int n, int tiles, int nb) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  FoldShared& sh = *reinterpret_cast<FoldShared*>(smem);
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int k = blockIdx.x;
-  const int c0 = k * kRange;
-  const int ncell = min(kRange, n - c0);
-  const long long row = static_cast<long long>(blockIdx.y) * tiles;
-  const int32_t* bounds = starts +
-      (static_cast<long long>(blockIdx.y) * (nb + 1) + k) * tiles;
-  sh.mask[tid] = 0u;
-  sh.total[tid] = 0.f;
-  for (int g0 = 0; g0 < tiles; g0 += kTileGroup) {
-    if (g0 % kWindow == 0) {
-      // the next window's run bounds, all loads in flight at once
-      __syncthreads();
-      for (int j = tid; j < kWindow && g0 + j < tiles; j += kFoldThreads) {
-        sh.first[j] = bounds[g0 + j];
-        sh.end[j] = bounds[tiles + g0 + j];
-      }
-    }
-    __syncthreads();
-    // each tile's run of this bucket into the table: a tile holds a cell
-    // once, so no two writes meet
-    for (int j = warp; j < kTileGroup && g0 + j < tiles;
-         j += kFoldThreads / 32) {
-      const long long tile = row + g0 + j;
-      const int w = (g0 % kWindow) + j;
-      const int e = sh.end[w];
-      for (int p0 = sh.first[w]; p0 < e; p0 += 32 * kSteps) {
-        int cell[kSteps];
-        float sum[kSteps];
 #pragma unroll
-        for (int u = 0; u < kSteps; ++u) {
-          const int p = p0 + 32 * u + lane;
-          cell[u] = p < e ? cells[tile * kTile + p] : -1;
-          sum[u] = p < e ? sums[tile * kTile + p] : 0.f;
-        }
+  for (int k = 0; k < kPer; ++k) {
+    const int c = cell_of(p[k], w[k], n);
+    const unsigned peers = __match_any_sync(0xffffffffu, c);
+    if (c < 0) continue;
+    const int count = __popc(peers);
+    unsigned long long q = lane_q(w[k], scale);
+    if (count > 1) q = group_sum(peers, q);
+    if (lane != __ffs(peers) - 1) continue;
+    // a cell that two lanes of a warp share claims a slot, as does a lone
+    // lane one time in 2^kSampleBits (by its index), so that a cell that
+    // many lanes reach finds one soon; the others only look for a slot
+    const unsigned i = static_cast<unsigned>(first + k * kThreads + tid);
+    const bool claims =
+        count > 1 || (i * 2654435761u) >> (32 - kSampleBits) == 0u;
+    if (!table_put(key, value, c, q, claims)) atomicAdd(&out[c], q);
+  }
+  __syncthreads();
+  for (int j = tid; j < kTable; j += kThreads) {
+    if (key[j] >= 0) atomicAdd(&out[key[j]], value[j]);
+  }
+}
+
+// Cells [x * kOutPer * kThreads, ...) of row blockIdx.y.
+__global__ void __launch_bounds__(kThreads)
+write_out(const unsigned long long* __restrict__ sums,
+          const int* __restrict__ shift, float* __restrict__ out, int n) {
+  const long long row = blockIdx.y;
+  const double inv = pow2(-shift[row]);
+  const long long first =
+      static_cast<long long>(blockIdx.x) * kOutPer * kThreads + threadIdx.x;
 #pragma unroll
-        for (int u = 0; u < kSteps; ++u) {
-          if (cell[u] >= 0) {
-            const int c = cell[u] - c0;
-            sh.table[j * kRange + c] = sum[u];
-            atomicOr(&sh.mask[c], 1u << j);
-          }
-        }
-      }
+  for (int k = 0; k < kOutPer; ++k) {
+    const long long c = first + k * kThreads;
+    if (c < n) {
+      const double x =
+          __ll2double_rn(static_cast<long long>(sums[row * n + c]));
+      out[row * n + c] = __double2float_rn(__dmul_rn(x, inv));
     }
-    __syncthreads();
-    // a thread a cell: the group's tiles in order, then into the total
-    unsigned bits = sh.mask[tid];
-    if (bits) {
-      float group = 0.f;
-      while (bits) {
-        const int j = __ffs(bits) - 1;
-        group += sh.table[j * kRange + tid];
-        bits &= bits - 1;
-      }
-      sh.total[tid] += group;
-      sh.mask[tid] = 0u;
-    }
-    __syncthreads();
   }
-  if (tid < ncell) {
-    out[static_cast<long long>(blockIdx.y) * n + c0 + tid] = sh.total[tid];
-  }
-}
-
-// A kernel's shared memory, and the whole carveout asked for, so that more
-// than one block fits an SM (left to the CUDA runtime, it may size it for
-// one).
-template <typename Kernel>
-cudaError_t prepare(Kernel kernel, int smem_bytes) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributePreferredSharedMemoryCarveout,
-                              cudaSharedmemCarveoutMaxShared);
-}
-
-template <typename Key>
-cudaError_t launch_sort(const void* pos, const void* weights, void* cells,
-                        void* sums, void* starts, int n, int W, int B,
-                        int tiles, int nb, cudaStream_t s) {
-  const int bytes = static_cast<int>(sizeof(SortShared<Key>));
-  cudaError_t err = prepare(sort_tiles<Key>, bytes);
-  if (err != cudaSuccess) return err;
-  sort_tiles<Key><<<dim3(tiles, B), kSortThreads, bytes, s>>>(
-      static_cast<const int32_t*>(pos), static_cast<const float*>(weights),
-      static_cast<int32_t*>(cells), static_cast<float*>(sums),
-      static_cast<int32_t*>(starts), n, W, tiles, nb);
-  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// out (B, n) f32; cells (B, tiles * kTile) i32, sums (B, tiles * kTile)
-// f32 and starts (B, nb + 1, tiles) i32 are caller-allocated scratch;
-// tiles = ceil(W / kTile), nb = ceil(n / kRange).
-int endpoint_fold_launch(const void* pos, const void* weights, void* cells,
-                         void* sums, void* starts, void* out, int n, int W,
-                         int B, int tiles, int nb, void* stream) {
-  if (n < 1 || W < 1 || B < 1 || B > 65535
-      || tiles != (W + kTile - 1) / kTile
-      || nb != (n + kRange - 1) / kRange) {
+// out (B, n) f32; sums (B, n) i64, parts (B, nparts) u32 and shift (B,)
+// i32 are caller-allocated scratch, none of them initialised;
+// (nparts, log_w) = endpoint_fold.fold_scratch(n, W), log_w = ceil(log2 W).
+int endpoint_fold_launch(const void* pos, const void* weights, void* sums,
+                         void* parts, void* shift, void* out, int n, int W,
+                         int B, int nparts, int log_w, void* stream) {
+  if (n < 1 || W < 1 || B < 1 || B > 65535 || nparts < 1
+      || nparts > kMaxParts || log_w < 0 || log_w > 31
+      || (1ll << log_w) < W || (log_w > 0 && (1ll << (log_w - 1)) >= W)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = n < kSmallN
-      ? launch_sort<uint32_t>(pos, weights, cells, sums, starts, n, W, B,
-                              tiles, nb, s)
-      : launch_sort<unsigned long long>(pos, weights, cells, sums, starts,
-                                        n, W, B, tiles, nb, s);
+  const int lanes = static_cast<int>((W + nparts - 1ll) / nparts);
+  const int cells = static_cast<int>((n + nparts - 1ll) / nparts);
+  const int spans = static_cast<int>((W + kSpan - 1ll) / kSpan);
+  const int per_block = kOutPer * kThreads;
+  const int out_blocks = static_cast<int>((n + per_block - 1ll) / per_block);
+  auto* sum64 = static_cast<unsigned long long*>(sums);
+  scale_rows<<<dim3(nparts, B), kThreads, 0, s>>>(
+      static_cast<const int32_t*>(pos), static_cast<const float*>(weights),
+      static_cast<unsigned*>(parts), sum64, n, W, lanes, cells);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int bytes = static_cast<int>(sizeof(FoldShared));
-  err = prepare(fold_buckets, bytes);
+  err = cudaFuncSetAttribute(
+      add_lanes, cudaFuncAttributeMaxDynamicSharedMemorySize, kTableBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  fold_buckets<<<dim3(nb, B), kFoldThreads, bytes, s>>>(
-      static_cast<const int32_t*>(cells), static_cast<const float*>(sums),
-      static_cast<const int32_t*>(starts), static_cast<float*>(out), n,
-      tiles, nb);
+  add_lanes<<<dim3(spans, B), kThreads, kTableBytes, s>>>(
+      static_cast<const int32_t*>(pos), static_cast<const float*>(weights),
+      static_cast<const unsigned*>(parts), nparts,
+      static_cast<int*>(shift), sum64, n, W, log_w);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  write_out<<<dim3(out_blocks, B), kThreads, 0, s>>>(
+      sum64, static_cast<const int*>(shift), static_cast<float*>(out), n);
   return static_cast<int>(cudaGetLastError());
 }
 

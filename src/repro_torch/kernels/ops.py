@@ -157,9 +157,9 @@ def walk_endpoint_gather(endpoints: torch.Tensor, budget: torch.Tensor,
 def endpoint_fold(pos: torch.Tensor, weights: torch.Tensor,
                   n: int) -> torch.Tensor:
     """The live walk phase's fold: each lane's weight added at its endpoint
-    ``pos``, (B, n) from pos and weights (B, W). On the card in one
-    summation order, fixed by the lanes, so a second call gives the same
-    bits."""
+    ``pos``, (B, n) from pos and weights (B, W). On the card an integer
+    sum on a scale fixed by each row (``ref.endpoint_fold_fixed_ref``'s
+    bits), so a row has the same bits on every call, in any batch."""
     if _on_cuda(weights):
         return endpoint_fold_cuda(pos.to(torch.int32).contiguous(),
                                   weights.contiguous(), n)

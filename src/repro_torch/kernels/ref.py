@@ -108,6 +108,35 @@ def endpoint_fold_ref(pos: torch.Tensor, weights: torch.Tensor,
     return out.view(B, n)
 
 
+def endpoint_fold_fixed_ref(pos: torch.Tensor, weights: torch.Tensor, n: int,
+                            *, scale_cut: int = 0) -> torch.Tensor:
+    """The card's endpoint fold (``csrc/endpoint_fold.cu``) in torch, step
+    for step, so that it gives the kernel's bits: pos (B, W) and float32
+    weights (B, W) to (B, n) float32. A lane takes part where its weight is
+    above 0 and its pos in [0, n). Each row's scale is 2^s, s = 188 -
+    ceil(log2 W) - E, E the biased exponent of its largest participating
+    weight; a lane adds round-half-even(float64(w) * 2^s) as an int64 to
+    its cell, and a cell's sum Q gives float32(float64(Q) * 2^-s). The
+    integer sum is exact in any order, so the lane order plays no part.
+    ``scale_cut`` takes that many bits off every scale (a coarser fold, for
+    the checks that must refuse one); 0 is the kernel's. For tests and
+    ``chip_smoke.py``: the port's CPU path keeps ``endpoint_fold_ref``."""
+    B, W = pos.shape
+    p = pos.long()
+    w = weights.to(torch.float32)
+    keep = (w > 0) & (p >= 0) & (p < n)
+    bits = torch.where(keep, w.view(torch.int32), 0).amax(dim=1)
+    shift = 188 - (W - 1).bit_length() - (bits >> 23).long() - scale_cut
+    scale = ((shift + 1023) << 52).view(torch.float64)[:, None]
+    inverse = ((1023 - shift) << 52).view(torch.float64)[:, None]
+    q = torch.where(keep, torch.round(w.double() * scale), 0.0).long()
+    rows = torch.arange(B, device=p.device)[:, None]
+    flat = torch.where(keep, p, 0) + rows * n
+    sums = torch.zeros(B * n, dtype=torch.int64, device=p.device)
+    sums.index_add_(0, flat.reshape(-1), q.reshape(-1))
+    return (sums.view(B, n).double() * inverse).float()
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True,
                         q_offset: int = 0) -> torch.Tensor:

@@ -755,6 +755,103 @@ def test_endpoint_fold_drops_lanes_outside_the_graph(card):
     assert got.cpu().tolist() == [[1.0, 0.0, 8.0, 0.0, 34.0]]
 
 
+def _fold_case(card, B, W, n, case):
+    """The inputs of ``test_endpoint_fold_matches_plain_and_repeats_bitwise``
+    for one shape and case."""
+    g = torch.Generator(device=card).manual_seed(B * 31 + W)
+    pos = torch.randint(0, n, (B, W), generator=g, device=card,
+                        dtype=torch.int32)
+    w = torch.rand((B, W), generator=g, device=card)
+    if case == "active":
+        act = torch.randint(1, W + 1, (B, 1), generator=g, device=card)
+        w = torch.where(torch.arange(W, device=card)[None] < act, w, 0.0)
+    elif case == "hub":
+        pos.fill_(n // 2)
+    elif case == "skew":
+        at = torch.rand((B, W), generator=g, device=card) < 0.2
+        pos = torch.where(at, min(7, n - 1), pos).to(torch.int32)
+    return pos.contiguous(), w.contiguous()
+
+
+@pytest.mark.parametrize("B,W,n", [(1, 1, 5), (3, 9000, 2000),
+                                   (1, 1 << 20, 281_903),
+                                   (8, 1 << 20, 281_903)])
+@pytest.mark.parametrize("case", ["uniform", "active", "hub", "skew"])
+def test_endpoint_fold_is_its_emulation_bitwise(card, B, W, n, case):
+    pos, w = _fold_case(card, B, W, n, case)
+    got = endpoint_fold.endpoint_fold_cuda(pos, w, n)
+    assert torch.equal(got, ref.endpoint_fold_fixed_ref(pos, w, n))
+
+
+@pytest.mark.parametrize("case", ["uniform", "active", "hub", "skew"])
+def test_endpoint_fold_bits_ignore_lane_order_and_batch(card, case):
+    B, W, n = 8, 1 << 20, 281_903
+    pos, w = _fold_case(card, B, W, n, case)
+    got = endpoint_fold.endpoint_fold_cuda(pos, w, n)
+    g = torch.Generator(device=card).manual_seed(1)
+    perm = torch.argsort(torch.rand((B, W), generator=g, device=card), dim=1)
+    moved = endpoint_fold.endpoint_fold_cuda(
+        torch.gather(pos, 1, perm).contiguous(),
+        torch.gather(w, 1, perm).contiguous(), n)
+    assert torch.equal(moved, got)
+    for b in range(B):
+        alone = endpoint_fold.endpoint_fold_cuda(pos[b:b + 1].contiguous(),
+                                                 w[b:b + 1].contiguous(), n)
+        assert torch.equal(alone[0], got[b])
+
+
+@pytest.mark.parametrize("case", ["hub", "equal", "uniform"])
+def test_endpoint_fold_at_the_lane_cap(card, case):
+    """W = 2^22 lanes at the Pokec order: the lanes' integers of a hub sum
+    to at most 2^62, and the rows agree with float64 and the emulation."""
+    B, W, n = 2, 1 << 22, 1_632_803
+    pos, w = _fold_case(card, B, W, n, "hub" if case == "hub" else "uniform")
+    if case == "equal":
+        w = torch.where(w < 0.5, torch.tensor(0.0, device=card),
+                        torch.tensor(1 / 3, device=card)).contiguous()
+    got = endpoint_fold.endpoint_fold_cuda(pos, w, n)
+    assert torch.equal(got, ref.endpoint_fold_fixed_ref(pos, w, n))
+    want = ref.endpoint_fold_ref(pos, w.double(), n)
+    torch.testing.assert_close(got.double(), want, rtol=1e-5,
+                               atol=1e-6 * float(want.abs().max()))
+
+
+def test_endpoint_fold_has_no_float_atomics_and_no_sort(card):
+    import re
+    import subprocess
+    from pathlib import Path
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.kernels import _build
+
+    lib = _build.build(["endpoint_fold"])["endpoint_fold"]
+    tool = Path(_build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    atomics = re.findall(r"\b(?:ATOMS|ATOMG|ATOM|RED)\.[A-Z0-9_.]+", sass)
+    assert atomics, "no atomic found in the fold's SASS"
+    assert not [a for a in atomics if re.search(r"\.(?:F16|BF16|F32|F64)", a)]
+    code = re.sub(r"//[^\n]*", "",
+                  (_build.CSRC / _build.SOURCES["endpoint_fold"]).read_text())
+    assert "sort" not in code.lower()
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    pos, w = _fold_case(card, 3, 9000, 2000, "skew")
+    with Ops() as ops:
+        endpoint_fold.endpoint_fold_cuda(pos, w, 2000)
+    assert ops.names and all(name.startswith("aten.empty")
+                             for name in ops.names), ops.names
+
+
 def test_engine_on_card_repeats_bitwise_and_meets_the_guarantee(card):
     g = load("web-stanford", scale=64)
     ex = ForaExecutor(PprWorkload(g, 24, seed=0), ForaParams(epsilon=0.5),

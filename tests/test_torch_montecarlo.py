@@ -178,10 +178,13 @@ def test_endpoint_fold_plain_is_jax_segment_sum(B, W, n):
 
 
 def test_endpoint_fold_shape_and_wrapper_checks():
-    assert endpoint_fold.fold_shape(281_903, 1 << 20) == (128, 551)
-    assert endpoint_fold.fold_shape(5, 1) == (1, 1)
+    # (scale_rows blocks a row, ceil(log2 W))
+    assert endpoint_fold.fold_scratch(281_903, 1 << 20) == (256, 20)
+    assert endpoint_fold.fold_scratch(281_903, 1 << 22) == (256, 22)
+    assert endpoint_fold.fold_scratch(5, 1) == (1, 0)
+    assert endpoint_fold.fold_scratch(2000, 9000) == (3, 14)
     with pytest.raises(ValueError):
-        endpoint_fold.fold_shape(0, 4)
+        endpoint_fold.fold_scratch(0, 4)
     pos = torch.zeros((1, 4), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         endpoint_fold.endpoint_fold_cuda(pos, torch.ones(1, 4), 3)
