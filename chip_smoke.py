@@ -258,7 +258,32 @@ drives the port's main path, in phases:
    time, peak memory, profiles of GCN on ogb_products and GraphCast on
    minibatch_lg, and the backward's time beside its bound, its plain
    version and PyTorch's own backward of the same function
-   (``index_select``; ``scatter_reduce``'s autograd for max and min).
+   (``index_select``; ``scatter_reduce``'s autograd for max and min);
+16. DIN training at ``train_batch`` through ``get_arch("din").build_step``:
+   B = 65,536 users of L = 100, the 10M x 18 item and 100k x 18 category
+   tables in float32, not cut, on ``RecsysStream`` batches (Zipf(1.3)
+   item ids, seed 0). One step's kernel calls are recorded: K5's forward
+   at the train shape against float64 plain (L 2^-24 sum|w||row|); K5's
+   backward (``csrc/embedding_bag_grad.cu``: ``bag_grad_table`` over the
+   plan of the ids, ``bag_grad_weights``) on the item and category
+   tables and on uniform item ids with the same weights and gradient,
+   dT within cnt 2^-24 sum|w||g| a cell (cnt the row's positions) and 0
+   on rows no id names, dw within d 2^-24 sum_c |T||g|, each limit
+   refusing a dT without a short segment's last position, a dT and a dw
+   with two bags' g rows swapped and a dw without the table's last
+   column; ``segment_reduce`` on the item table's gather backward as
+   phase 14 holds it. A second step from the same start must give the
+   same bits, and a ``TorchDispatchMode`` must record no float scatter.
+   Then 8 steps, one batch each: losses, ms a step by CUDA events beside
+   ``model_flops``/``model_bytes``' least time, peak memory, the launches
+   a step (``din_train_launches``), and a profile split into K5's
+   forward and backward, the plans, gathers, ``segment_reduce``, GEMMs,
+   AdamW and the rest with the idle share; both backward kernels timed
+   beside their bound, the plain version and ``F.embedding_bag``'s
+   backward with ``per_sample_weights``. Last, ``python -m
+   repro_torch.launch.train --arch din`` on the card (30 smoke steps,
+   int8 gradient compression, a failure injected at step 15): its loss
+   must improve.
 
 The launch counts of each path are zeroed just before it and read just
 after. Any failed phase exits non-zero; without a card, or without the
@@ -377,7 +402,11 @@ REPLACES = {"ell_spmm": "src/repro/kernels/ell_spmv.py:141",
             # XLA's segment_sum/max/min of the GNNs, not a Pallas kernel
             "segment_reduce": "src/repro/models/gnn/common.py:44",
             # their autodiff (jax.grad of the same ops): no Pallas backward
-            "segment_reduce_grad": "src/repro/models/gnn/common.py:44"}
+            "segment_reduce_grad": "src/repro/models/gnn/common.py:44",
+    # XLA's autodiff of DIN's jnp.take and einsum pooling (the function
+    # K5 computes forward): no Pallas backward
+    "embedding_bag_grad_table": "src/repro/models/recsys/din.py:80",
+    "embedding_bag_grad_weights": "src/repro/models/recsys/din.py:80"}
 SOURCES = {"ell_spmm": "src/repro_torch/kernels/csrc/ell_spmm.cu",
            "ell_spmm_sliced":
                "src/repro_torch/kernels/csrc/ell_spmm_sliced.cu",
@@ -391,7 +420,11 @@ SOURCES = {"ell_spmm": "src/repro_torch/kernels/csrc/ell_spmm.cu",
            "segment_reduce":
                "src/repro_torch/kernels/csrc/segment_reduce.cu",
            "segment_reduce_grad":
-               "src/repro_torch/kernels/csrc/segment_grad.cu"}
+               "src/repro_torch/kernels/csrc/segment_grad.cu",
+           "embedding_bag_grad_table":
+               "src/repro_torch/kernels/csrc/embedding_bag_grad.cu",
+           "embedding_bag_grad_weights":
+               "src/repro_torch/kernels/csrc/embedding_bag_grad.cu"}
 # every TPU kernel of the JAX package has its counterpart
 NOT_PORTED: list[dict] = []
 # phase 14: the GNN family (configs/gcn_cora.py, pna_arch.py,
@@ -439,6 +472,18 @@ GNN_TRAIN_PROFILES = {("gcn-cora", "ogb_products"),
                       ("graphcast", "minibatch_lg")}
 TRAIN_SMOKE_STEPS = 3
 QUEUE_CYCLES_PER_CALL = 200_000   # a sleep that outlasts the host's queueing
+# phase 16: DIN training at train_batch (B 65,536, the full tables)
+DIN_TRAIN_STEPS = 8
+DIN_TRAIN_SEED = 0             # RecsysStream's seed for the checked batch
+BAG_KERNELS = ("bag_gather", "bag_shared")
+BAG_GRAD_KERNELS = ("bag_grad_weights", "bag_table_first", "bag_table_level")
+BAG_GRAD_REPS = 10
+BAG_SHORT_SEGMENT = (2, 64)    # a segment whose last position a broken
+                               # backward drops: its length in this range
+# the README's command, at the entry point's defaults (batch 8, lr 3e-4)
+DIN_CLI = ("--arch", "din", "--preset", "smoke", "--steps", "30",
+           "--compress-grads", "--fail-at", "15:0", "--ckpt-every", "10",
+           "--log-every", "5")
 # phase 11: the serving daemon on the paper path (launch/serve.py)
 TUNE_PAD_MULTIPLES = (8, 16, 32)
 TUNE_B = 8
@@ -3522,6 +3567,17 @@ def gnn_train_launches(arch_id: str, cfg) -> tuple[int, int]:
     return forward + remat + gathers[arch_id] * depth, forward
 
 
+def din_train_launches() -> dict[str, int]:
+    """Kernel calls of one DIN train step, from its structure: K5 once a
+    table (the pooling), its backward once a table (each call launching
+    both kernels), one segment_reduce a gather that carries a gradient
+    (the history's and the target's rows of each table), and no
+    segment_reduce_grad."""
+    return {"embedding_bag": 2, "embedding_bag_grad_table": 2,
+            "embedding_bag_grad_weights": 2, "segment_reduce": 4,
+            "segment_reduce_grad": 0}
+
+
 def is_float_scatter(name: str, args, kwargs) -> bool:
     """Whether a dispatched op (``OpOverload.__name__``, e.g.
     "index_add_.default") folds into a float tensor by index, as a card
@@ -4544,6 +4600,597 @@ def phase15_gnn_train(dev, gen, card: str) -> tuple[dict, int]:
             "library_ms": lib_ms}, fwd_launches
 
 
+# ---------------------------------------------------------------------------
+# phase 16: DIN training
+
+
+@contextmanager
+def recorded_din_calls():
+    """While open, the arguments of every call ``ops`` makes to K5's
+    wrappers (forward and backward) and to ``segment_reduce_cuda`` are
+    recorded in the dict of lists it yields (the calls still run)."""
+    from repro_torch.kernels import ops
+
+    seen: dict[str, list] = {"forward": [], "backward": [], "segment": []}
+    kept = (ops.embedding_bag_cuda, ops.embedding_bag_grad_cuda,
+            ops.segment_reduce_cuda)
+
+    def forward(*args):
+        seen["forward"].append(args)
+        return kept[0](*args)
+
+    def backward(*args, **kwargs):
+        seen["backward"].append((args, kwargs))
+        return kept[1](*args, **kwargs)
+
+    def segment(*args):
+        seen["segment"].append(args)
+        return kept[2](*args)
+
+    ops.embedding_bag_cuda, ops.embedding_bag_grad_cuda, \
+        ops.segment_reduce_cuda = forward, backward, segment
+    try:
+        yield seen
+    finally:
+        ops.embedding_bag_cuda, ops.embedding_bag_grad_cuda, \
+            ops.segment_reduce_cuda = kept
+
+
+@contextmanager
+def annotated_din_step():
+    """While open, DIN's batch plans run inside a ``record_function`` range
+    named "din:plan" and the train step's AdamW update inside "din:adamw"."""
+    from torch.profiler import record_function
+
+    from repro_torch.configs import base
+    from repro_torch.models.recsys import din
+
+    plans, update = din.batch_plans, base.adamw_update
+
+    def annotated_plans(cfg, batch):
+        with record_function("din:plan"):
+            return plans(cfg, batch)
+
+    def annotated_update(*args, **kwargs):
+        with record_function("din:adamw"):
+            return update(*args, **kwargs)
+
+    din.batch_plans, base.adamw_update = annotated_plans, annotated_update
+    try:
+        yield
+    finally:
+        din.batch_plans, base.adamw_update = plans, update
+
+
+def din_profile(label: str, fn) -> dict[str, float] | None:
+    """Where one DIN train step spends the card's time, under
+    ``torch.profiler``: K5's forward and backward and ``segment_reduce`` by
+    kernel name; the plans and AdamW by their ranges
+    (:func:`annotated_din_step`); GEMMs and gathers by the op that
+    launched each kernel; the rest (elementwise, concatenations, the
+    loss); and the share of the wall time the card was idle. Returns the
+    split in ms with the idle share, or None where every window lost its
+    device events."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    named = {"K5 forward": BAG_KERNELS, "K5 backward": BAG_GRAD_KERNELS,
+             "segment_reduce": SEGMENT_KERNELS}
+    for _ in range(PROFILE_TRIES):
+        torch.cuda.synchronize()
+        with annotated_din_step(), profile(
+                activities=[ProfilerActivity.CPU,
+                            ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        events = prof.events()
+        busy = 0.0
+        by_kernel = dict.fromkeys(named, 0.0)
+        for e in events:
+            if e.device_type == DeviceType.CUDA and \
+                    not getattr(e, "is_user_annotation", False):
+                us = e.time_range.elapsed_us()
+                busy += us
+                for part, kernels in named.items():
+                    if any(k in e.name for k in kernels):
+                        by_kernel[part] += us
+        if busy > 0:
+            break
+        print(f"  (profile {label} lost its device events; again)")
+    else:
+        print(f"  profile {label}: not measured (the profiler recorded no "
+              f"device time in {PROFILE_TRIES} windows)")
+        return None
+    ours = sum(named.values(), ())
+    split = {"plans": 0.0, "AdamW": 0.0, "GEMMs": 0.0, "gathers": 0.0}
+    for e in events:
+        if e.device_type != DeviceType.CPU or not e.kernels:
+            continue
+        chain, up = [], e
+        while up is not None:
+            chain.append(up.name)
+            up = up.cpu_parent
+        us = sum(k.duration for k in e.kernels
+                 if not any(s in k.name for s in ours))
+        if "din:plan" in chain:
+            split["plans"] += us
+        elif "din:adamw" in chain:
+            split["AdamW"] += us
+        elif any(n in GEMM_OPS for n in chain):
+            split["GEMMs"] += us
+        elif any(n in GATHER_OPS for n in chain):
+            split["gathers"] += us
+    parts = {**by_kernel, **split}
+    parts["rest"] = busy - sum(parts.values())
+    print(f"  profile {label}: wall {wall_us / 1e3:.3f} ms, device busy "
+          f"{busy / 1e3:.3f} ms, idle share {1 - busy / wall_us:.3f}; "
+          + ", ".join(f"{name} {us / 1e3:.3f} ms ({us / max(busy, 1e-9):.3f})"
+                      for name, us in parts.items()))
+    return {**{k: v / 1e3 for k, v in parts.items()},
+            "idle_share": 1 - busy / wall_us}
+
+
+def bag_grad_oracle(table, ids, w, g, *, table64=None):
+    """Float64 dT and dw of the plain version with their limits: a table
+    cell within cnt 2^-24 sum |w| |g| (cnt the length of the row's
+    segment), a dw within d 2^-24 sum_c |T| |g|."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    t64 = table.double() if table64 is None else table64
+    want_t, want_w = ref.embedding_bag_grad_ref(t64, ids, w.double(),
+                                                g.double())
+    abs_t, abs_w = ref.embedding_bag_grad_ref(t64.abs(), ids, w.double().abs(),
+                                              g.double().abs())
+    cnt = torch.bincount(ids.reshape(-1).long(),
+                         minlength=table.shape[0]).double()[:, None]
+    return (want_t, abs_t.mul_(cnt * 2.0**-24), want_w,
+            abs_w.mul_(table.shape[1] * 2.0**-24))
+
+
+def over_limit(x, want, limit) -> float:
+    """The largest |x - want| over its limit (a cell whose limit is 0 must
+    be exact: inf where it is not)."""
+    import torch
+
+    diff = (x.double() - want).abs()
+    r = torch.where(diff == 0, torch.zeros_like(diff), diff / limit)
+    return float(r.nan_to_num(float("inf")).max())
+
+
+def bag_grad_check(label: str, table, ids, w, g, plan, card: str,
+                   stats: dict, time_it: bool) -> None:
+    """K5's backward on one recorded (or built) call against its float64
+    plain version: dT within cnt 2^-24 sum|w||g| a cell, the rows no id
+    names exactly 0; dw within d 2^-24 sum_c |T||g|; a second call the
+    same bits. Each limit must refuse two broken versions: dT with the
+    last position of a short segment dropped, and with two bags' g rows
+    swapped; dw with two bags' g rows swapped, and with the table's last
+    column dropped. The float64 limit grows with a segment's length (about
+    a tenth of sum|w||g| on the Zipf batch's hot row), so dT must also
+    have the bits of ``segment_reduce_cuda`` over the float32 products
+    w[r] g[r / L], materialised, on the same plan: the same fold tree on
+    the same terms. That check must refuse a dT with one level-1 run's sum
+    dropped inside the hottest segment, and one with a level-1 block's
+    carry dropped there, where the segment spans three blocks' positions
+    (both of which the float64 limit passes on the hot row). With
+    ``time_it``, each kernel's time (queued events)
+    beside its bound, its plain version's and ``F.embedding_bag``'s
+    backward with ``per_sample_weights`` (and ``index_add_`` of the
+    products, formed beforehand, beside the table's)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.embedding_bag import embedding_bag_grad_cuda
+    from repro_torch.kernels.segment_reduce import THREADS as SEG_THREADS
+    from repro_torch.kernels.segment_reduce import (geometry,
+                                                    segment_reduce_cuda)
+
+    V, d = table.shape
+    B, L = ids.shape
+    E = B * L
+    kern = lambda **kw: embedding_bag_grad_cuda(  # noqa: E731
+        table, ids, w, g, plan.order, plan.keys, plan.offsets, **kw)
+    torch.cuda.synchronize()
+    d_t, d_w = kern()
+    again_t, again_w = kern()
+    torch.cuda.synchronize()
+    check(bool(torch.equal(d_t, again_t)) and bool(torch.equal(d_w, again_w)),
+          f"embedding_bag_grad {label}: a second call gave other bits")
+    del again_t, again_w
+    want_t, lim_t, want_w, lim_w = bag_grad_oracle(table, ids, w, g)
+    r_t, r_w = over_limit(d_t, want_t, lim_t), over_limit(d_w, want_w, lim_w)
+    e_t = float((d_t.double() - want_t).abs().max())
+    e_w = float((d_w.double() - want_w).abs().max())
+    counts = plan.counts
+    unnamed = counts == 0
+    check(not bool(d_t[unnamed].any()), f"embedding_bag_grad {label}: a row "
+          f"no id names is not 0")
+    stats["table_err"] = max(stats["table_err"], e_t)
+    stats["weights_err"] = max(stats["weights_err"], e_w)
+    print(f"  embedding_bag_grad {label}: B={B} L={L} V={V} d={d}, "
+          f"{int((~unnamed).sum())} rows named (largest "
+          f"{int(counts.max())} positions); dT max_abs_err={e_t:.3e} "
+          f"err/limit={r_t:.4f} {'ok' if r_t <= 1 else 'FAIL'}, dw "
+          f"max_abs_err={e_w:.3e} err/limit={r_w:.4f} "
+          f"{'ok' if r_w <= 1 else 'FAIL'}; bits repeat")
+    check(r_t <= 1.0 and r_w <= 1.0, f"embedding_bag_grad {label}: error "
+          f"above its limit (dT {r_t}, dw {r_w})")
+    # the broken versions, each the float64 plain version on bent inputs
+    lo, hi = BAG_SHORT_SEGMENT
+    ends = plan.order[(plan.offsets[1:] - 1).clamp_min(0).long()].long()
+    short = (counts >= lo) & (counts <= hi) & (w.reshape(-1)[ends] != 0)
+    last = ends[torch.nonzero(short)[0, 0]]      # its weight is not masked
+    w_cut = w.double().clone()
+    w_cut.view(-1)[last] = 0.0
+    b1 = int(last) // L
+    b2 = (b1 + B // 2) % B
+    g_swap = g.double().clone()
+    g_swap[[b1, b2]] = g_swap[[b2, b1]]
+    t64 = table.double()
+    bad_t = {"a short segment's last position dropped":
+             ref.embedding_bag_grad_ref(t64, ids, w_cut, g.double(),
+                                        weights_grad=False)[0]}
+    swapped_t, swapped_w = ref.embedding_bag_grad_ref(t64, ids, w.double(),
+                                                      g_swap)
+    bad_t["two bags' g rows swapped"] = swapped_t
+    t64[:, d - 1] = 0.0
+    bad_w = {"two bags' g rows swapped": swapped_w,
+             "the table's last column dropped": ref.embedding_bag_grad_ref(
+                 t64, ids, w.double(), g.double(), table_grad=False)[1]}
+    del t64, w_cut, g_swap, swapped_t
+    for what, bads, want, lim in (("dT", bad_t, want_t, lim_t),
+                                  ("dw", bad_w, want_w, lim_w)):
+        for name, bad in bads.items():
+            r = over_limit(bad, want, lim)
+            print(f"  embedding_bag_grad {label} broken {what}: {name:40s} "
+                  f"err/limit={r:.4g} {'refused' if r > 1 else 'PASSED'}")
+            check(r > 1.0, f"embedding_bag_grad {label}: the {what} check "
+                  f"passes a broken version ({name})")
+    del bad_t, bad_w, lim_w
+    # the bits: segment_reduce over the materialised float32 products
+    terms = (w[..., None] * g[:, None, :]).reshape(E, d)
+    fold = lambda rows: segment_reduce_cuda(  # noqa: E731
+        rows, plan.order, plan.keys, plan.offsets, "sum")
+    bits = fold(terms).view(torch.int32)
+    same = bool(torch.equal(d_t.view(torch.int32), bits))
+    print(f"  embedding_bag_grad {label}: dT has the bits of segment_reduce "
+          f"over the float32 products on the same plan: {same}")
+    check(same, f"embedding_bag_grad {label}: dT's bits are not "
+          f"segment_reduce's over the products")
+    # broken versions that the float64 limit cannot see on a hot row: one
+    # level-1 run's sum, and one level-1 block's carry (a level-2 slot),
+    # dropped inside the hottest segment
+    _, group, _, R1, _, _, _ = geometry(E, d)
+    span = {"a level-1 run's sum": R1,
+            "a level-1 block's carry": (SEG_THREADS // group) * R1}
+    hot = int(counts.argmax())
+    p0, p1 = int(plan.offsets[hot]), int(plan.offsets[hot + 1])
+    for name, n in span.items():
+        a = (-(-p0 // n) + 1) * n               # a whole span inside
+        if a + n > p1:
+            print(f"  embedding_bag_grad {label} broken dT: {name} dropped "
+                  f"in the hottest segment: not built ({p1 - p0} positions,"
+                  f" spans of {n})")
+            continue
+        bent = terms.clone()
+        bent[plan.order[a:a + n].long()] = 0.0
+        bad = fold(bent)
+        r = over_limit(bad, want_t, lim_t)
+        refused = r > 1.0 or not bool(torch.equal(bad.view(torch.int32),
+                                                  bits))
+        print(f"  embedding_bag_grad {label} broken dT: {name} dropped in "
+              f"the hottest segment (row {hot}, {p1 - p0} positions; "
+              f"positions {a}:{a + n}): float64 err/limit={r:.4g}, bits "
+              f"{'differ' if refused else 'SAME'}: "
+              f"{'refused' if refused else 'PASSED'}")
+        check(refused, f"embedding_bag_grad {label}: the dT check passes a "
+              f"broken version ({name} dropped in the hottest segment)")
+        del bent, bad
+    del bits, want_t, lim_t
+    if not time_it:
+        return
+    # the library's backward (never on the path): F.embedding_bag with
+    # per_sample_weights, differentiated in the table or in the weights
+    flat = ids.reshape(-1)
+    offsets = torch.arange(0, E, L, device=ids.device, dtype=torch.int32)
+    tab = table.detach().requires_grad_(True)
+    wq = w.reshape(-1).detach().requires_grad_(True)
+    with torch.enable_grad():
+        out_t = F.embedding_bag(flat, tab, offsets, mode="sum",
+                                per_sample_weights=w.reshape(-1))
+        out_w = F.embedding_bag(flat, table, offsets, mode="sum",
+                                per_sample_weights=wq)
+    lib_t = lambda: torch.autograd.grad(  # noqa: E731
+        out_t, tab, g, retain_graph=True)[0]
+    lib_w = lambda: torch.autograd.grad(  # noqa: E731
+        out_w, wq, g, retain_graph=True)[0]
+    _, r_lib_t = err_ratio(lib_t(), d_t.double(), LIBRARY_RTOL)
+    _, r_lib_w = err_ratio(lib_w().reshape(B, L), d_w.double(),
+                           LIBRARY_RTOL)
+    print(f"  embedding_bag_grad {label}: F.embedding_bag's backward against"
+          f" the kernels: err/limit dT {r_lib_t:.4f}, dw {r_lib_w:.4f} "
+          f"(rtol {LIBRARY_RTOL})")
+    check(r_lib_t <= 1.0 and r_lib_w <= 1.0, f"embedding_bag_grad {label}: "
+          f"F.embedding_bag's backward is not the same function")
+    idx = flat.long()
+    add = lambda: torch.zeros((V, d), device=table.device).index_add_(  # noqa
+        0, idx, terms)
+    names = torch.unique(flat).numel()
+    bound_t = (V * d + 2 * E + V + 1 + E + B * d) * 4 / HBM_BYTES_PER_S * 1e3
+    bound_w = (2 * E + names * d + B * d) * 4 / HBM_BYTES_PER_S * 1e3
+    flops_ms = 2.0 * E * d / F32_FLOPS_PER_S * 1e3
+    rows = {}
+    for name, fn, plain, lib, bound in (
+            ("embedding_bag_grad_table", lambda: kern(weights_grad=False),
+             lambda: ref.embedding_bag_grad_ref(table, ids, w, g,
+                                                weights_grad=False),
+             lib_t, bound_t),
+            ("embedding_bag_grad_weights", lambda: kern(table_grad=False),
+             lambda: ref.embedding_bag_grad_ref(table, ids, w, g,
+                                                table_grad=False),
+             lib_w, bound_w)):
+        ms = queued_ms(fn, BAG_GRAD_REPS)
+        plain_ms = events_ms(plain, 3)
+        lib_ms = queued_ms(lib, BAG_GRAD_REPS)
+        rows[name] = {"ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": max(bound, flops_ms),
+                      "bound_by": "bytes" if bound >= flops_ms
+                      else "operations", "library_ms": lib_ms}
+        extra = ""
+        if name == "embedding_bag_grad_table":
+            # and the dense gradient's write alone: one fill of (V, d) zeros
+            fill = lambda: torch.zeros((V, d), device=table.device)  # noqa
+            extra = (f"  index_add_ of the products (formed beforehand) "
+                     f"{queued_ms(add, BAG_GRAD_REPS) * 1e3:10.2f} us  write "
+                     f"floor (a (V, d) fill of zeros) "
+                     f"{queued_ms(fill, BAG_GRAD_REPS) * 1e3:10.2f} us")
+        print(f"  {name} {label}: kernel {ms * 1e3:10.2f} us (device, queued "
+              f"events)  bound {max(bound, flops_ms) * 1e3:9.2f} us "
+              f"({rows[name]['bound_by']})  plain {plain_ms * 1e3:10.2f} us  "
+              f"F.embedding_bag backward {lib_ms * 1e3:10.2f} us{extra}  "
+              f"[{card}]")
+    del out_t, out_w, terms, tab, wq
+    stats["timed"] = rows
+
+
+def din_train_steps(arch, params, batches, dev, card: str) -> dict:
+    """DIN_TRAIN_STEPS train steps at full width, one batch each: losses,
+    ms a step by CUDA events, peak memory and the launches a step."""
+    import torch
+
+    from repro_torch.kernels import embedding_bag, segment_reduce
+    from repro_torch.optim import adamw_init
+
+    step = arch.build_step("train_batch")
+    state = adamw_init(params)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    embedding_bag.reset_launches()
+    segment_reduce.reset_launches()
+    losses, times = [], []
+    for batch in batches:
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, state, loss = step(params, state, batch)
+        stop.record()
+        losses.append(loss)
+        times.append((start, stop))
+    torch.cuda.synchronize()
+    launches = {**{k: embedding_bag.LAUNCHES[k] for k in
+                   ("embedding_bag", "embedding_bag_grad_table",
+                    "embedding_bag_grad_weights")},
+                **{k: segment_reduce.LAUNCHES[k] for k in
+                   ("segment_reduce", "segment_reduce_grad")}}
+    peak = torch.cuda.max_memory_allocated(dev)
+    ms = [a.elapsed_time(b) for a, b in times]
+    return {"losses": [float(x) for x in losses], "ms": ms,
+            "launches": launches, "peak": peak, "held": held,
+            "params": params, "state": state}
+
+
+def phase16_din_train(dev, gen, card: str) -> tuple[list[dict], int, int]:
+    """DIN training on the card at train_batch (B 65,536, L 100, the 10M x
+    18 and 100k x 18 tables, float32): K5's backward against float64 plain
+    at the path's shapes on the Zipf batch and on uniform ids, the other
+    kernels of the path (K5's forward, segment_reduce) at theirs, two steps
+    from one start with the same bits and no float scatter,
+    DIN_TRAIN_STEPS steps timed with the device split, and
+    ``launch/train --arch din`` on the card. Returns the backward's two
+    rows of the ``kernels`` line and the launches of K5's forward and of
+    segment_reduce in the timed steps."""
+    import shutil
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import Prefetcher, RecsysStream
+    from repro_torch.kernels import embedding_bag, ops, ref
+    from repro_torch.launch import train
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.optim import adamw_init
+
+    print(f"phase 16: DIN training (train_batch, K5's backward), card {card}")
+    t_phase = time.perf_counter()
+    arch = get_arch("din")
+    cfg = arch.cfg
+    B = arch.shapes["train_batch"]["batch"]
+    L = cfg.seq_len
+    t0 = time.perf_counter()
+    params = arch.init_params(gen, dev)
+    # batch 0 from the cell's entry point; the stream's later batches are
+    # built on the pipeline's thread while the checks run
+    stream = iter(RecsysStream(n_items=cfg.n_items, n_cats=cfg.n_cats,
+                               seq_len=L, batch=B, seed=DIN_TRAIN_SEED))
+    next(stream)
+    later = Prefetcher(stream, depth=DIN_TRAIN_STEPS - 1)
+    batches = [arch.make_inputs("train_batch", gen, dev, seed=DIN_TRAIN_SEED)]
+    ids0 = batches[0]["hist_items"]
+    hot = torch.bincount(ids0.reshape(-1).long(), minlength=cfg.n_items)
+    print(f"  init and the first RecsysStream batch (seed {DIN_TRAIN_SEED}) "
+          f"in {time.perf_counter() - t0:.2f}s: {int((hot > 0).sum())} "
+          f"distinct items in {B * L} history positions, the hottest "
+          f"{int(hot.max())} ({float(hot.max()) / (B * L):.4f})")
+    del hot
+
+    # the path's kernel calls, recorded from one step and checked
+    step = arch.build_step("train_batch")
+    start = [p.detach().clone() for p in tree_leaves(params)]
+    recorder = float_scatter_recorder()
+    with recorded_din_calls() as seen, recorder:
+        params, state, loss = step(params, adamw_init(params), batches[0])
+        torch.cuda.synchronize()
+    first = [p.detach().clone() for p in tree_leaves(params)]
+    with torch.no_grad():
+        for p, s in zip(tree_leaves(params), start):
+            p.copy_(s)
+    params, again, loss2 = step(params, adamw_init(params), batches[0])
+    same = bool(torch.equal(loss, loss2)) and all(
+        torch.equal(a, b) for a, b in zip(first, tree_leaves(params))) and \
+        all(torch.equal(a, b) for a, b in zip(state.m + state.v,
+                                              again.m + again.v))
+    moved = sum(int((a != b).sum()) for a, b in zip(first, start))
+    print(f"  one step from the start: loss {float(loss):.6f}, {moved} of "
+          f"{sum(p.numel() for p in start)} parameters moved; a second step "
+          f"from the same start gives the same bits: {same}; float scatters "
+          f"{sorted(set(recorder.seen))}; calls recorded: forward "
+          f"{len(seen['forward'])}, backward {len(seen['backward'])}, "
+          f"segment_reduce {len(seen['segment'])}")
+    check(same, "DIN: a second train step from the same start gave other "
+          "bits")
+    check(not recorder.seen, f"DIN: float scatters ran in the train step: "
+          f"{sorted(set(recorder.seen))}")
+    check(moved > 0 and bool(torch.isfinite(loss)), "DIN: the step moved "
+          "nothing or its loss is not finite")
+    want = din_train_launches()
+    check((len(seen["forward"]), len(seen["backward"]),
+           len(seen["segment"])) == (want["embedding_bag"],
+                                     want["embedding_bag_grad_table"],
+                                     want["segment_reduce"]),
+          "DIN: the step's kernel calls are not its structure's")
+    del first, start, again, state, loss, loss2
+
+    stats = {"table_err": 0.0, "weights_err": 0.0}
+    torch.set_grad_enabled(False)
+    # K5's forward at the train shape (the item and category bags)
+    for table, ids, w in seen["forward"]:
+        what = "items" if table.shape[0] == cfg.n_items else "cats"
+        table, w = table.detach(), w.detach()
+        out = embedding_bag.embedding_bag_cuda(table, ids, w)
+        want = ref.embedding_bag_ref(table.double(), ids, w.double())
+        limit = L * 2.0**-24 * ref.embedding_bag_ref(
+            table.double().abs(), ids, w.double().abs())
+        r = over_limit(out, want, limit)
+        print(f"  embedding_bag train_batch {what}: B={ids.shape[0]} "
+              f"L={ids.shape[1]} route {embedding_bag.route(ids.stride(0))} "
+              f"err/limit={r:.4f} {'ok' if r <= 1 else 'FAIL'} (L 2^-24 "
+              f"sum|w||row|)")
+        check(r <= 1.0, f"embedding_bag at the train shape ({what}): error "
+              f"above its limit")
+        del out, want, limit
+    # the backward: item table (timed) and category table, Zipf ids; then
+    # the item table on uniform ids with the same weights and g
+    rows = None
+    for args, _ in sorted(seen["backward"], key=lambda c: -c[0][0].shape[0]):
+        table, ids, w, g, order, keys, offsets = args
+        what = "item table" if table.shape[0] == cfg.n_items else \
+            "category table"
+        table, w, g = table.detach(), w.detach(), g.detach()
+        plan = ops.SegmentPlan(order, keys, offsets)
+        bag_grad_check(f"{what}, Zipf ids", table, ids, w, g, plan, card,
+                       stats, time_it=what == "item table")
+        if what == "item table":
+            rows = stats.pop("timed")
+            uni = torch.randint(0, cfg.n_items, ids.shape, generator=gen,
+                                device=gen.device,
+                                dtype=torch.int32).to(dev)
+            uplan = ops.bag_plan(uni, cfg.n_items)
+            bag_grad_check(f"{what}, uniform ids", table, uni, w, g, uplan,
+                           card, stats, time_it=False)
+            del uni, uplan
+    # segment_reduce at the path's shape: the history items' gather
+    # backward (E = B L rows of 18 into 10M segments)
+    values, order, keys, offsets, op = next(
+        c for c in seen["segment"] if c[0].shape[0] == B * L
+        and c[3].shape[0] == cfg.n_items + 1)
+    segment_check("DIN item-table gather backward", values,
+                  ops.SegmentPlan(order, keys, offsets), op, card,
+                  {"max_abs_err": 0.0, "timed": []}, time_it=True)
+    del seen, values, order, keys, offsets
+    torch.set_grad_enabled(True)
+    torch.cuda.empty_cache()
+
+    # the timed steps
+    t0 = time.perf_counter()
+    batches += [{k: torch.from_numpy(v).to(dev) for k, v in next(later).items()}
+                for _ in range(DIN_TRAIN_STEPS - 1)]
+    later.close()
+    print(f"  the stream's next {DIN_TRAIN_STEPS - 1} batches, built during "
+          f"the checks, taken in {time.perf_counter() - t0:.2f}s")
+    run = din_train_steps(arch, params, batches, dev, card)
+    params = run["params"]
+    flops, nbytes = arch.model_flops("train_batch"), \
+        arch.model_bytes("train_batch")
+    least = max(flops / F32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+    steady = run["ms"][1:]
+    mean_ms = sum(steady) / len(steady)
+    per_step = {k: v / DIN_TRAIN_STEPS for k, v in run["launches"].items()}
+    print(f"  {DIN_TRAIN_STEPS} train steps: losses "
+          f"{[round(x, 6) for x in run['losses']]}; ms a step "
+          f"{[round(x, 3) for x in run['ms']]} (mean of steps 2-"
+          f"{DIN_TRAIN_STEPS} {mean_ms:.3f} ms); least {least:.3f} ms "
+          f"({flops:.4e} flops at 67 TFLOP/s float32, {nbytes:.4e} bytes "
+          f"at 3.35 TB/s; {least / mean_ms:.4f} of it); peak "
+          f"{run['peak'] / 1e9:.2f} GB ({(run['peak'] - run['held']) / 1e9:.2f}"
+          f" GB above the {run['held'] / 1e9:.2f} GB held before); launches "
+          f"a step {per_step}  [{card}]")
+    check(all(math.isfinite(x) for x in run["losses"]), "DIN: a non-finite "
+          "loss")
+    check(per_step == {k: float(v) for k, v in din_train_launches().items()},
+          f"DIN: launches a step {per_step}, not {din_train_launches()}")
+    batch = batches[-1]
+    state = run["state"]
+    del run
+    din_profile("DIN train_batch step",
+                lambda: arch.build_step("train_batch")(params, state, batch))
+    launches = {k: per_step[k] * DIN_TRAIN_STEPS for k in per_step}
+    del params, state, batches, batch
+    torch.cuda.empty_cache()
+
+    # the training entry point on the card: its main() as ``python -m
+    # repro_torch.launch.train`` calls it (the loss check is its own)
+    ckpt = ROOT / "build" / "phase16_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    t0 = time.perf_counter()
+    try:
+        summary = train.main([*DIN_CLI, "--ckpt-dir", str(ckpt), "--device",
+                              "cuda"])
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    print(f"  launch/train {' '.join(DIN_CLI)}: {time.perf_counter() - t0:.1f}"
+          f"s; mean loss of the first 10 steps {summary['first10']:.6f}, of "
+          f"the last 10 {summary['last10']:.6f}; rescales "
+          f"{summary['rescales']}, restored from {summary['restored_from']}")
+    check(summary["last10"] < summary["first10"] and summary["rescales"] == 1,
+          "launch/train --arch din: the loss did not improve or the failure "
+          "was not injected")
+    print(f"  phase 16 wall {time.perf_counter() - t_phase:.1f}s")
+    out = []
+    for name in ("embedding_bag_grad_table", "embedding_bag_grad_weights"):
+        err = stats["table_err" if name.endswith("table") else "weights_err"]
+        out.append({"name": name, "launches": int(launches[name]),
+                    "max_abs_err": err, **rows[name]})
+    return out, int(launches["embedding_bag"]), int(launches["segment_reduce"])
+
+
 def main() -> int:
     # the port must not need JAX or the JAX package
     sys.modules["jax"] = None
@@ -5528,6 +6175,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     grad_row, train_launches = phase15_gnn_train(dev, gen, card)
     segment_row["launches"] += train_launches + oracle_launches
+    torch.cuda.empty_cache()
+    bag_grad_rows, din_bag, din_segment = phase16_din_train(dev, gen, card)
+    k5["launches"] += din_bag
+    segment_row["launches"] += din_segment
     # the fold's launches on every path that drove it (counts zeroed before
     # each, read after)
     fold_row["launches"] = sum(FOLD_LAUNCHES.values())
@@ -5544,7 +6195,7 @@ def main() -> int:
             "max_abs_err": stats[name]["max_abs_err"], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
             "library_ms": lib_ms})
-    for row in (k6, k5, fold_row, segment_row, grad_row):
+    for row in (k6, k5, fold_row, segment_row, grad_row, *bag_grad_rows):
         summary.append({"name": row["name"], "route": "cuda",
                         "source": SOURCES[row["name"]],
                         "replaces": REPLACES[row["name"]],

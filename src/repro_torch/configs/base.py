@@ -1,5 +1,5 @@
 """Architecture definitions and their shape cells, for the serving kinds
-and the GNNs' training: the port of ``repro/configs/base.py``.
+and the GNNs' and DIN's training: the port of ``repro/configs/base.py``.
 
 Each architecture registers an ``ArchDef`` that can, for each shape cell
 of a serving kind (``prefill``, ``decode``, ``serve``, ``retrieval``):
@@ -17,8 +17,9 @@ of a serving kind (``prefill``, ``decode``, ``serve``, ``retrieval``):
 
 The GNN family's cells are of the train kind: ``GNNArch.build_step``
 returns the JAX package's train step (the loss's gradient under autograd,
-then AdamW), and ``GNNArch.forward_step`` its forward half. The LM and DIN
-train kinds, meshes and partition specs come with later slices.
+then AdamW), and ``GNNArch.forward_step`` its forward half; DIN's
+``train_batch`` cell the same through ``DINArch.build_step``. The LM train
+kind, meshes and partition specs come with later slices.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..data import minibatch_stream
+from ..data import RecsysStream, minibatch_stream
 from ..models import dimenet, gcn, graphcast, pna, transformer
 from ..models.gnn.common import GraphBatch, random_graph_batch
 from ..models.common import tree_leaves
@@ -40,9 +41,9 @@ from ..optim import AdamWConfig, adamw_update, global_norm
 from ..ppr.datasets import load
 from ..ppr.graph import Graph
 
-_TRAIN_LATER = ("LM and DIN training steps are not ported yet (a later "
-                "slice of the port); their serving kinds and the GNNs' "
-                "training are")
+_TRAIN_LATER = ("LM training steps are not ported yet (queue 1, item 1b "
+                "of ROADMAP.md: a later slice of the port); the LMs' serving "
+                "kinds and the GNNs' and DIN's training are")
 # the JAX package's attention key block (LMConfig.attn_block_kv), which its
 # prefill byte count re-reads the keys and values by
 _JAX_ATTN_BLOCK_KV = 1024
@@ -238,14 +239,31 @@ class DINArch(ArchDef):
         return din.init(self.config(smoke), generator, device)
 
     def build_step(self, shape_id, *, smoke=False, **options):
-        """Options of the retrieval kind: ``block`` (candidates a block,
-        default 8,192) and ``factored`` (the algebraically factored
-        attention MLP, default off), as ``din.score_candidates`` takes
-        them."""
+        """The train kind: train_step(params, opt_state, batch) -> (params,
+        opt_state, loss), the JAX package's (``value_and_grad`` of
+        ``din.loss_fn``, then AdamW): :meth:`grad_step`, then
+        :func:`~repro_torch.optim.adamw_update` with the option ``opt``
+        (default ``AdamWConfig()``), which writes the new parameters and
+        moments into the ones given; ``opt_state`` is ``adamw_init(params)``
+        at the start. Options of the retrieval kind: ``block`` (candidates
+        a block, default 8,192) and ``factored`` (the algebraically
+        factored attention MLP, default off), as ``din.score_candidates``
+        takes them."""
         cfg = self.config(smoke)
         kind = self.kind(shape_id)
         if kind == "train":
-            raise NotImplementedError(_TRAIN_LATER)
+            bad = set(options) - {"opt"}
+            if bad:
+                raise ValueError(f"unknown train options {sorted(bad)}")
+            opt = options.get("opt", AdamWConfig())
+            grad_step = self.grad_step(shape_id, smoke=smoke)
+
+            def train_step(params, opt_state, batch):
+                loss, grads = grad_step(params, batch)
+                params, opt_state, _ = adamw_update(opt, params, grads,
+                                                    opt_state)
+                return params, opt_state, loss
+            return train_step
         if kind == "serve":
             if options:
                 raise ValueError(f"no options for serve: {sorted(options)}")
@@ -261,17 +279,67 @@ class DINArch(ArchDef):
             return din.score_candidates(params, cfg, batch, **options)
         return retrieval
 
+    def grad_step(self, shape_id: str = "train_batch", *,
+                  smoke: bool = False) -> Callable:
+        """fn(params, batch) -> (loss, grads): ``din.loss_fn`` and its
+        gradient in every parameter, a tuple in the JAX pytree's leaf order
+        (``tree_leaves``: attn, cat_emb, item_emb, mlp), as
+        ``jax.value_and_grad`` gives them. The module is made trainable
+        (``requires_grad_``), the tables included; the batch's plans are
+        built once (``din.batch_plans``), and on the card the tables'
+        gradients are ``segment_reduce`` (the gathers' backward) and K5's
+        backward over them."""
+        if self.kind(shape_id) != "train":
+            raise ValueError(f"{shape_id} is not a train cell")
+        cfg = self.config(smoke)
+
+        def loss_and_grads(params, batch):
+            params.requires_grad_(True)
+            leaves = tree_leaves(params)
+            plans = din.batch_plans(cfg, batch)
+            with torch.enable_grad():
+                loss = din.loss_fn(params, cfg, batch, plans)
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                            materialize_grads=True)
+            return loss.detach(), grads
+        return loss_and_grads
+
+    def forward_step(self, shape_id: str = "train_batch", *,
+                     smoke: bool = False) -> Callable:
+        """fn(params, batch) -> (logits, loss): the forward half of the
+        train step, no gradient kept."""
+        if self.kind(shape_id) != "train":
+            raise ValueError(f"{shape_id} is not a train cell")
+        cfg = self.config(smoke)
+
+        def forward(params, batch):
+            logits = din.score(params, cfg, batch)
+            return logits, din.bce_with_logits(logits, batch["label"])
+        return forward
+
     def make_inputs(self, shape_id, generator, device="cuda", *, smoke=False,
-                    **cuts):
+                    seed: int | None = None, **cuts):
         """Histories of L = seq_len (item, category) pairs, each user's
         valid prefix of a length drawn from [1, L] (``hist_mask``).
         serve: B users and a target each. retrieval: one user and N
-        candidates. Cuts: ``batch``, ``candidates``."""
+        candidates. train: one batch of the JAX package's own training
+        stream (``RecsysStream``: Zipf(1.3) item ids, categories the item
+        ids mod n_cats, a label correlated with the history's overlap with
+        the target's category) at the cell's batch, of seed ``seed`` (None:
+        drawn from ``generator``). Cuts: ``batch``, ``candidates``."""
         s = _cut(self.shapes[shape_id], cuts, ("batch", "candidates"))
         cfg = self.config(smoke)
         dev = resolve_device(device)
         if s["kind"] == "train":
-            raise NotImplementedError(_TRAIN_LATER)
+            if seed is None:
+                seed = int(_randint(generator, 2**31 - 1, (1,),
+                                    torch.device("cpu"))[0])
+            host = next(iter(RecsysStream(
+                n_items=cfg.n_items, n_cats=cfg.n_cats, seq_len=cfg.seq_len,
+                batch=s["batch"], seed=seed)))
+            return {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+        if seed is not None:
+            raise ValueError("seed is for the train kind")
         B, L = s["batch"], cfg.seq_len
         lengths = _randint(generator, L, (B, 1), dev) + 1
         batch = {"hist_items": _randint(generator, cfg.n_items, (B, L), dev),
@@ -288,9 +356,10 @@ class DINArch(ArchDef):
         return batch
 
     def model_flops(self, shape_id, **cuts):
+        """The attention and main MLPs' multiply-adds (x 2): a candidate's
+        or an example's; the train kind three times an example's (forward
+        and backward), as the JAX package counts them."""
         s = _cut(self.shapes[shape_id], cuts, ("batch", "candidates"))
-        if s["kind"] == "train":
-            raise NotImplementedError(_TRAIN_LATER)
         cfg = self.cfg
         d, L = cfg.d_pair, cfg.seq_len
         attn_d = [4 * d, *cfg.attn_mlp, 1]
@@ -301,12 +370,14 @@ class DINArch(ArchDef):
                        * 2)
         if s["kind"] == "retrieval":
             return float(per_example * s["candidates"])
-        return float(per_example * s["batch"])
+        mult = 3.0 if s["kind"] == "train" else 1.0
+        return float(mult * per_example * s["batch"])
 
     def model_bytes(self, shape_id, **cuts):
+        """The rows gathered and the attention features written and read;
+        the train kind three passes of those and the tables' gradient
+        rows, as the JAX package counts them."""
         s = _cut(self.shapes[shape_id], cuts, ("batch", "candidates"))
-        if s["kind"] == "train":
-            raise NotImplementedError(_TRAIN_LATER)
         d, L = self.cfg.d_pair, self.cfg.seq_len
         if s["kind"] == "retrieval":
             # a candidate: its target rows and its attention features
@@ -314,6 +385,8 @@ class DINArch(ArchDef):
         B = s["batch"]
         gathers = B * (L + 1) * d * 4                  # history + target
         acts = B * L * (4 * d) * 4 * 2                 # attention features
+        if s["kind"] == "train":
+            return float(3.0 * (gathers + acts) + 2.0 * gathers)
         return float(gathers + acts)
 
     def infer_run(self, generator, device="cuda"):

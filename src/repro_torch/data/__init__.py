@@ -1,6 +1,9 @@
-"""Input pipelines of the port: the GNNs' neighbour sampler (host numpy)."""
+"""Input pipelines of the port: the GNNs' neighbour sampler and the LM and
+DIN training streams (host numpy)."""
 
 from .neighbor_sampler import (SampledSubgraph, minibatch_stream,
                                sample_subgraph)
+from .pipeline import Prefetcher, RecsysStream, TokenStream
 
-__all__ = ["SampledSubgraph", "minibatch_stream", "sample_subgraph"]
+__all__ = ["Prefetcher", "RecsysStream", "SampledSubgraph", "TokenStream",
+           "minibatch_stream", "sample_subgraph"]

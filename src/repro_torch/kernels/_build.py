@@ -31,6 +31,7 @@ SOURCES: dict[str, str] = {"ell_spmm": "ell_spmm.cu",
                            "walk_gather": "walk_gather.cu",
                            "flash_attention": "flash_attention.cu",
                            "embedding_bag": "embedding_bag.cu",
+                           "embedding_bag_grad": "embedding_bag_grad.cu",
                            "endpoint_fold": "endpoint_fold.cu",
                            "segment_reduce": "segment_reduce.cu",
                            "segment_grad": "segment_grad.cu"}

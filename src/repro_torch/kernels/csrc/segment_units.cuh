@@ -2,7 +2,8 @@
 // (segment_grad.cu) share: the ops and their identities, 32-bit words read
 // and written V at a time, the segment a position's key names, and the
 // fold over runs of positions that both launch (the forward for its
-// output, the backward for max's and min's tie counts). It replaces no TPU
+// output, the backward for max's and min's tie counts; K5's backward,
+// embedding_bag_grad.cu, for the table's gradient). It replaces no TPU
 // kernel: the JAX package leaves the aggregation to XLA's
 // jax.ops.segment_sum/max/min (repro/models/gnn/common.py:44-61). On the
 // H100 the fold is bound by the bytes of the rows it reads; what follows
@@ -246,7 +247,11 @@ __device__ __forceinline__ void fold_slot(Vec<T, V> (&acc)[U], const T* slot,
 // level 1 of the gathered route); otherwise p. part/part_keys: the next
 // level's slots, two a block, nullptr at the last level (one block).
 // offsets: level 1 of the forward, to write the op's identity to every
-// empty segment; nullptr otherwise.
+// empty segment; nullptr otherwise. BAG (level 1 of K5's table gradient,
+// embedding_bag_grad.cu; GATHER too): the plan is of the flat (B * L) ids
+// and its order names flat positions r = b * bag_len + l, so position p's
+// row is the product scale[r] * src[r / bag_len] (w[b, l] g[b]), formed as
+// it is loaded: no (B * L, d) rows are written first.
 //
 // Two stages a column chunk. The groups: group g of the block folds run
 // blk * G + g (R positions) left to right, writes the segments that start
@@ -261,13 +266,14 @@ __device__ __forceinline__ void fold_slot(Vec<T, V> (&acc)[U], const T* slot,
 // the others to out. The same order as one left fold of the block's
 // slots, with no group waiting on another's chain.
 template <int OP, bool TIES, bool GATHER, typename In, typename T, int U,
-          int V>
+          int V, bool BAG = false>
 __device__ __forceinline__ void fold_runs(
     const In* __restrict__ src, const int32_t* __restrict__ rows,
     const int32_t* __restrict__ keys, const float* __restrict__ ref,
     T* __restrict__ out, T* __restrict__ part, int32_t* __restrict__ part_keys,
     const int32_t* __restrict__ offsets, int64_t n, int S, int d, int R,
-    int group) {
+    int group, const float* __restrict__ scale = nullptr, int bag_len = 1) {
+  static_assert(!BAG || (GATHER && !TIES), "a bag's rows are gathered sums");
   constexpr int K = batch<U, V>();
   __shared__ T slot_rows[2 * kThreads * U * V];
   __shared__ int slot_keys[2 * kThreads];
@@ -338,11 +344,26 @@ __device__ __forceinline__ void fold_runs(
         for (int u = 0; u < K; ++u) {
           if (GATHER ? has_row(key[u], S) : p + u < b) {
             const int64_t r = GATHER ? row[u] : p + u;
-            const In* base = src + r * d;
+            // a bag's row: a 32-bit quotient (order entries are int32)
+            const In* base = src + (BAG ? static_cast<int64_t>(row[u]
+                                                           / bag_len)
+                                        : r) * d;
 #pragma unroll
             for (int j = 0; j < U; ++j) {
               const int c = c0 + l + j * group;
               if (c < units) x[u][j] = load_vec<In, V>(base + c * V);
+            }
+            if constexpr (BAG) {
+              // __fmul_rn: a product rounded on its own, never contracted
+              // into the fold's add, so the terms are the float32 products
+              // w[r] * g[r / L] and dT has segment_reduce's bits on them
+              const float w = __ldg(scale + r);
+#pragma unroll
+              for (int j = 0; j < U; ++j) {
+#pragma unroll
+                for (int k = 0; k < V; ++k)
+                  x[u][j].v[k] = __fmul_rn(x[u][j].v[k], w);
+              }
             }
           }
         }

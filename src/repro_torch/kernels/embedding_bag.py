@@ -34,6 +34,17 @@ non-zero ``cudaGetLastError()``, and counts its launches in
 ``embedding_bag_gather`` or ``embedding_bag_shared``. ``ids`` and
 ``weights`` may have any row stride, including 0 (one history broadcast
 over a block of candidates): nothing is copied, the table least of all.
+
+``embedding_bag_grad_cuda`` is K5's backward, ``csrc/embedding_bag_grad.cu``
+(DIN's training): the weights' gradient ``dw[b,l] = <T[ids[b,l]], g[b]>``
+(``bag_grad_weights``, a group of lanes an item) and the table's dense
+gradient ``dT[v] = sum_{ids[b,l]=v} w[b,l] g[b]`` (``bag_grad_table``, the
+segment reduction's fold over the plan of the ids, each term formed as it
+is loaded). It replaces no TPU kernel (the reference differentiates DIN's
+``jnp.take`` and ``einsum`` with XLA); bytes bound it, the table's dense
+gradient most (see the source's header). No atomics: the same bits on
+every call. Its launches count in :data:`LAUNCHES` too, under
+``embedding_bag_grad_weights`` and ``embedding_bag_grad_table``.
 """
 
 from __future__ import annotations
@@ -44,10 +55,14 @@ from dataclasses import dataclass
 import torch
 
 from . import _build
+from .segment_reduce import (aligned, check_int32, check_rows, geometry,
+                             scratch_buffers)
 
-# launches since the last reset_launches()
+# launches since the last reset_launches(): K5's, and its backward's
 LAUNCHES: dict[str, int] = {"embedding_bag": 0, "embedding_bag_gather": 0,
-                            "embedding_bag_shared": 0}
+                            "embedding_bag_shared": 0,
+                            "embedding_bag_grad_weights": 0,
+                            "embedding_bag_grad_table": 0}
 
 THREADS = 256                  # a block's threads at most (route S: always)
 COLUMNS = 32                   # columns a pass, both routes
@@ -63,7 +78,14 @@ _SIGNATURES = {
                               _I, _I, _I, _P], _I),
     "embedding_bag_error_string": ([_I], ctypes.c_char_p),
 }
+_GRAD_SIGNATURES = {
+    "bag_grad_weights_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _I,
+                                 _P], _I),
+    "bag_grad_table_launch": ([_P] * 10 + [_L] + [_I] * 8 + [_P], _I),
+    "embedding_bag_grad_error_string": ([_I], ctypes.c_char_p),
+}
 _INT32_MAX = 2**31 - 1
+GRAD_UNITS_A_LANE = 4          # bag_grad_weights: units a lane, at most
 
 
 @dataclass(frozen=True)
@@ -86,6 +108,10 @@ def reset_launches() -> None:
 
 def _lib() -> ctypes.CDLL:
     return _build.load("embedding_bag", _SIGNATURES)
+
+
+def _grad_lib() -> ctypes.CDLL:
+    return _build.load("embedding_bag_grad", _GRAD_SIGNATURES)
 
 
 def route(ids_row_stride: int) -> str:
@@ -219,3 +245,100 @@ def embedding_bag_cuda(table: torch.Tensor, ids: torch.Tensor,
     LAUNCHES["embedding_bag"] += 1
     LAUNCHES[f"embedding_bag_{p.route}"] += 1
     return out
+
+
+def grad_group(d: int, width: int) -> int:
+    """Lanes ``bag_grad_weights`` gives an item: the least power of two
+    (up to 32) whose lanes hold the row's d / width units at most
+    :data:`GRAD_UNITS_A_LANE` a lane (4 at DIN's d = 18 in float2 units)."""
+    units = d // width
+    group = 1
+    while group < 32 and group * GRAD_UNITS_A_LANE < units:
+        group *= 2
+    if group * GRAD_UNITS_A_LANE < units:
+        raise ValueError(f"rows of {d} floats are too wide for "
+                         f"bag_grad_weights (at most "
+                         f"{32 * GRAD_UNITS_A_LANE * width})")
+    return group
+
+
+def embedding_bag_grad_cuda(table: torch.Tensor, ids: torch.Tensor,
+                            weights: torch.Tensor, g: torch.Tensor,
+                            order: torch.Tensor | None = None,
+                            keys: torch.Tensor | None = None,
+                            offsets: torch.Tensor | None = None, *,
+                            table_grad: bool = True,
+                            weights_grad: bool = True
+                            ) -> tuple[torch.Tensor | None,
+                                       torch.Tensor | None]:
+    """K5's backward on the card: (dT (V, d), dw (B, L)) float32, each None
+    where not asked for, given the output's gradient g (B, d).
+
+    ``dw[b,l] = <table[ids[b,l]], g[b]>`` (ids read as the forward reads
+    them; a bag's id outside [-V, V) gives NaN); ``dT[v] = sum over
+    ids[b,l] = v of weights[b,l] * g[b]``, dense, 0 on the rows no id
+    names, over the plan of the flat ids (order, keys (B * L,) and offsets
+    (V + 1,) int32: ``ops.bag_plan(ids, V)``'s tensors, which the table's
+    gradient needs). table (V, d) float32 contiguous, ids (B, L) int32 with
+    contiguous rows, weights (B, L) and g (B, d) float32 contiguous, all on
+    one CUDA device. The plan's values are not checked: an order entry
+    outside [0, B * L) reads outside ``weights``."""
+    dev = table.device
+    if dev.type != "cuda":
+        raise ValueError(f"table must be a CUDA tensor, got {dev}")
+    if table.dim() != 2 or ids.dim() != 2:
+        raise ValueError(f"need table (V, d) and ids (B, L); got "
+                         f"{tuple(table.shape)}, {tuple(ids.shape)}")
+    V, d = table.shape
+    B, L = ids.shape
+    E = B * L
+    if not (1 <= V <= _INT32_MAX and 1 <= d <= _INT32_MAX and 1 <= B
+            and 1 <= L and E <= _INT32_MAX):
+        raise ValueError(f"shapes out of range: table {(V, d)}, bags "
+                         f"{(B, L)} (the plan is int32, so B * L < 2^31)")
+    check_rows("table", table, dev, (V, d))
+    check_rows("weights", weights, dev, (B, L))
+    check_rows("g", g, dev, (B, d))
+    if ids.device != dev or ids.dtype != torch.int32 or \
+            (ids.stride(1) != 1 and L > 1):
+        raise ValueError(f"ids must be int32 on {dev} with contiguous rows, "
+                         f"got {ids.dtype} on {ids.device}, strides "
+                         f"{ids.stride()}")
+    d_table = d_w = None
+    lib = _grad_lib() if table_grad or weights_grad else None
+    if weights_grad:
+        width = 2 if d % 2 == 0 and table.data_ptr() % 8 == 0 and \
+            g.data_ptr() % 8 == 0 else 1
+        d_w = torch.empty((B, L), dtype=torch.float32, device=dev)
+        with _build.on_card(dev) as stream:
+            err = lib.bag_grad_weights_launch(
+                table.data_ptr(), ids.data_ptr(), g.data_ptr(),
+                d_w.data_ptr(), B, L, V, d, ids.stride(0), width,
+                grad_group(d, width), stream)
+        _raise_on(lib, err, "bag_grad_weights")
+        LAUNCHES["embedding_bag_grad_weights"] += 1
+    if table_grad:
+        check_int32("order", order, dev, (E,))
+        check_int32("keys", keys, dev, (E,))
+        check_int32("offsets", offsets, dev, (V + 1,))
+        vec, group, per, R1, RL, _, _ = geometry(E, d)
+        g_rows, order, keys = aligned(g), aligned(order), aligned(keys)
+        d_table = torch.empty((V, d), dtype=torch.float32, device=dev)
+        scratch, slots = scratch_buffers(E, d, dev)
+        with _build.on_card(dev) as stream:
+            err = lib.bag_grad_table_launch(
+                g_rows.data_ptr(), weights.data_ptr(), order.data_ptr(),
+                keys.data_ptr(), offsets.data_ptr(), *slots,
+                d_table.data_ptr(), E, V, d, L, vec, per, group, R1, RL,
+                stream)
+        del scratch
+        _raise_on(lib, err, "bag_grad_table")
+        LAUNCHES["embedding_bag_grad_table"] += 1
+    return d_table, d_w
+
+
+def _raise_on(lib: ctypes.CDLL, err: int, kernel: str) -> None:
+    if err != 0:
+        msg = lib.embedding_bag_grad_error_string(err).decode()
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {err} "
+                           f"({msg})")

@@ -3,9 +3,10 @@
 A CUDA tensor goes to the hand-written kernel, a CPU tensor to the plain
 PyTorch version in :mod:`repro_torch.kernels.ref`. There is no other route:
 a CUDA call whose kernel does not build or launch raises. The same holds
-for the backwards that training takes through :func:`segment_reduce` and
-:func:`gather_rows`: on the card they are the port's kernels, never a plain
-version, ``index_add_`` or another float fold on atomics.
+for the backwards that training takes through :func:`segment_reduce`,
+:func:`gather_rows` and :func:`embedding_bag`: on the card they are the
+port's kernels, never a plain version, ``index_add_`` or another float
+fold on atomics.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import torch
 from . import ref
 from .ell_spmv import (DensePlan, SlicedFold, ell_spmm_cuda,
                        ell_spmm_sliced_cuda, ell_spmv_cuda)
-from .embedding_bag import embedding_bag_cuda
+from .embedding_bag import embedding_bag_cuda, embedding_bag_grad_cuda
 from .endpoint_fold import endpoint_fold_cuda
 from .flash_attention import flash_attention_cuda
 from .segment_reduce import segment_reduce_cuda, segment_reduce_grad_cuda
@@ -176,13 +177,73 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return ref.flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset)
 
 
-def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
-                  weights: torch.Tensor) -> torch.Tensor:
-    """Weighted bag sum ``out[b] = sum_l weights[b,l] * table[ids[b,l]]``:
-    (B, d) from table (V, d), ids and weights (B, L)."""
+def _bag(table: torch.Tensor, ids: torch.Tensor,
+         weights: torch.Tensor) -> torch.Tensor:
     if _on_cuda(table):
         return embedding_bag_cuda(table, ids, weights)
     return ref.embedding_bag_ref(table, ids, weights)
+
+
+def embedding_bag_grad(table: torch.Tensor, ids: torch.Tensor,
+                       weights: torch.Tensor, g: torch.Tensor,
+                       plan: "SegmentPlan | None", *, table_grad: bool = True,
+                       weights_grad: bool = True
+                       ) -> tuple[torch.Tensor | None, torch.Tensor | None]:
+    """K5's backward: (dT (V, d), dw (B, L)) given the output's gradient g
+    (B, d), each None where not asked for (``ref.embedding_bag_grad_ref``'s
+    function). On the card ``csrc/embedding_bag_grad.cu`` over ``plan``,
+    the plan of the ids (:func:`bag_plan`), which the table's gradient
+    needs there; the plain version needs none."""
+    if _on_cuda(table):
+        order = keys = offsets = None
+        if table_grad:
+            if plan is None or plan.order is None:
+                raise ValueError("K5's table gradient on the card needs the "
+                                 "plan of the ids")
+            order, keys, offsets = plan.order, plan.keys, plan.offsets
+        return embedding_bag_grad_cuda(
+            table.contiguous(), ids, weights.contiguous(), g.contiguous(),
+            order, keys, offsets, table_grad=table_grad,
+            weights_grad=weights_grad)
+    return ref.embedding_bag_grad_ref(table, ids, weights, g,
+                                      table_grad=table_grad,
+                                      weights_grad=weights_grad)
+
+
+class _EmbeddingBag(torch.autograd.Function):
+    """K5 with its backward (:func:`embedding_bag_grad`), for training. It
+    keeps the table, the ids and the weights, and the plan of the ids."""
+
+    @staticmethod
+    def forward(ctx, table, ids, weights, plan):
+        ctx.plan = plan
+        ctx.save_for_backward(table, ids, weights)
+        return _bag(table, ids, weights)
+
+    @staticmethod
+    def backward(ctx, g):
+        table, ids, weights = ctx.saved_tensors
+        d_table, d_w = embedding_bag_grad(
+            table, ids, weights, g, ctx.plan,
+            table_grad=ctx.needs_input_grad[0],
+            weights_grad=ctx.needs_input_grad[2])
+        return d_table, None, d_w, None
+
+
+def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
+                  weights: torch.Tensor, *,
+                  plan: "SegmentPlan | None" = None) -> torch.Tensor:
+    """Weighted bag sum ``out[b] = sum_l weights[b,l] * table[ids[b,l]]``:
+    (B, d) from table (V, d), ids and weights (B, L). Differentiable in the
+    table and the weights where autograd asks (:func:`embedding_bag_grad`);
+    on the card a table that needs a gradient needs ``plan``, the plan of
+    the ids (:func:`bag_plan`), built once a batch; without it the
+    backward raises there. A call that needs no gradient (serving) is K5
+    alone."""
+    if not torch.is_grad_enabled() or not (table.requires_grad
+                                           or weights.requires_grad):
+        return _bag(table, ids, weights)
+    return _EmbeddingBag.apply(table, ids, weights, plan)
 
 
 @dataclass(frozen=True)
@@ -273,6 +334,16 @@ def segment_plan(index: torch.Tensor, num_segments: int, *,
                 else index.clamp(-1, S).to(torch.int32)).contiguous()
     return SegmentPlan(order.to(torch.int32), keys.clamp(-1, S).to(
         torch.int32), offsets, kept)
+
+
+def bag_plan(ids: torch.Tensor, num_rows: int) -> SegmentPlan:
+    """The plan of a bag's ids (B, L) over a table of ``num_rows`` rows,
+    for K5's table gradient (:func:`embedding_bag`): the plan of the flat
+    ids read as K5 reads them, an id in [-V, 0) as row id + V, so that the
+    card's gradient names the rows the forward read."""
+    flat = ids.reshape(-1)
+    return segment_plan(torch.where(flat < 0, flat + num_rows, flat),
+                        num_rows, keep_index=False)
 
 
 def _segment_rows(values: torch.Tensor, plan: SegmentPlan,

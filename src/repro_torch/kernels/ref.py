@@ -186,6 +186,41 @@ def embedding_bag_ref(table: torch.Tensor, ids: torch.Tensor,
     return out.masked_fill(bad, float("nan"))
 
 
+def embedding_bag_grad_ref(table: torch.Tensor, ids: torch.Tensor,
+                           weights: torch.Tensor, g: torch.Tensor, *,
+                           table_grad: bool = True, weights_grad: bool = True
+                           ) -> tuple[torch.Tensor | None,
+                                      torch.Tensor | None]:
+    """The gradient of :func:`embedding_bag_ref` given the output's
+    gradient ``g`` (B, d): (dT (V, d), dw (B, L)) in the table's dtype,
+    each None where not asked for,
+
+        dT[v] = sum over (b, l) with ids[b,l] = v of w[b,l] * g[b]
+        dw[b,l] = <table[ids[b,l]], g[b]>
+
+    dT dense, 0 on the rows no id names. Ids are read as the forward
+    reads them: an id in [-V, 0) is row id + V; an id outside [-V, V)
+    adds nothing to dT and gets a NaN dw (``jnp.take``'s NaN fill and its
+    dropped scatter)."""
+    V, d = table.shape
+    idx = ids.long()
+    idx = torch.where(idx < 0, idx + V, idx)
+    inside = (idx >= 0) & (idx < V)
+    gt = g.to(table.dtype)
+    d_table = d_w = None
+    if weights_grad:
+        rows = table[idx.clamp(0, V - 1)]                         # (B, L, d)
+        d_w = torch.einsum("bld,bd->bl", rows, gt).masked_fill(
+            ~inside, float("nan"))
+    if table_grad:
+        terms = weights.to(table.dtype)[..., None] * gt[:, None, :]
+        keep = inside.reshape(-1)
+        d_table = torch.zeros((V, d), dtype=table.dtype, device=table.device)
+        d_table.index_add_(0, idx.reshape(-1)[keep],
+                           terms.reshape(-1, d)[keep])
+    return d_table, d_w
+
+
 _SEGMENT_IDENTITY = {"sum": 0.0, "max": -math.inf, "min": math.inf}
 
 

@@ -155,7 +155,7 @@ def levels(E: int, d: int) -> list[tuple[int, int]]:
 
 
 @functools.lru_cache(maxsize=256)
-def _geometry(E: int, d: int) -> tuple[int, int, int, int, int, int, int]:
+def geometry(E: int, d: int) -> tuple[int, int, int, int, int, int, int]:
     """(vec, group, per, R1, RL, s0, s1) of a reduction of E rows of d
     words, s0 and s1 the slots of the two scratch buffers (level i, from
     0, writes buffer i % 2, 2 slots a block, except the last level); s0 is
@@ -170,11 +170,12 @@ def _geometry(E: int, d: int) -> tuple[int, int, int, int, int, int, int]:
     return vec, group, per, R1, RL, -(-sizes[0] // 4) * 4, sizes[1]
 
 
-def _scratch(E: int, d: int, dev: torch.device) -> tuple[torch.Tensor, list]:
+def scratch_buffers(E: int, d: int,
+                    dev: torch.device) -> tuple[torch.Tensor, list]:
     """One int32 allocation for both scratch buffers' rows and keys (the
     rows' words are float32 or int32, as the kernel reads them), and the
     four pointers into it (None for an empty buffer)."""
-    *_, s0, s1 = _geometry(E, d)
+    *_, s0, s1 = geometry(E, d)
     words = -(-(s0 + s1) * d // 4) * 4         # the keys start 16-byte aligned
     buf = torch.empty((words + s0 + s1,), dtype=torch.int32, device=dev)
     base = buf.data_ptr()
@@ -193,8 +194,8 @@ def _grad_lib() -> ctypes.CDLL:
     return _build.load("segment_grad", _GRAD_SIGNATURES)
 
 
-def _check_int32(name: str, t: torch.Tensor, dev: torch.device,
-                 shape: tuple[int, ...]) -> None:
+def check_int32(name: str, t: torch.Tensor, dev: torch.device,
+                shape: tuple[int, ...]) -> None:
     if t.device != dev or t.dtype != torch.int32 or \
             tuple(t.shape) != shape or not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous {shape} int32 on {dev},"
@@ -202,8 +203,8 @@ def _check_int32(name: str, t: torch.Tensor, dev: torch.device,
                          f"(contiguous: {t.is_contiguous()})")
 
 
-def _check_rows(name: str, t: torch.Tensor, dev: torch.device,
-                shape: tuple[int, ...]) -> None:
+def check_rows(name: str, t: torch.Tensor, dev: torch.device,
+               shape: tuple[int, ...]) -> None:
     if t.device != dev or t.dtype != torch.float32 or \
             tuple(t.shape) != shape or not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous {shape} float32 on "
@@ -211,7 +212,7 @@ def _check_rows(name: str, t: torch.Tensor, dev: torch.device,
                          f"{t.device} (contiguous: {t.is_contiguous()})")
 
 
-def _aligned(t: torch.Tensor | None) -> torch.Tensor | None:
+def aligned(t: torch.Tensor | None) -> torch.Tensor | None:
     """t itself where it is 16-byte aligned (the kernels' 16-byte loads of
     keys, order and rows), else an aligned copy."""
     if t is None or t.numel() == 0 or t.data_ptr() % 16 == 0:
@@ -227,9 +228,9 @@ def _check_plan(order: torch.Tensor | None, keys: torch.Tensor,
                          f"{tuple(offsets.shape)} (need S >= 1, each below "
                          f"2^31)")
     if order is not None:
-        _check_int32("order", order, dev, (E,))
-    _check_int32("keys", keys, dev, (E,))
-    _check_int32("offsets", offsets, dev, (S + 1,))
+        check_int32("order", order, dev, (E,))
+    check_int32("keys", keys, dev, (E,))
+    check_int32("offsets", offsets, dev, (S + 1,))
     return S
 
 
@@ -259,11 +260,11 @@ def segment_reduce_cuda(values: torch.Tensor, order: torch.Tensor | None,
     if d < 1 or E * d > 2**62 or d > _INT32_MAX:
         raise ValueError(f"values {(E, d)} out of range (need d >= 1)")
     S = _check_plan(order, keys, offsets, dev, E)
-    values, order, keys = _aligned(values), _aligned(order), _aligned(keys)
+    values, order, keys = aligned(values), aligned(order), aligned(keys)
     lib = _lib()
     out = torch.empty((S, d), dtype=torch.float32, device=dev)
-    vec, group, per, R1, RL, _, _ = _geometry(E, d)
-    scratch, slots = _scratch(E, d, dev)
+    vec, group, per, R1, RL, _, _ = geometry(E, d)
+    scratch, slots = scratch_buffers(E, d, dev)
     with _build.on_card(dev) as stream:
         err = lib.segment_reduce_launch(
             values.data_ptr(), None if order is None else order.data_ptr(),
@@ -308,16 +309,16 @@ def segment_reduce_grad_cuda(g_out: torch.Tensor, values: torch.Tensor | None,
     if _check_plan(order, keys, offsets, dev, E) != S:
         raise ValueError(f"g_out has {S} rows, the plan "
                          f"{offsets.shape[0] - 1} segments")
-    _check_rows("g_out", g_out, dev, (S, d))
+    check_rows("g_out", g_out, dev, (S, d))
     if order is not None:
         if index is None:
             raise ValueError("the gathered route's backward needs the plan's "
                              "index (segment_plan(..., keep_index=True))")
-        _check_int32("index", index, dev, (E,))
+        check_int32("index", index, dev, (E,))
     grad = torch.empty((E, d), dtype=torch.float32, device=dev)
-    g_out, order, keys = _aligned(g_out), _aligned(order), _aligned(keys)
-    index = _aligned(index) if order is not None else None
-    vec, group, per, R1, RL, _, _ = _geometry(E, d)
+    g_out, order, keys = aligned(g_out), aligned(order), aligned(keys)
+    index = aligned(index) if order is not None else None
+    vec, group, per, R1, RL, _, _ = geometry(E, d)
     ties = scratch = None
     slots = [None] * 4
     if op == "sum":
@@ -326,11 +327,11 @@ def segment_reduce_grad_cuda(g_out: torch.Tensor, values: torch.Tensor | None,
         if values is None or out is None:
             raise ValueError(f"{op}'s backward needs the forward's values "
                              f"and output")
-        _check_rows("values", values, dev, (E, d))
-        _check_rows("out", out, dev, (S, d))
-        values, out = _aligned(values), _aligned(out)
+        check_rows("values", values, dev, (E, d))
+        check_rows("out", out, dev, (S, d))
+        values, out = aligned(values), aligned(out)
         ties = torch.empty((S, d), dtype=torch.int32, device=dev)
-        scratch, slots = _scratch(E, d, dev)
+        scratch, slots = scratch_buffers(E, d, dev)
     lib = _grad_lib()
 
     def ptr(t):

@@ -229,11 +229,12 @@ class ParamTree(nn.Module):
 
 def tree_leaves(tree) -> list:
     """The leaves of a parameter tree in the order of ``jax.tree.leaves``
-    of the JAX package's pytree: a dict's (a :class:`ParamTree`'s) keys
-    sorted, a list's items in order, an :class:`MLP` as the JAX list of
-    {"w", "b"} layers (each layer's "b" before its "w"). Also takes that
-    pytree itself as nested dicts and lists of arrays, and a sequence of
-    leaves, which it returns as a list."""
+    of the JAX package's pytree: a dict's (a module's, such as a
+    :class:`ParamTree` or DIN's module: its parameters' and submodules'
+    names) keys sorted, a list's items in order, an :class:`MLP` as the JAX
+    list of {"w", "b"} layers (each layer's "b" before its "w"). Also takes
+    that pytree itself as nested dicts and lists of arrays, and a sequence
+    of leaves, which it returns as a list."""
     if isinstance(tree, MLP):
         out = []
         for i, w in enumerate(tree.weights):
@@ -241,14 +242,14 @@ def tree_leaves(tree) -> list:
                 out.append(tree.biases[i])
             out.append(w)
         return out
-    if isinstance(tree, ParamTree):
+    if isinstance(tree, (nn.ModuleList, list, tuple)):
+        return [leaf for item in tree for leaf in tree_leaves(item)]
+    if isinstance(tree, nn.Module):
         items = {**tree._parameters, **tree._modules}
         return [leaf for key in sorted(items)
                 for leaf in tree_leaves(items[key])]
     if isinstance(tree, Mapping):
         return [leaf for key in sorted(tree) for leaf in tree_leaves(tree[key])]
-    if isinstance(tree, (nn.ModuleList, list, tuple)):
-        return [leaf for item in tree for leaf in tree_leaves(item)]
     return [tree]
 
 

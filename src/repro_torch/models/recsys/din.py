@@ -1,5 +1,5 @@
-"""DIN, Deep Interest Network (arXiv:1706.06978), for serving: the port of
-``repro/models/recsys/din.py``.
+"""DIN, Deep Interest Network (arXiv:1706.06978), for serving and training:
+the port of ``repro/models/recsys/din.py``.
 
 Embedding dim 18, user history of 100 items, attention MLP 80-40, main MLP
 200-80, target attention. Each history item is an (item, category) pair
@@ -11,11 +11,18 @@ over the category table.
 
 Batch layout (tensors on one device):
     hist_items (B, L) int32 | hist_cats (B, L) | hist_mask (B, L) bool |
-    target_item (B,) | target_cat (B,)
+    target_item (B,) | target_cat (B,) | label (B,) float (training)
 
 Serving entry points: ``score`` (pointwise CTR) and ``score_candidates``
 (one user against N candidates, in blocks of candidates: batched work, no
-loop over candidates).
+loop over candidates). Training: ``loss_fn`` (BCE with logits, mean over
+the batch), differentiable in every parameter, the two tables included,
+once the module is made trainable (``requires_grad_``). Its gathers are
+``ops.gather_rows`` and its pooling ``ops.embedding_bag`` over the plans
+of the batch's ids (:func:`batch_plans`, one a id tensor), so that on the
+card every gradient into a table is a fixed-order fold by id
+(``segment_reduce`` and K5's backward), never a float scatter. Training
+takes ids in [0, n_items) and [0, n_cats).
 
 Parameters are a :class:`DIN` module: ``item_emb`` (n_items, d),
 ``cat_emb`` (n_cats, d) and the two MLPs as
@@ -53,8 +60,9 @@ class DINConfig:
 
 
 class DIN(nn.Module):
-    """DIN's parameters on one device: the two embedding tables (frozen)
-    and the attention and main MLPs."""
+    """DIN's parameters on one device: the two embedding tables and the
+    attention and main MLPs, frozen until ``requires_grad_(True)`` (the
+    train step's)."""
 
     def __init__(self, item_emb: torch.Tensor, cat_emb: torch.Tensor,
                  attn: MLP, mlp: MLP):
@@ -98,25 +106,68 @@ def params_from_numpy(tree: Mapping, cfg: DINConfig,
                mlp(tree["attn"]), mlp(tree["mlp"]))
 
 
-def _pair_embed(params: DIN, items: torch.Tensor,
-                cats: torch.Tensor) -> torch.Tensor:
-    """(...) ids -> (..., 2 * embed_dim)."""
-    return torch.cat([params.item_emb[items.long()],
-                      params.cat_emb[cats.long()]], dim=-1)
+@dataclass(frozen=True)
+class BatchPlans:
+    """The segment plans of one batch's ids (``ops.segment_plan`` of each
+    id tensor, flattened, over its table's rows; ``ops.bag_plan`` of the
+    histories, the pooling's bags), built once a batch: the gathers'
+    backwards and K5's backward fold the tables' gradients over them. The
+    history plans serve both the history gather and the pooling."""
+
+    hist_items: ops.SegmentPlan
+    hist_cats: ops.SegmentPlan
+    target_item: ops.SegmentPlan
+    target_cat: ops.SegmentPlan
+
+
+def batch_plans(cfg: DINConfig, batch: dict) -> BatchPlans:
+    """The :class:`BatchPlans` of ``batch`` (ids in [0, n_items) and
+    [0, n_cats)), on the ids' device, with no host sync."""
+    def plan(key: str, rows: int) -> ops.SegmentPlan:
+        return ops.segment_plan(batch[key].reshape(-1), rows,
+                                keep_index=False)
+
+    return BatchPlans(ops.bag_plan(batch["hist_items"], cfg.n_items),
+                      ops.bag_plan(batch["hist_cats"], cfg.n_cats),
+                      plan("target_item", cfg.n_items),
+                      plan("target_cat", cfg.n_cats))
+
+
+def _pair_embed(params: DIN, items: torch.Tensor, cats: torch.Tensor,
+                plans: tuple[ops.SegmentPlan, ops.SegmentPlan] | None = None
+                ) -> torch.Tensor:
+    """(...) ids -> (..., 2 * embed_dim). With the plans of (items, cats)
+    the rows come through ``ops.gather_rows``, whose gradient is a segment
+    sum over the plan; without, by indexing (serving)."""
+    if plans is None:
+        return torch.cat([params.item_emb[items.long()],
+                          params.cat_emb[cats.long()]], dim=-1)
+    shape = tuple(items.shape)
+    item_e = ops.gather_rows(params.item_emb, items.reshape(-1), plans[0])
+    cat_e = ops.gather_rows(params.cat_emb, cats.reshape(-1), plans[1])
+    return torch.cat([item_e, cat_e], dim=-1).reshape(shape + (-1,))
 
 
 def _pool(params: DIN, w: torch.Tensor, items: torch.Tensor,
-          cats: torch.Tensor) -> torch.Tensor:
+          cats: torch.Tensor,
+          plans: tuple[ops.SegmentPlan, ops.SegmentPlan] | None = None
+          ) -> torch.Tensor:
     """sum_l w[b,l] * pair_embed(items[b,l], cats[b,l]): the two halves of
     the pair embedding pooled separately (K5 twice), then joined. ids may
-    be a broadcast view (row stride 0)."""
-    return torch.cat([ops.embedding_bag(params.item_emb, items, w),
-                      ops.embedding_bag(params.cat_emb, cats, w)], dim=-1)
+    be a broadcast view (row stride 0). ``plans``: of (items, cats), for
+    the tables' gradients."""
+    item_plan, cat_plan = plans if plans is not None else (None, None)
+    return torch.cat([ops.embedding_bag(params.item_emb, items, w,
+                                        plan=item_plan),
+                      ops.embedding_bag(params.cat_emb, cats, w,
+                                        plan=cat_plan)], dim=-1)
 
 
 def _interest(params: DIN, hist_e: torch.Tensor, hist_mask: torch.Tensor,
               target_e: torch.Tensor, hist_items: torch.Tensor,
-              hist_cats: torch.Tensor) -> torch.Tensor:
+              hist_cats: torch.Tensor,
+              plans: tuple[ops.SegmentPlan, ops.SegmentPlan] | None = None
+              ) -> torch.Tensor:
     """DIN target attention: weights from the attention MLP, no softmax
     (paper §4.3 keeps raw weights to preserve interest intensity), then the
     weighted bag sum over the history. hist_e (B, L, d) is the gathered
@@ -126,18 +177,48 @@ def _interest(params: DIN, hist_e: torch.Tensor, hist_mask: torch.Tensor,
     feats = torch.cat([hist_e, t, hist_e - t, hist_e * t], dim=-1)
     w = params.attn(feats, "sigmoid")[..., 0]                     # (B, L)
     w = w * hist_mask.to(w.dtype)
-    return _pool(params, w, hist_items, hist_cats)
+    return _pool(params, w, hist_items, hist_cats, plans)
+
+
+def _logits(params: DIN, batch: dict,
+            plans: BatchPlans | None = None) -> torch.Tensor:
+    """Pointwise CTR logits (B,), under autograd where it is on."""
+    hp = None if plans is None else (plans.hist_items, plans.hist_cats)
+    tp = None if plans is None else (plans.target_item, plans.target_cat)
+    hist_e = _pair_embed(params, batch["hist_items"], batch["hist_cats"], hp)
+    target_e = _pair_embed(params, batch["target_item"], batch["target_cat"],
+                           tp)
+    interest = _interest(params, hist_e, batch["hist_mask"], target_e,
+                         batch["hist_items"], batch["hist_cats"], hp)
+    feats = torch.cat([interest, target_e, interest * target_e], dim=-1)
+    return params.mlp(feats, "sigmoid")[..., 0]
 
 
 @torch.no_grad()
 def score(params: DIN, cfg: DINConfig, batch: dict) -> torch.Tensor:
     """Pointwise CTR logits (B,)."""
-    hist_e = _pair_embed(params, batch["hist_items"], batch["hist_cats"])
-    target_e = _pair_embed(params, batch["target_item"], batch["target_cat"])
-    interest = _interest(params, hist_e, batch["hist_mask"], target_e,
-                         batch["hist_items"], batch["hist_cats"])
-    feats = torch.cat([interest, target_e, interest * target_e], dim=-1)
-    return params.mlp(feats, "sigmoid")[..., 0]
+    return _logits(params, batch)
+
+
+def loss_fn(params: DIN, cfg: DINConfig, batch: dict,
+            plans: BatchPlans | None = None) -> torch.Tensor:
+    """Mean binary cross-entropy of the logits against ``batch["label"]``,
+    in the JAX package's stable form max(z, 0) - z y + log1p(exp(-|z|)).
+    Where a table needs a gradient, the batch's plans (``plans``, or
+    :func:`batch_plans` built here) carry its gathers and pooling."""
+    if plans is None and torch.is_grad_enabled() and (
+            params.item_emb.requires_grad or params.cat_emb.requires_grad):
+        plans = batch_plans(cfg, batch)
+    return bce_with_logits(_logits(params, batch, plans), batch["label"])
+
+
+def bce_with_logits(logits: torch.Tensor,
+                    labels: torch.Tensor) -> torch.Tensor:
+    """Mean of max(z, 0) - z y + log1p(exp(-|z|)) in float32."""
+    z = logits.to(torch.float32)
+    y = labels.to(torch.float32)
+    return (torch.clamp_min(z, 0) - z * y
+            + torch.log1p(torch.exp(-z.abs()))).mean()
 
 
 def _interest_factored(params: DIN, hist_e: torch.Tensor,

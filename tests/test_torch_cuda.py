@@ -7,7 +7,8 @@ feed-forward (no host sync, bits repeating), the live endpoint fold, the continu
 PPR, a dynamic graph's residency on the card, and the node-sharded
 residency's kernels and queries on one card, the GNNs' segment
 reduction against its float64 plain version and the four GNNs' forward
-on the card against the CPU. Every test
+on the card against the CPU, and K5's backward against its float64 plain
+version with DIN's train step on the card against the CPU. Every test
 here needs an NVIDIA card and ``nvcc`` and skips without them; this file
 imports neither JAX nor ``repro``, so it runs where only torch is
 installed:
@@ -25,7 +26,8 @@ from repro_torch.configs import get_arch
 from repro_torch.index import WalkIndex
 from repro_torch.dyn import DynamicGraph, MutationLog
 from repro_torch.kernels import (embedding_bag, ell_spmv, endpoint_fold,
-                                 flash_attention, ops, ref, walk_gather)
+                                 flash_attention, ops, ref, segment_reduce,
+                                 walk_gather)
 from repro_torch.models import moe
 from repro_torch.ppr import (DeviceMesh, ForaExecutor, ForaParams,
                              LaneStreams, PprWorkload, ShardedDeviceGraph,
@@ -1402,5 +1404,156 @@ def test_gnn_train_step_on_card_matches_cpu_and_repeats(card, arch_id):
     for a, b, t in zip(tree_leaves(p1), tree_leaves(want), tiny):
         b = b.detach().double()
         limit = rtol * b.abs() + rtol * float(b.abs().max())
+        limit = torch.where(t, limit + 2 * lr, limit)
+        assert bool(((a.detach().cpu().double() - b).abs() <= limit).all())
+
+
+# ---------------------------------------------------------------------------
+# K5's backward (csrc/embedding_bag_grad.cu) and DIN training
+
+
+def _bag_grad_inputs(V, d, B, L, hot, seed, device):
+    """table, ids (one id at a quarter of the positions where ``hot``; the
+    ids of the upper half of the table never drawn), weights, g."""
+    gen = torch.Generator().manual_seed(seed)
+    table = torch.randn((V, d), generator=gen)
+    ids = torch.randint(0, max(1, V // 2), (B, L), generator=gen,
+                        dtype=torch.int32)
+    if hot:
+        ids[torch.rand((B, L), generator=gen) < 0.25] = 1
+    w = torch.randn((B, L), generator=gen)
+    g = torch.randn((B, d), generator=gen)
+    return [t.to(device) for t in (table, ids, w, g)]
+
+
+def _bag_grad_limits(table, ids, w, g):
+    """Float64 dT and dw with their limits: a table row's cell within
+    cnt 2^-24 sum |w| |g| (cnt the row's positions), a dw within d 2^-24
+    sum_c |T| |g|."""
+    want_t, want_w = ref.embedding_bag_grad_ref(table.double(), ids,
+                                                w.double(), g.double())
+    abs_t, abs_w = ref.embedding_bag_grad_ref(table.double().abs(), ids,
+                                              w.double().abs(),
+                                              g.double().abs())
+    cnt = torch.bincount(ids.reshape(-1).long(),
+                         minlength=table.shape[0]).double()[:, None]
+    return (want_t, cnt * 2.0**-24 * abs_t,
+            want_w, table.shape[1] * 2.0**-24 * abs_w)
+
+
+@pytest.mark.parametrize("V,d,B,L,hot", [(1000, 18, 64, 100, False),
+                                         (10_000, 18, 4096, 100, True),
+                                         (50_000, 16, 256, 100, True),
+                                         (300, 7, 33, 10, False),
+                                         (100, 64, 8, 5, True),
+                                         (7, 18, 3, 1, False)])
+def test_bag_grad_matches_float64_plain_and_repeats(card, V, d, B, L, hot):
+    table, ids, w, g = _bag_grad_inputs(V, d, B, L, hot, V + d, card)
+    plan = ops.segment_plan(ids.reshape(-1), V, keep_index=False)
+    embedding_bag.reset_launches()
+    call = lambda: embedding_bag.embedding_bag_grad_cuda(  # noqa: E731
+        table, ids, w, g, plan.order, plan.keys, plan.offsets)
+    d_t, d_w = call()
+    again_t, again_w = call()
+    torch.cuda.synchronize()
+    assert embedding_bag.LAUNCHES["embedding_bag_grad_table"] == 2
+    assert embedding_bag.LAUNCHES["embedding_bag_grad_weights"] == 2
+    assert torch.equal(d_t, again_t) and torch.equal(d_w, again_w)
+    want_t, lim_t, want_w, lim_w = _bag_grad_limits(table, ids, w, g)
+    _within(d_t, want_t, lim_t)
+    _within(d_w, want_w, lim_w)
+    assert not d_t[max(1, V // 2):].any()            # rows no id names
+    # the bits of segment_reduce over the float32 products on the plan
+    terms = (w[..., None] * g[:, None, :]).reshape(B * L, d)
+    bits = segment_reduce.segment_reduce_cuda(terms, plan.order, plan.keys,
+                                              plan.offsets, "sum")
+    assert torch.equal(d_t.view(torch.int32), bits.view(torch.int32))
+
+
+def test_bag_grad_reads_ids_as_the_forward(card):
+    table, ids, w, g = _bag_grad_inputs(40, 18, 4, 6, False, 3, card)
+    ids[0, 2], ids[1, 0], ids[2, 5] = -1, 40, -41     # row 39, bad, bad
+    _, d_w = embedding_bag.embedding_bag_grad_cuda(table, ids, w, g,
+                                                   table_grad=False)
+    want = ref.embedding_bag_grad_ref(table.double(), ids, w.double(),
+                                      g.double())[1]
+    assert torch.equal(torch.isnan(d_w), torch.isnan(want))
+    fin = ~torch.isnan(want)
+    assert float((d_w.double()[fin] - want[fin]).abs().max()) < 1e-5
+
+
+def test_bag_autograd_on_card_is_the_kernels(card):
+    table, ids, w, g = _bag_grad_inputs(500, 18, 16, 100, True, 5, card)
+    plan = ops.segment_plan(ids.reshape(-1), 500, keep_index=False)
+    lt, lw = table.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    with pytest.raises(ValueError, match="plan"):
+        torch.autograd.grad(ops.embedding_bag(lt, ids, lw), (lt, lw), g)
+    a_t, a_w = torch.autograd.grad(ops.embedding_bag(lt, ids, lw, plan=plan),
+                                   (lt, lw), g)
+    d_t, d_w = embedding_bag.embedding_bag_grad_cuda(
+        table, ids, w, g, plan.order, plan.keys, plan.offsets)
+    assert torch.equal(a_t, d_t) and torch.equal(a_w, d_w)
+
+
+def test_bag_grad_table_reads_negative_ids_as_the_forward(card):
+    """An id in [-V, 0) is row id + V in the table's gradient too, through
+    ``ops.bag_plan``, as in the forward and the plain version."""
+    table, ids, w, g = _bag_grad_inputs(300, 18, 32, 20, True, 11, card)
+    ids[0, :5] = -1
+    ids[3, 7], ids[9, 0] = -300, -150
+    plan = ops.bag_plan(ids, 300)
+    lt, lw = table.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    a_t, a_w = torch.autograd.grad(ops.embedding_bag(lt, ids, lw, plan=plan),
+                                   (lt, lw), g)
+    want_t, lim_t, want_w, lim_w = _bag_grad_limits(table, ids % 300, w, g)
+    _within(a_t, want_t, lim_t)
+    _within(a_w, want_w, lim_w)
+    assert bool(a_t[299].any()) and bool(a_t[150].any())
+
+
+def test_din_train_step_on_card_matches_cpu_and_repeats(card):
+    """The DIN smoke config's train step on the card against the CPU's
+    (loss rtol 1e-5; parameters rtol 1e-4 of |p| + 1e-6 max|p|, 2 lr more
+    where the CPU gradient is at rounding level), a second step from the
+    same start with the same bits, and the launches of its structure."""
+    import copy
+
+    from repro_torch.kernels import segment_reduce
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.optim import adamw_init
+
+    arch = get_arch("din")
+    params = arch.init_params(torch.Generator().manual_seed(0), "cpu",
+                              smoke=True)
+    batch = arch.make_inputs("train_batch", torch.Generator(), "cpu",
+                             smoke=True, seed=1, batch=256)
+    start = copy.deepcopy(params)
+    _, grads = arch.grad_step(smoke=True)(copy.deepcopy(params), batch)
+    tiny = [g.abs() <= 1e-4 * g.abs() + 1e-4 * float(g.abs().max())
+            for g in grads]
+    step = arch.build_step("train_batch", smoke=True)
+    want, _, want_loss = step(params, adamw_init(params), batch)
+    batch_c = {k: v.to(card) for k, v in batch.items()}
+    runs = []
+    for _ in range(2):
+        embedding_bag.reset_launches()
+        segment_reduce.reset_launches()
+        p = copy.deepcopy(start).to(card)
+        p, s, loss = step(p, adamw_init(p), batch_c)
+        runs.append((p, s, loss))
+    torch.cuda.synchronize()
+    assert embedding_bag.LAUNCHES["embedding_bag_grad_table"] == 2
+    assert embedding_bag.LAUNCHES["embedding_bag_grad_weights"] == 2
+    assert segment_reduce.LAUNCHES["segment_reduce"] == 4
+    (p1, s1, l1), (p2, s2, l2) = runs
+    assert torch.equal(l1, l2)
+    assert all(torch.equal(a, b)
+               for a, b in zip(tree_leaves(p1), tree_leaves(p2)))
+    assert all(torch.equal(a, b) for a, b in zip(s1.m + s1.v, s2.m + s2.v))
+    assert float(l1) == pytest.approx(float(want_loss), rel=1e-5)
+    lr = 3e-4 / 100
+    for a, b, t in zip(tree_leaves(p1), tree_leaves(want), tiny):
+        b = b.detach().double()
+        limit = 1e-4 * b.abs() + 1e-6 * float(b.abs().max())
         limit = torch.where(t, limit + 2 * lr, limit)
         assert bool(((a.detach().cpu().double() - b).abs() <= limit).all())

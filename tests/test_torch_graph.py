@@ -210,6 +210,12 @@ def test_import_without_jax_loads_no_repro():
             "import repro_torch.models.gnn.dimenet\n"
             "import repro_torch.kernels.segment_reduce\n"
             "import repro_torch.optim, repro_torch.optim.adamw\n"
+            "import repro_torch.optim.compress, repro_torch.data.pipeline\n"
+            "import repro_torch.launch.train\n"
+            "from repro_torch.kernels.embedding_bag import "
+            "embedding_bag_grad_cuda\n"
+            "from repro_torch.models.recsys.din import loss_fn, "
+            "batch_plans\n"
             "from repro_torch.kernels.ops import gather_rows, "
             "segment_reduce_grad\n"
             "from repro_torch.configs import gcn_cora, pna_arch, "

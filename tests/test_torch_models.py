@@ -362,8 +362,7 @@ def test_infer_run_smoke(arch_id):
 def test_unported_kinds_and_archs_raise():
     with pytest.raises(NotImplementedError, match="later slice"):
         get_arch("gemma-2b").build_step("train_4k")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        get_arch("din").build_step("train_batch")
+    assert callable(get_arch("din").build_step("train_batch"))  # ported
     with pytest.raises(NotImplementedError, match="later slice"):
         get_arch("gemma-2b").model_flops("train_4k")
     pna = get_arch("pna")                      # GNN training is ported
