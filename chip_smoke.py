@@ -279,8 +279,10 @@ drives the port's main path, in phases:
    a step (``din_train_launches``), and a profile split into K5's
    forward and backward, the plans, gathers, ``segment_reduce``, GEMMs,
    AdamW and the rest with the idle share; both backward kernels timed
-   beside their bound, the plain version and ``F.embedding_bag``'s
-   backward with ``per_sample_weights``. Last, ``python -m
+   on the item and category tables beside their bound, the plain version
+   and ``F.embedding_bag``'s backward with ``per_sample_weights``, the
+   table's split into level 1 (the staged fold beside the fill blocks)
+   and the later levels. Last, ``python -m
    repro_torch.launch.train --arch din`` on the card (30 smoke steps,
    int8 gradient compression, a failure injected at step 15): its loss
    must improve.
@@ -476,7 +478,8 @@ QUEUE_CYCLES_PER_CALL = 200_000   # a sleep that outlasts the host's queueing
 DIN_TRAIN_STEPS = 8
 DIN_TRAIN_SEED = 0             # RecsysStream's seed for the checked batch
 BAG_KERNELS = ("bag_gather", "bag_shared")
-BAG_GRAD_KERNELS = ("bag_grad_weights", "bag_table_first", "bag_table_level")
+BAG_GRAD_KERNELS = ("bag_grad_weights", "bag_grad_weights_lane",
+                    "bag_table_first", "bag_table_level")
 BAG_GRAD_REPS = 10
 BAG_SHORT_SEGMENT = (2, 64)    # a segment whose last position a broken
                                # backward drops: its length in this range
@@ -4733,6 +4736,32 @@ def din_profile(label: str, fn) -> dict[str, float] | None:
             "idle_share": 1 - busy / wall_us}
 
 
+def bag_grad_split(fn, reps: int = 3) -> tuple[float, float] | None:
+    """Device µs a call of K5's table gradient spends in level 1
+    (``bag_table_first``) and in the later levels (``bag_table_level``),
+    under ``torch.profiler``; None where every window lost its device
+    events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        by_name = device_us(prof)
+        first = sum(sum(ts) for k, ts in by_name.items()
+                    if "bag_table_first" in k)
+        later = sum(sum(ts) for k, ts in by_name.items()
+                    if "bag_table_level" in k)
+        if first > 0:
+            return first / reps, later / reps
+    return None
+
+
 def bag_grad_oracle(table, ids, w, g, *, table64=None):
     """Float64 dT and dw of the plain version with their limits: a table
     cell within cnt 2^-24 sum |w| |g| (cnt the length of the row's
@@ -4955,6 +4984,15 @@ def bag_grad_check(label: str, table, ids, w, g, plan, card: str,
               f"({rows[name]['bound_by']})  plain {plain_ms * 1e3:10.2f} us  "
               f"F.embedding_bag backward {lib_ms * 1e3:10.2f} us{extra}  "
               f"[{card}]")
+    # the table gradient's split by kernel: level 1 (the staged fold beside
+    # the fill blocks) and the later levels, from a profile window that
+    # kept its device events
+    split = bag_grad_split(lambda: kern(weights_grad=False))
+    print(f"  embedding_bag_grad_table {label} split (device, torch.profiler,"
+          f" a call): " + (f"level 1, fold and fill {split[0]:10.2f} us, the "
+                           f"later levels {split[1]:8.2f} us" if split else
+                           "not measured (no window kept its device events)")
+          + f"  [{card}]")
     del out_t, out_w, terms, tab, wq
     stats["timed"] = rows
 
@@ -5106,9 +5144,10 @@ def phase16_din_train(dev, gen, card: str) -> tuple[list[dict], int, int]:
         table, w, g = table.detach(), w.detach(), g.detach()
         plan = ops.SegmentPlan(order, keys, offsets)
         bag_grad_check(f"{what}, Zipf ids", table, ids, w, g, plan, card,
-                       stats, time_it=what == "item table")
+                       stats, time_it=True)
+        timed = stats.pop("timed")
         if what == "item table":
-            rows = stats.pop("timed")
+            rows = timed
             uni = torch.randint(0, cfg.n_items, ids.shape, generator=gen,
                                 device=gen.device,
                                 dtype=torch.int32).to(dev)

@@ -239,6 +239,113 @@ __device__ __forceinline__ void fold_slot(Vec<T, V> (&acc)[U], const T* slot,
   }
 }
 
+// A staged round of level 1 of K5's table gradient (fold_runs with
+// STAGED: a run a warp, d <= 31 words a row, a word a lane): the products
+// w[r] * g[r / bag_len] of the positions q0 .. q0 + 31 of a run ending at
+// b, lane l the one at q0 + l. The lane takes its key and order entry
+// (loaded before where pre: pre_key, pre_row), loads its weight and g row
+// (in 8-byte units where d is even: the launcher checks that g is 8-byte
+// aligned) before it uses any of them, and writes the products, rounded on
+// their own by __fmul_rn so that the fold adds exactly the float32
+// products, to row threadIdx.x of the shared `stage` (`stride` words, odd
+// where d is even, so that the warp's lanes write distinct banks). The
+// warp waits for its lanes before the first write (the round before is
+// folded) and after the last (this round is staged). Returns the key.
+__device__ __forceinline__ int stage_terms(
+    const float* __restrict__ g, const float* __restrict__ w,
+    const int32_t* __restrict__ order, const int32_t* __restrict__ keys,
+    float* __restrict__ stage, int stride, int64_t q0, int64_t b, int S,
+    int d, int bag_len, int l, bool pre, int pre_key, int pre_row) {
+  const int64_t p = q0 + l;
+  const int key = pre ? pre_key : p < b ? __ldg(keys + p) : -1;
+  const int r = pre ? pre_row : p < b ? __ldg(order + p) : 0;
+  const bool live = has_row(key, S);
+  const float wr = live ? __ldg(w + r) : 0.0f;
+  // the bag: one 32-bit quotient a position
+  const float* row = g + static_cast<int64_t>(r / bag_len) * d;
+  float x[32];
+#pragma unroll
+  for (int c = 0; c < 32; ++c) x[c] = 0.0f;
+  if (d % 2 == 0) {
+#pragma unroll
+    for (int c = 0; c < 16; ++c) {
+      if (live && 2 * c < d) {
+        const float2 t = __ldg(reinterpret_cast<const float2*>(row) + c);
+        x[2 * c] = t.x;
+        x[2 * c + 1] = t.y;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < 32; ++c) {
+      if (live && c < d) x[c] = __ldg(row + c);
+    }
+  }
+  __syncwarp();
+  float* dst = stage + threadIdx.x * stride;
+#pragma unroll
+  for (int c = 0; c < 32; ++c) {
+    if (c < d) dst[c] = __fmul_rn(x[c], wr);
+  }
+  __syncwarp();
+  return key;
+}
+
+// A run of level 1 staged by its warp (fold_runs with STAGED, DIN's d =
+// 18): the same adds and writes as fold_runs' batches, in the same order,
+// with less work a position. Each round of 32 positions is staged
+// (stage_terms, lane i position q0 + i, the first round's key and order
+// entry loaded by fold_runs: pre_key, pre_row), and a ballot says where a
+// segment starts (its key's segment differs from the position's before).
+// At level 1 a segment >= 0 has rows at every position and -1 at none, so
+// the warp walks the round piece by piece: where one starts, the piece
+// before is written (to the run's left slot where it entered the run from
+// the left, else to out), and lane l adds column l of each staged row of a
+// piece with rows, left to right. cur, head and acc carry from round to
+// round, and out of the run to fold_runs, which writes the last piece.
+template <typename T>
+__device__ __forceinline__ void walk_staged(
+    const float* __restrict__ g, const float* __restrict__ w,
+    const int32_t* __restrict__ order, const int32_t* __restrict__ keys,
+    T* __restrict__ out, float* __restrict__ stage, int stride, T* slot,
+    int* slot_key, T& acc, int& cur, bool& head, int64_t a, int64_t b, int S,
+    int d, int bag_len, int l, int pre_key, int pre_row) {
+  const float* column = stage + (threadIdx.x - l) * stride + l;
+  for (int64_t q0 = a; q0 < b; q0 += 32) {
+    const int key = stage_terms(g, w, order, keys, stage, stride, q0, b, S,
+                                d, bag_len, l, q0 == a, pre_key, pre_row);
+    const int n = b - q0 < 32 ? static_cast<int>(b - q0) : 32;
+    const int seg = l < n ? segment_of(key, S) : -2;
+    int before = __shfl_up_sync(0xffffffffu, seg, 1);
+    if (l == 0) before = cur;
+    unsigned starts = __ballot_sync(0xffffffffu, l < n && seg != before);
+    int i = 0;
+    while (i < n) {
+      if ((starts >> i) & 1u) {
+        const int next = __shfl_sync(0xffffffffu, seg, i);
+        if (cur >= 0) {
+          if (head) {
+            if (l < d) slot[l] = acc;
+            if (l == 0) *slot_key = cur;
+          } else if (l < d) {
+            out[static_cast<int64_t>(cur) * d + l] = acc;
+          }
+        }
+        head = false;
+        cur = next;
+        acc = static_cast<T>(0);
+      }
+      // the piece: to the next segment's start or the round's end
+      const unsigned later = starts >> i >> 1;
+      const int end = later != 0u ? i + __ffs(later) : n;
+      if (cur >= 0 && l < d) {
+        for (int p = i; p < end; ++p) acc += column[p * stride];
+      }
+      i = end;
+    }
+  }
+}
+
 // The fold of one level (see the header). OP is the op; TIES (level 1 of
 // max's and min's backward) counts, as int, the row's words equal to the
 // forward's output ref[s] instead of folding them. In is the rows' type
@@ -250,8 +357,14 @@ __device__ __forceinline__ void fold_slot(Vec<T, V> (&acc)[U], const T* slot,
 // empty segment; nullptr otherwise. BAG (level 1 of K5's table gradient,
 // embedding_bag_grad.cu; GATHER too): the plan is of the flat (B * L) ids
 // and its order names flat positions r = b * bag_len + l, so position p's
-// row is the product scale[r] * src[r / bag_len] (w[b, l] g[b]), formed as
-// it is loaded: no (B * L, d) rows are written first.
+// row is the product scale[r] * src[r / bag_len] (w[b, l] g[b]): no
+// (B * L, d) rows are written first. STAGED (BAG with a run a warp and a
+// word a unit and a lane): the warp forms its run's products 32 positions
+// at a time, one lane a position, into `stage` (kThreads rows of `stride`
+// words, the kernel's dynamic shared memory), and walks them from there
+// (walk_staged); otherwise each lane forms its units of each position's
+// product as it loads them. block0: the launch's blocks before the fold's
+// first (BAG only).
 //
 // Two stages a column chunk. The groups: group g of the block folds run
 // blk * G + g (R positions) left to right, writes the segments that start
@@ -266,14 +379,17 @@ __device__ __forceinline__ void fold_slot(Vec<T, V> (&acc)[U], const T* slot,
 // the others to out. The same order as one left fold of the block's
 // slots, with no group waiting on another's chain.
 template <int OP, bool TIES, bool GATHER, typename In, typename T, int U,
-          int V, bool BAG = false>
+          int V, bool BAG = false, bool STAGED = false>
 __device__ __forceinline__ void fold_runs(
     const In* __restrict__ src, const int32_t* __restrict__ rows,
     const int32_t* __restrict__ keys, const float* __restrict__ ref,
     T* __restrict__ out, T* __restrict__ part, int32_t* __restrict__ part_keys,
     const int32_t* __restrict__ offsets, int64_t n, int S, int d, int R,
-    int group, const float* __restrict__ scale = nullptr, int bag_len = 1) {
+    int group, const float* __restrict__ scale = nullptr, int bag_len = 1,
+    float* __restrict__ stage = nullptr, int stride = 0, int block0 = 0) {
   static_assert(!BAG || (GATHER && !TIES), "a bag's rows are gathered sums");
+  static_assert(!STAGED || (BAG && U == 1 && V == 1),
+                "a staged run: a word a unit and a lane");
   constexpr int K = batch<U, V>();
   __shared__ T slot_rows[2 * kThreads * U * V];
   __shared__ int slot_keys[2 * kThreads];
@@ -283,7 +399,8 @@ __device__ __forceinline__ void fold_runs(
   const int l = lane % group;
   const int G = kThreads / group;
   const int g = threadIdx.x / group;
-  const int64_t blk = blockIdx.x;
+  int64_t blk = blockIdx.x;
+  if constexpr (BAG) blk -= block0;
   const int64_t run = blk * G + g;
   const int64_t a = run * R;
   const bool active = a < n;
@@ -298,13 +415,30 @@ __device__ __forceinline__ void fold_runs(
   int last_seg = -1;
   bool left_open = false;
   bool right_open = false;
+  int pre_key = -1;            // STAGED: the run's first round, loaded
+  int pre_row = 0;             // with the keys on either side of the run
   if (active) {
-    first_seg = segment_of(__ldg(keys + a), S);
-    left_open = a > 0 && first_seg >= 0
-        && segment_of(__ldg(keys + a - 1), S) == first_seg;
-    last_seg = segment_of(__ldg(keys + b - 1), S);
-    right_open = b < n && last_seg >= 0
-        && segment_of(__ldg(keys + b), S) == last_seg;
+    if constexpr (STAGED) {
+      const int64_t p = a + l;
+      pre_key = p < b ? __ldg(keys + p) : -1;
+      pre_row = p < b ? __ldg(rows + p) : 0;
+      const int left = a > 0 ? __ldg(keys + a - 1) : -1;
+      const int right = b < n ? __ldg(keys + b) : -1;
+      const int end = b - a <= 32
+          ? __shfl_sync(0xffffffffu, pre_key, static_cast<int>(b - a - 1))
+          : __ldg(keys + b - 1);
+      first_seg = segment_of(__shfl_sync(0xffffffffu, pre_key, 0), S);
+      left_open = a > 0 && first_seg >= 0 && segment_of(left, S) == first_seg;
+      last_seg = segment_of(end, S);
+      right_open = b < n && last_seg >= 0 && segment_of(right, S) == last_seg;
+    } else {
+      first_seg = segment_of(__ldg(keys + a), S);
+      left_open = a > 0 && first_seg >= 0
+          && segment_of(__ldg(keys + a - 1), S) == first_seg;
+      last_seg = segment_of(__ldg(keys + b - 1), S);
+      right_open = b < n && last_seg >= 0
+          && segment_of(__ldg(keys + b), S) == last_seg;
+    }
     if (l == 0) {
       slot_keys[2 * g] = -1;
       slot_keys[2 * g + 1] = -1;
@@ -329,119 +463,127 @@ __device__ __forceinline__ void fold_runs(
           }
         }
       }
-      int key[K];
-      int row[K];
-      if constexpr (GATHER) {
-        load_ints<K>(keys, a, b, key);
-        load_ints<K>(rows, a, b, row);
-      }
-      for (int64_t p = a; p < b; p += K) {
-        // a stream loads the batch's keys beside its rows, whatever the
-        // keys (a slot without a row is read and not folded)
-        if constexpr (!GATHER) load_ints<K>(keys, p, b, key);
-        Vec<In, V> x[K][U];
-#pragma unroll
-        for (int u = 0; u < K; ++u) {
-          if (GATHER ? has_row(key[u], S) : p + u < b) {
-            const int64_t r = GATHER ? row[u] : p + u;
-            // a bag's row: a 32-bit quotient (order entries are int32)
-            const In* base = src + (BAG ? static_cast<int64_t>(row[u]
-                                                           / bag_len)
-                                        : r) * d;
-#pragma unroll
-            for (int j = 0; j < U; ++j) {
-              const int c = c0 + l + j * group;
-              if (c < units) x[u][j] = load_vec<In, V>(base + c * V);
-            }
-            if constexpr (BAG) {
-              // __fmul_rn: a product rounded on its own, never contracted
-              // into the fold's add, so the terms are the float32 products
-              // w[r] * g[r / L] and dT has segment_reduce's bits on them
-              const float w = __ldg(scale + r);
-#pragma unroll
-              for (int j = 0; j < U; ++j) {
-#pragma unroll
-                for (int k = 0; k < V; ++k)
-                  x[u][j].v[k] = __fmul_rn(x[u][j].v[k], w);
-              }
-            }
-          }
-        }
-        // a position past the run's end keeps the current segment
-        int seg[K];
-        bool rowed[K];
-#pragma unroll
-        for (int u = 0; u < K; ++u) {
-          seg[u] = p + u < b ? segment_of(key[u], S) : -2;
-          rowed[u] = p + u < b && has_row(key[u], S);
-        }
-        // the gathered route: the next batch's keys and order entries,
-        // while this one folds
+      if constexpr (STAGED) {
+        walk_staged<T>(src, scale, rows, keys, out, stage, stride,
+                       slot_rows + 2 * g * width, slot_keys + 2 * g,
+                       acc[0].v[0], cur, head, a, b, S, d, bag_len, l,
+                       pre_key, pre_row);
+      } else {
+        int key[K];
+        int row[K];
         if constexpr (GATHER) {
-          if (p + K < b) {
-            load_ints<K>(keys, p + K, b, key);
-            load_ints<K>(rows, p + K, b, row);
-          }
+          load_ints<K>(keys, a, b, key);
+          load_ints<K>(rows, a, b, row);
         }
-        // the common batch: every position a row of the current segment
-        bool uniform = cur >= 0;
-#pragma unroll
-        for (int u = 0; u < K; ++u) {
-          uniform = uniform && seg[u] == cur && rowed[u];
-        }
-        if (uniform) {
+        for (int64_t p = a; p < b; p += K) {
+          // a stream loads the batch's keys beside its rows, whatever the
+          // keys (a slot without a row is read and not folded)
+          if constexpr (!GATHER) load_ints<K>(keys, p, b, key);
+          Vec<In, V> x[K][U];
 #pragma unroll
           for (int u = 0; u < K; ++u) {
-#pragma unroll
-            for (int j = 0; j < U; ++j) {
-#pragma unroll
-              for (int k = 0; k < V; ++k) {
-                if constexpr (TIES) {
-                  acc[j].v[k] += x[u][j].v[k] == o[j].v[k] ? 1 : 0;
-                } else {
-                  acc[j].v[k] = combine<OP, T>(acc[j].v[k], x[u][j].v[k]);
-                }
-              }
-            }
-          }
-          continue;
-        }
-#pragma unroll
-        for (int u = 0; u < K; ++u) {
-          if (seg[u] != -2 && seg[u] != cur) {
-            if (cur >= 0) {
-              if (head) {
-                put_slot<T, U, V>(slot_rows + 2 * g * width, acc, c0, l,
-                                  group, units);
-                if (l == 0) slot_keys[2 * g] = cur;
-              } else {
-                store_units<T, U, V>(out + static_cast<int64_t>(cur) * d,
-                                     acc, c0, l, group, units);
-              }
-            }
-            head = false;
-            cur = seg[u];
-            fill_units<T, U, V>(acc, ident);
-            if constexpr (TIES) {
+            if (GATHER ? has_row(key[u], S) : p + u < b) {
+              const int64_t r = GATHER ? row[u] : p + u;
+              // a bag's row: a 32-bit quotient (order entries are int32)
+              const In* base = src + (BAG ? static_cast<int64_t>(row[u]
+                                                             / bag_len)
+                                          : r) * d;
 #pragma unroll
               for (int j = 0; j < U; ++j) {
                 const int c = c0 + l + j * group;
-                if (cur >= 0 && c < units) {
-                  o[j] = load_vec<float, V>(
-                      ref + static_cast<int64_t>(cur) * d + c * V);
+                if (c < units) x[u][j] = load_vec<In, V>(base + c * V);
+              }
+              if constexpr (BAG) {
+                // __fmul_rn: a product rounded on its own, never
+                // contracted into the fold's add, so the terms are the
+                // float32 products w[r] * g[r / L] and dT has
+                // segment_reduce's bits on them
+                const float w = __ldg(scale + r);
+#pragma unroll
+                for (int j = 0; j < U; ++j) {
+#pragma unroll
+                  for (int k = 0; k < V; ++k)
+                    x[u][j].v[k] = __fmul_rn(x[u][j].v[k], w);
                 }
               }
             }
           }
-          if (rowed[u]) {
+          // a position past the run's end keeps the current segment
+          int seg[K];
+          bool rowed[K];
 #pragma unroll
-            for (int j = 0; j < U; ++j) {
+          for (int u = 0; u < K; ++u) {
+            seg[u] = p + u < b ? segment_of(key[u], S) : -2;
+            rowed[u] = p + u < b && has_row(key[u], S);
+          }
+          // the gathered route: the next batch's keys and order entries,
+          // while this one folds
+          if constexpr (GATHER) {
+            if (p + K < b) {
+              load_ints<K>(keys, p + K, b, key);
+              load_ints<K>(rows, p + K, b, row);
+            }
+          }
+          // the common batch: every position a row of the current segment
+          bool uniform = cur >= 0;
 #pragma unroll
-              for (int k = 0; k < V; ++k) {
-                if constexpr (TIES) {
-                  acc[j].v[k] += x[u][j].v[k] == o[j].v[k] ? 1 : 0;
+          for (int u = 0; u < K; ++u) {
+            uniform = uniform && seg[u] == cur && rowed[u];
+          }
+          if (uniform) {
+#pragma unroll
+            for (int u = 0; u < K; ++u) {
+#pragma unroll
+              for (int j = 0; j < U; ++j) {
+#pragma unroll
+                for (int k = 0; k < V; ++k) {
+                  if constexpr (TIES) {
+                    acc[j].v[k] += x[u][j].v[k] == o[j].v[k] ? 1 : 0;
+                  } else {
+                    acc[j].v[k] = combine<OP, T>(acc[j].v[k], x[u][j].v[k]);
+                  }
+                }
+              }
+            }
+            continue;
+          }
+#pragma unroll
+          for (int u = 0; u < K; ++u) {
+            if (seg[u] != -2 && seg[u] != cur) {
+              if (cur >= 0) {
+                if (head) {
+                  put_slot<T, U, V>(slot_rows + 2 * g * width, acc, c0, l,
+                                    group, units);
+                  if (l == 0) slot_keys[2 * g] = cur;
                 } else {
-                  acc[j].v[k] = combine<OP, T>(acc[j].v[k], x[u][j].v[k]);
+                  store_units<T, U, V>(out + static_cast<int64_t>(cur) * d,
+                                       acc, c0, l, group, units);
+                }
+              }
+              head = false;
+              cur = seg[u];
+              fill_units<T, U, V>(acc, ident);
+              if constexpr (TIES) {
+#pragma unroll
+                for (int j = 0; j < U; ++j) {
+                  const int c = c0 + l + j * group;
+                  if (cur >= 0 && c < units) {
+                    o[j] = load_vec<float, V>(
+                        ref + static_cast<int64_t>(cur) * d + c * V);
+                  }
+                }
+              }
+            }
+            if (rowed[u]) {
+#pragma unroll
+              for (int j = 0; j < U; ++j) {
+#pragma unroll
+                for (int k = 0; k < V; ++k) {
+                  if constexpr (TIES) {
+                    acc[j].v[k] += x[u][j].v[k] == o[j].v[k] ? 1 : 0;
+                  } else {
+                    acc[j].v[k] = combine<OP, T>(acc[j].v[k], x[u][j].v[k]);
+                  }
                 }
               }
             }

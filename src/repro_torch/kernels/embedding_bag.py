@@ -37,14 +37,17 @@ over a block of candidates): nothing is copied, the table least of all.
 
 ``embedding_bag_grad_cuda`` is K5's backward, ``csrc/embedding_bag_grad.cu``
 (DIN's training): the weights' gradient ``dw[b,l] = <T[ids[b,l]], g[b]>``
-(``bag_grad_weights``, a group of lanes an item) and the table's dense
-gradient ``dT[v] = sum_{ids[b,l]=v} w[b,l] g[b]`` (``bag_grad_table``, the
-segment reduction's fold over the plan of the ids, each term formed as it
-is loaded). It replaces no TPU kernel (the reference differentiates DIN's
-``jnp.take`` and ``einsum`` with XLA); bytes bound it, the table's dense
-gradient most (see the source's header). No atomics: the same bits on
-every call. Its launches count in :data:`LAUNCHES` too, under
-``embedding_bag_grad_weights`` and ``embedding_bag_grad_table``.
+(``bag_grad_weights``: a lane an item where the row has at most
+:data:`GRAD_LANE_WORDS` words, else a group of lanes, :func:`grad_group`)
+and the table's dense gradient ``dT[v] = sum_{ids[b,l]=v} w[b,l] g[b]``
+(``bag_grad_table``: the segment reduction's fold over the plan of the
+ids, level 1 staging a run's terms one lane a position where a run is a
+warp, :func:`staged`, beside fill blocks that write the rows no id names,
+:func:`fill_words`). It replaces no TPU kernel (the reference
+differentiates DIN's ``jnp.take`` and ``einsum`` with XLA); bytes bound
+it, the table's dense gradient most (see the source's header). No atomics:
+the same bits on every call. Its launches count in :data:`LAUNCHES` too,
+under ``embedding_bag_grad_weights`` and ``embedding_bag_grad_table``.
 """
 
 from __future__ import annotations
@@ -81,11 +84,14 @@ _SIGNATURES = {
 _GRAD_SIGNATURES = {
     "bag_grad_weights_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _I,
                                  _P], _I),
-    "bag_grad_table_launch": ([_P] * 10 + [_L] + [_I] * 8 + [_P], _I),
+    "bag_grad_table_launch": ([_P] * 10 + [_L] + [_I] * 9 + [_P], _I),
     "embedding_bag_grad_error_string": ([_I], ctypes.c_char_p),
 }
 _INT32_MAX = 2**31 - 1
 GRAD_UNITS_A_LANE = 4          # bag_grad_weights: units a lane, at most
+GRAD_LANE_WORDS = 32           # bag_grad_weights_lane: a row's words, at most
+STAGE_ROUND = 32               # bag_grad_table: positions a staged round
+FILL_ROWS = 1024               # bag_grad_table: rows a fill tile
 
 
 @dataclass(frozen=True)
@@ -248,11 +254,15 @@ def embedding_bag_cuda(table: torch.Tensor, ids: torch.Tensor,
 
 
 def grad_group(d: int, width: int) -> int:
-    """Lanes ``bag_grad_weights`` gives an item: the least power of two
-    (up to 32) whose lanes hold the row's d / width units at most
-    :data:`GRAD_UNITS_A_LANE` a lane (4 at DIN's d = 18 in float2 units)."""
+    """Lanes the weights' gradient gives an item: 1 (``bag_grad_weights_
+    lane``, the whole row in one lane's registers) where the row has at most
+    :data:`GRAD_LANE_WORDS` words (DIN's d = 18); else the least power of
+    two from 2 to 32 whose lanes hold the row's d / width units at most
+    :data:`GRAD_UNITS_A_LANE` a lane (``bag_grad_weights``)."""
+    if d <= GRAD_LANE_WORDS:
+        return 1
     units = d // width
-    group = 1
+    group = 2
     while group < 32 and group * GRAD_UNITS_A_LANE < units:
         group *= 2
     if group * GRAD_UNITS_A_LANE < units:
@@ -260,6 +270,58 @@ def grad_group(d: int, width: int) -> int:
                          f"bag_grad_weights (at most "
                          f"{32 * GRAD_UNITS_A_LANE * width})")
     return group
+
+
+def staged(d: int) -> bool:
+    """Whether the table gradient's level 1 stages its runs: where the
+    segment reduction's geometry gives a run a warp and a lane a word of
+    the row (d from 17 to 31, not a multiple of 4; DIN's d = 18)."""
+    vec, group, per, *_ = geometry(1, d)
+    return (vec, group, per) == (1, 32, 1)
+
+
+def staged_reads(E: int, d: int, run: int) -> list[tuple[int, int]]:
+    """The (position, shared-memory row) pairs the warp of level 1's run
+    ``run`` walks, in its order, at the segment reduction's geometry of E
+    rows of d words (:func:`staged`): rounds of :data:`STAGE_ROUND`
+    positions from the run's start, lane i of the warp staging position i
+    of a round into row ``thread`` (its thread in the block), the warp then
+    walking the round's positions left to right."""
+    _, group, _, R1, _, _, _ = geometry(E, d)
+    first = run % (THREADS // group) * group        # the warp's lane 0
+    a, b = run * R1, min(run * R1 + R1, E)
+    return [(p, first + (p - a) % STAGE_ROUND) for p in range(a, b)]
+
+
+def fill_words(counts: list[int], d: int, block: int, blocks: int,
+               thread: int) -> list[int]:
+    """The words of the flat (S, d) table gradient that thread ``thread``
+    of fill block ``block`` of ``blocks`` writes 0 to, S = len(counts) the
+    rows, ``counts`` each row's positions in the plan, as ``fill_unnamed``
+    computes them: tiles of :data:`FILL_ROWS` rows, the block's every
+    ``blocks``-th from ``block``; in a tile the 16-byte units (words 4u to
+    4u + 3 from the tile's first) u = thread, thread + THREADS, ..., the
+    unit's first word at row r, column c, stepped 4 THREADS words at a
+    time; of a unit, the first d - c words are row r's and the rest row r
+    + 1's where d >= 2, word k row r + k's where d = 1, and each word whose
+    row is empty is written."""
+    S = len(counts)
+    out: list[int] = []
+    r0, c0 = divmod(4 * thread, d)
+    dr, dc = divmod(4 * THREADS, d)
+    for t in range(block, -(-S // FILL_ROWS), blocks):
+        first = t * FILL_ROWS
+        words = min(S - first, FILL_ROWS) * d
+        r, c = r0, c0
+        for w0 in range(4 * thread, words, 4 * THREADS):
+            for k in range(4):
+                row = first + r + (k if d == 1 else int(k >= d - c))
+                if w0 + k < words and counts[row] == 0:
+                    out.append(first * d + w0 + k)
+            r, c = r + dr, c + dc
+            if c >= d:
+                r, c = r + 1, c - d
+    return out
 
 
 def embedding_bag_grad_cuda(table: torch.Tensor, ids: torch.Tensor,
@@ -325,11 +387,12 @@ def embedding_bag_grad_cuda(table: torch.Tensor, ids: torch.Tensor,
         g_rows, order, keys = aligned(g), aligned(order), aligned(keys)
         d_table = torch.empty((V, d), dtype=torch.float32, device=dev)
         scratch, slots = scratch_buffers(E, d, dev)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
         with _build.on_card(dev) as stream:
             err = lib.bag_grad_table_launch(
                 g_rows.data_ptr(), weights.data_ptr(), order.data_ptr(),
                 keys.data_ptr(), offsets.data_ptr(), *slots,
-                d_table.data_ptr(), E, V, d, L, vec, per, group, R1, RL,
+                d_table.data_ptr(), E, V, d, L, vec, per, group, R1, RL, sms,
                 stream)
         del scratch
         _raise_on(lib, err, "bag_grad_table")

@@ -1470,6 +1470,81 @@ def test_bag_grad_matches_float64_plain_and_repeats(card, V, d, B, L, hot):
     assert torch.equal(d_t.view(torch.int32), bits.view(torch.int32))
 
 
+# (V, d, B, L, which rows the ids name): 16-byte units of dT across a named
+# and an unnamed row (d 18, 1 and 5 with every other row named), every row
+# named, one row named, a hot row over more than three level-1 blocks, and
+# rows wide enough for the weights' grouped route
+@pytest.mark.parametrize("V,d,B,L,named", [(999, 18, 64, 100, "even"),
+                                           (999, 1, 64, 100, "even"),
+                                           (999, 5, 64, 100, "even"),
+                                           (700, 18, 70, 10, "all"),
+                                           (5000, 18, 64, 100, "one"),
+                                           (3000, 18, 160, 100, "hot"),
+                                           (800, 40, 64, 20, "even")])
+def test_bag_grad_writes_every_word_once_in_the_fold_order(card, V, d, B, L,
+                                                           named):
+    table, ids, w, g = _bag_grad_inputs(V, d, B, L, named == "hot", V + 7,
+                                        card)
+    if named == "even":
+        ids = ids // 2 * 2
+    elif named == "all":
+        ids = torch.randperm(B * L, generator=torch.Generator().manual_seed(
+            1)).to(card).reshape(B, L).remainder(V).to(torch.int32)
+    elif named == "one":
+        ids = torch.full_like(ids, V // 3)
+    plan = ops.segment_plan(ids.reshape(-1), V, keep_index=False)
+    counts = plan.counts
+    if named == "hot":
+        _, group, _, R1, _, _, _ = segment_reduce.geometry(B * L, d)
+        assert int(counts.max()) > 3 * (segment_reduce.THREADS // group) * R1
+    assert embedding_bag.grad_group(d, 2) == (1 if d <= 32 else 8)
+    runs = []
+    for _ in range(2):
+        # a word the kernels do not write would keep this NaN
+        torch.full((V, d), float("nan"), device=card)
+        runs.append(embedding_bag.embedding_bag_grad_cuda(
+            table, ids, w, g, plan.order, plan.keys, plan.offsets))
+    torch.cuda.synchronize()
+    (d_t, d_w), (again_t, again_w) = runs
+    assert torch.equal(d_t.view(torch.int32), again_t.view(torch.int32))
+    assert torch.equal(d_w.view(torch.int32), again_w.view(torch.int32))
+    assert not d_t[counts == 0].view(torch.int32).any()
+    terms = (w[..., None] * g[:, None, :]).reshape(B * L, d)
+    bits = segment_reduce.segment_reduce_cuda(terms, plan.order, plan.keys,
+                                              plan.offsets, "sum")
+    assert torch.equal(d_t.view(torch.int32), bits.view(torch.int32))
+    want_t, lim_t, want_w, lim_w = _bag_grad_limits(table, ids, w, g)
+    _within(d_t, want_t, lim_t)
+    _within(d_w, want_w, lim_w)
+
+
+def test_bag_grad_runs_longer_than_a_staged_round_keep_the_bits(
+        card, monkeypatch):
+    """Level-1 runs of 128 positions (the run length of 8.4 M positions and
+    more at d 18, reached here by aiming level 1 at fewer blocks): four
+    staged rounds a run, the segment carried from round to round."""
+    monkeypatch.setattr(segment_reduce, "FILL_BLOCKS", 4)
+    segment_reduce.geometry.cache_clear()
+    try:
+        table, ids, w, g = _bag_grad_inputs(2000, 18, 64, 100, True, 41,
+                                            card)
+        assert segment_reduce.geometry(64 * 100, 18)[3] == 128
+        plan = ops.segment_plan(ids.reshape(-1), 2000, keep_index=False)
+        d_t, d_w = embedding_bag.embedding_bag_grad_cuda(
+            table, ids, w, g, plan.order, plan.keys, plan.offsets)
+        terms = (w[..., None] * g[:, None, :]).reshape(64 * 100, 18)
+        bits = segment_reduce.segment_reduce_cuda(terms, plan.order,
+                                                  plan.keys, plan.offsets,
+                                                  "sum")
+        torch.cuda.synchronize()
+    finally:
+        segment_reduce.geometry.cache_clear()
+    assert torch.equal(d_t.view(torch.int32), bits.view(torch.int32))
+    want_t, lim_t, want_w, lim_w = _bag_grad_limits(table, ids, w, g)
+    _within(d_t, want_t, lim_t)
+    _within(d_w, want_w, lim_w)
+
+
 def test_bag_grad_reads_ids_as_the_forward(card):
     table, ids, w, g = _bag_grad_inputs(40, 18, 4, 6, False, 3, card)
     ids[0, 2], ids[1, 0], ids[2, 5] = -1, 40, -41     # row 39, bad, bad
