@@ -285,7 +285,30 @@ drives the port's main path, in phases:
    and the later levels. Last, ``python -m
    repro_torch.launch.train --arch din`` on the card (30 smoke steps,
    int8 gradient compression, a failure injected at step 15): its loss
-   must improve.
+   must improve;
+17. dense LM training through ``LMArch.build_step("train_4k")``: gemma-2b
+   at full width and depth (18 layers, 2,506,172,416 random bf16
+   parameters) and full sequence 4,096, cut in batch only (``LM_TRAIN_ACCUM``
+   micro-batches of ``LM_TRAIN_MICRO`` sequences, each layer recomputed in
+   the backward), ``LM_TRAIN_STEPS`` AdamW steps on one ``TokenStream``
+   batch (the reference's AdamW, warm-up included): each loss finite, the
+   last below the first, K6's forward
+   twice a layer and micro-batch and its backward
+   (``csrc/flash_attention_bwd.cu``) once, the cut, ms a step beside
+   ``model_flops``/``model_bytes``' least time, peak memory and a profile
+   split into K6's forward and backward, GEMMs and the rest with the idle
+   share. A micro-batch's loss and gradients twice with the same bits, no
+   float scatter recorded. stablelm-1.6b (Dh 64) and qwen1.5-32b (Dh 128,
+   QKV bias) one step each at 2 layers and full width. At each of the
+   three shapes, layer 0's backward call is held against float64 plain
+   (``attention_bwd_plain``: dQ, dK and dV within (2 Dh (1 + sigma) + 2 N
+   + 16) 2^-24 of their sums of absolute terms plus the output's rounding)
+   and must refuse a causal limit one key late, dK and dV without each key
+   tile's first row tile, dQ without each row tile's last key tile and
+   (gemma) dK and dV from one query head of the group; a second launch
+   repeats its bits, and K6's output has the same bits with the logsumexp
+   asked for and without. gemma-2b's backward timed beside its bound, the
+   plain version's and ``F.scaled_dot_product_attention``'s backward.
 
 The launch counts of each path are zeroed just before it and read just
 after. Any failed phase exits non-zero; without a card, or without the
@@ -408,7 +431,10 @@ REPLACES = {"ell_spmm": "src/repro/kernels/ell_spmv.py:141",
     # XLA's autodiff of DIN's jnp.take and einsum pooling (the function
     # K5 computes forward): no Pallas backward
     "embedding_bag_grad_table": "src/repro/models/recsys/din.py:80",
-    "embedding_bag_grad_weights": "src/repro/models/recsys/din.py:80"}
+    "embedding_bag_grad_weights": "src/repro/models/recsys/din.py:80",
+    # XLA's autodiff of the plain flash_attention_jnp that the JAX train
+    # step differentiates: no Pallas backward
+    "flash_attention_bwd": "src/repro/models/common.py:87"}
 SOURCES = {"ell_spmm": "src/repro_torch/kernels/csrc/ell_spmm.cu",
            "ell_spmm_sliced":
                "src/repro_torch/kernels/csrc/ell_spmm_sliced.cu",
@@ -426,7 +452,9 @@ SOURCES = {"ell_spmm": "src/repro_torch/kernels/csrc/ell_spmm.cu",
            "embedding_bag_grad_table":
                "src/repro_torch/kernels/csrc/embedding_bag_grad.cu",
            "embedding_bag_grad_weights":
-               "src/repro_torch/kernels/csrc/embedding_bag_grad.cu"}
+               "src/repro_torch/kernels/csrc/embedding_bag_grad.cu",
+           "flash_attention_bwd":
+               "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"}
 # every TPU kernel of the JAX package has its counterpart
 NOT_PORTED: list[dict] = []
 # phase 14: the GNN family (configs/gcn_cora.py, pna_arch.py,
@@ -488,6 +516,16 @@ DIN_CLI = ("--arch", "din", "--preset", "smoke", "--steps", "30",
            "--compress-grads", "--fail-at", "15:0", "--ckpt-every", "10",
            "--log-every", "5")
 # phase 11: the serving daemon on the paper path (launch/serve.py)
+# phase 17: gemma-2b's train_4k at full width, depth and sequence, cut in
+# batch only: LM_TRAIN_ACCUM micro-batches of LM_TRAIN_MICRO sequences
+LM_TRAIN_SEQ = 4096
+LM_TRAIN_MICRO = 1
+LM_TRAIN_ACCUM = 2
+LM_TRAIN_STEPS = 4
+# one step each at full width, cut in depth: K6's backward at Dh 64 (MHA)
+# and Dh 128 (MHA with QKV bias)
+LM_TRAIN_FAMILY = (("stablelm-1.6b", 2), ("qwen1.5-32b", 2))
+ATTN_BWD_REPS = 5
 TUNE_PAD_MULTIPLES = (8, 16, 32)
 TUNE_B = 8
 TUNE_REPEATS = 20
@@ -853,6 +891,108 @@ def attention_limit(q, k, want, mag):
     ``mag = sum_j p_j |v_j|`` (the plain version run on |v|)."""
     return ATTN_RTOL[str(q.dtype)] * want.abs() \
         + (k.shape[1] + k.shape[3] + 8) * 2.0**-24 * mag
+
+
+def attention_bwd_plain(q, k, v, o, dout, causal: bool, q_offset: int,
+                        broken: bool = True) -> dict:
+    """K6's backward at these inputs in float64: ``want`` (dQ, dK, dV) from
+    ``ref.flash_attention_bwd_ref``; each output's limit (``limits``, in
+    that order): the output rounded to q's type (ATTN_RTOL of |want|) plus
+    (2 Dh (1 + sigma) + 2 N + 16) 2^-24 of its sum of absolute terms,
+    N = max(Skv, Sq Hq / Hkv) the longest sum, sigma the largest scaled
+    sum_d |q| |k| of a visible pair (a score's float32 error is Dh 2^-24
+    of it, and P's relative error the score's); the absolute terms are
+    sum_r |P| |dO| (dV), and, with T = sum_d |dO| |V| + sum_d |dO| |O| (the
+    terms of dO V^T and D), sum_r |P| T |Q| / sqrt(Dh) (dK) and sum_j |P|
+    T |K| / sqrt(Dh) (dQ). With ``broken``, also the outputs of broken
+    backwards (``broken``: label -> (output index, tensor)): the causal
+    limit one key late (each row sees one more key), dK and dV without
+    the first tile of 32 folded rows each key tile sees, dQ without the
+    last key tile each tile of 32 folded rows sees, and (groups above 1)
+    dK and dV from each group's first query head only."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    f = torch.float64
+    q64, k64, v64, o64, g64 = (t.to(f) for t in (q, k, v, o, dout))
+    want = ref.flash_attention_bwd_ref(q64, k64, v64, o64, g64,
+                                       causal=causal, q_offset=q_offset)
+    B, Sq, Hq, Dh = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    scale = 1.0 / math.sqrt(Dh)
+    dev = q.device
+    kr = k64.repeat_interleave(group, dim=2)
+    vr = v64.repeat_interleave(group, dim=2)
+    qi = torch.arange(Sq, device=dev)
+    kj = torch.arange(Skv, device=dev)
+    seen = (qi[:, None] + q_offset >= kj[None, :]) if causal else \
+        torch.ones((Sq, Skv), dtype=torch.bool, device=dev)
+
+    def probs(seen):
+        s = torch.einsum("bqhd,bkhd->bhqk", q64, kr) * scale
+        s = torch.where(seen, s, torch.tensor(-1e30, dtype=f, device=dev))
+        lse = torch.logsumexp(s, -1, keepdim=True)
+        return torch.where(seen, torch.exp(s - lse),
+                           torch.zeros((), dtype=f, device=dev))
+
+    p = probs(seen)
+    sigma = float((torch.einsum("bqhd,bkhd->bhqk", q64.abs(), kr.abs())
+                   * scale).masked_fill(~seen, 0).max())
+    terms = torch.einsum("bqhd,bkhd->bhqk", g64.abs(), vr.abs()) \
+        + (g64.abs() * o64.abs()).sum(-1).transpose(1, 2)[..., None]
+    pt = p * terms
+    del terms
+
+    def fold(x):                    # (B, Skv, Hq, Dh) -> (B, Skv, Hkv, Dh)
+        return x.reshape(B, Skv, Hkv, group, Dh).sum(3)
+
+    mags = (torch.einsum("bhqk,bkhd->bqhd", pt, kr.abs()) * scale,
+            fold(torch.einsum("bhqk,bqhd->bkhd", pt, q64.abs())) * scale,
+            fold(torch.einsum("bhqk,bqhd->bkhd", p, g64.abs())))
+    del pt
+    n = max(Skv, Sq * group)
+    eps = (2 * Dh * (1 + sigma) + 2 * n + 16) * 2.0**-24
+    rtol = ATTN_RTOL[str(q.dtype)]
+    out = {"want": want, "sigma": sigma,
+           "limits": tuple(rtol * w.abs() + eps * m
+                           for w, m in zip(want, mags))}
+    if not broken:
+        return out
+    bad = {}
+    late = ref.flash_attention_bwd_ref(q64, k64, v64, o64, g64,
+                                       causal=causal, q_offset=q_offset + 1)
+    for i, name in enumerate(("dQ", "dK", "dV")):
+        bad[f"{name} with the causal limit one key late"] = (i, late[i])
+    del late
+    dsum = (g64 * o64).sum(-1).transpose(1, 2)[..., None]
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", g64, vr) - dsum)
+    # folded row of (query i, head h): i group + h % group
+    rho = qi[None, :] * group + (torch.arange(Hq, device=dev)
+                                 % group)[:, None]           # (Hq, Sq)
+    first = (kj // 32 * 32 - q_offset).clamp(min=0) * group  # (Skv,)
+    keep = ~((rho[:, :, None] >= first) & (rho[:, :, None] < first + 32))
+    bad["dK without each key tile's first row tile"] = (1, fold(torch.einsum(
+        "bhqk,bqhd->bkhd", ds * keep, q64)) * scale)
+    bad["dV without each key tile's first row tile"] = (2, fold(torch.einsum(
+        "bhqk,bqhd->bkhd", p * keep, g64)))
+    del keep
+    last_row = (rho // 32 * 32 + 31).clamp(max=Sq * group - 1)
+    end = (q_offset + last_row // group + 1).clamp(max=Skv) if causal \
+        else torch.full_like(last_row, Skv)
+    tail = kj[None, None, :] >= ((end - 1) // 32 * 32)[:, :, None]
+    bad["dQ without each row tile's last key tile"] = (0, torch.einsum(
+        "bhqk,bkhd->bqhd", ds * ~tail, kr) * scale)
+    del tail
+    if group > 1:
+        lead = (torch.arange(Hq, device=dev) % group == 0)[:, None, None]
+        bad["dK from each group's first query head only"] = (1, fold(
+            torch.einsum("bhqk,bqhd->bkhd", ds * lead, q64)) * scale)
+        bad["dV from each group's first query head only"] = (2, fold(
+            torch.einsum("bhqk,bqhd->bkhd", p * lead, g64)))
+    out["broken"] = bad
+    return out
 
 
 def plain_slices(q, k, v, causal: bool, q_offset: int):
@@ -5230,6 +5370,456 @@ def phase16_din_train(dev, gen, card: str) -> tuple[list[dict], int, int]:
     return out, int(launches["embedding_bag"]), int(launches["segment_reduce"])
 
 
+# ---------------------------------------------------------------------------
+# phase 17: dense LM training
+
+
+def attention_bwd_cost(B: int, Sq: int, Hq: int, Hkv: int, Dh: int,
+                       Skv: int, q_offset: int, elem: int
+                       ) -> tuple[float, str]:
+    """Least time (ms) for one call of K6's backward: its five products
+    (S, dO V^T, dV, dK, dQ; 10 Dh flops a visible pair) at the bf16
+    tensor-core peak (the float32 peak outside the tensor cores for
+    float32); q, k, v, o, dO and the logsumexp read once, dQ, dK and dV
+    written once."""
+    rows = np.arange(Sq) + q_offset
+    pairs = int(np.minimum(rows + 1, Skv).sum())
+    flops = 10.0 * Dh * B * Hq * pairs
+    nbytes = elem * Dh * (4 * B * Sq * Hq + 4 * B * Skv * Hkv) \
+        + 4 * B * Sq * Hq
+    peak = BF16_FLOPS_PER_S if elem == 2 else F32_FLOPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else \
+        "operations"
+
+
+@contextmanager
+def recorded_attention_bwd():
+    """While open, the arguments of the last call ``ops`` makes to K6's
+    backward wrapper (a train step's layer 0, whose backward runs last)
+    are kept, cloned, in the dict it yields under "call"; the calls
+    still run."""
+    from repro_torch.kernels import ops
+
+    seen: dict = {"call": None, "calls": 0}
+    kept = ops.flash_attention_bwd_cuda
+
+    def backward(*args, **kwargs):
+        seen["call"] = ([a.detach().clone() for a in args], dict(kwargs))
+        seen["calls"] += 1
+        return kept(*args, **kwargs)
+
+    ops.flash_attention_bwd_cuda = backward
+    try:
+        yield seen
+    finally:
+        ops.flash_attention_bwd_cuda = kept
+
+
+def attention_bwd_check(label: str, call, stats: dict) -> None:
+    """K6's backward at a recorded call of the path against its float64
+    plain version (``attention_bwd_plain``, a slice of KV heads at a time
+    so that each slice's float64 scores stay under 1 GB): every output
+    within its limit, each broken version refused, a second launch with
+    the same bits; and K6's forward at the call's q, k, v with the same
+    output bits with the logsumexp asked for and without (the train
+    step's output too)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention, flash_attention_bwd
+
+    (q, k, v, o, lse, dout), kw = call
+    causal, off = kw.get("causal", True), kw.get("q_offset", 0)
+    got = flash_attention_bwd.flash_attention_bwd_cuda(
+        q, k, v, o, lse, dout, causal=causal, q_offset=off)
+    again = flash_attention_bwd.flash_attention_bwd_cuda(
+        q, k, v, o, lse, dout, causal=causal, q_offset=off)
+    served = flash_attention.flash_attention_cuda(q, k, v, causal=causal,
+                                                  q_offset=off)
+    trained, lse2 = flash_attention.flash_attention_cuda(
+        q, k, v, causal=causal, q_offset=off, return_lse=True)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    lse_same = bool(torch.equal(served, trained)) and \
+        bool(torch.equal(trained, o)) and bool(torch.equal(lse2, lse))
+    B, Sq, Hq, Dh = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    step = max(1, min(Hkv, (1 << 30) // (B * group * Sq * Skv * 8)))
+    ratios, errs, sigma = [0.0] * 3, [0.0] * 3, 0.0
+    refused: dict[str, float] = {}
+    for h0 in range(0, Hkv, step):
+        h1 = min(Hkv, h0 + step)
+        qh = slice(h0 * group, h1 * group)
+        plain = attention_bwd_plain(
+            q[:, :, qh], k[:, :, h0:h1], v[:, :, h0:h1], o[:, :, qh],
+            dout[:, :, qh], causal, off)
+        sigma = max(sigma, plain["sigma"])
+        mine = (got[0][:, :, qh], got[1][:, :, h0:h1], got[2][:, :, h0:h1])
+        for i in range(3):
+            e, r = limit_ratio(mine[i], plain["want"][i], plain["limits"][i])
+            errs[i], ratios[i] = max(errs[i], e), max(ratios[i], r)
+        for name, (i, bad) in plain["broken"].items():
+            refused[name] = max(refused.get(name, 0.0), limit_ratio(
+                bad, plain["want"][i], plain["limits"][i])[1])
+        del plain
+    torch.cuda.empty_cache()
+    stats["max_abs_err"] = max(stats["max_abs_err"], *errs)
+    for i, name in enumerate(("dQ", "dK", "dV")):
+        print(f"  flash_attention_bwd {label} {name}: max_abs_err="
+              f"{errs[i]:.3e} err/limit={ratios[i]:.4f} "
+              f"{'ok' if ratios[i] <= 1 else 'FAIL'} (sigma {sigma:.2f})")
+        check(ratios[i] <= 1.0, f"K6's backward {label}: {name} above its "
+              f"limit (ratio {ratios[i]})")
+    for name, r in refused.items():
+        print(f"  flash_attention_bwd {'broken: ' + name:58s} err/limit="
+              f"{r:.4g} {'refused' if r > 1 else 'PASSED'}")
+        check(r > 1.0, f"K6's backward: the check passes a broken backward "
+              f"({name})")
+    print(f"  flash_attention_bwd {label}: a second launch gives the same "
+          f"bits: {same}; K6's output with the logsumexp = without = the "
+          f"step's: {lse_same}")
+    check(same, f"K6's backward {label}: a second launch gave other bits")
+    check(lse_same, f"K6 {label}: asking for the logsumexp changed the "
+          f"output's bits")
+
+
+def attention_bwd_times(label: str, call, card: str):
+    """K6's backward at a recorded call of the path by CUDA events (L2
+    warm; back-to-back calls of milliseconds each): the whole call and
+    each kernel, beside its bound, the plain version's (float32) and
+    ``F.scaled_dot_product_attention``'s backward on the same inputs.
+    Returns (ms, plain_ms, bound, bound_by, sdpa_ms, {kernel: ms})."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention_bwd, ref
+
+    (q, k, v, o, lse, dout), kw = call
+    off = kw.get("q_offset", 0)
+    bwd = flash_attention_bwd.flash_attention_bwd_cuda
+    ms = events_ms(lambda: bwd(q, k, v, o, lse, dout, q_offset=off),
+                   ATTN_BWD_REPS)
+    dsum = torch.empty(lse.shape, dtype=torch.float32, device=q.device)
+    bwd(q, k, v, o, lse, dout, q_offset=off, kernels=("dot",), dsum=dsum)
+    split = {name: events_ms(lambda name=name: bwd(
+        q, k, v, o, lse, dout, q_offset=off, kernels=(name,), dsum=dsum),
+        ATTN_BWD_REPS) for name in flash_attention_bwd.KERNELS}
+    plain_ms = events_ms(lambda: ref.flash_attention_bwd_ref(
+        q, k, v, o, dout, q_offset=off), 2)
+    qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_(True)
+                  for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                         enable_gqa=q.shape[2] != k.shape[2])
+    gt = dout.transpose(1, 2)
+    lib_ms = events_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), gt, retain_graph=True), ATTN_BWD_REPS)
+    del out, qt, kt, vt
+    B, Sq, Hq, Dh = q.shape
+    bound, by = attention_bwd_cost(B, Sq, Hq, k.shape[2], Dh, k.shape[1], off,
+                                   q.element_size())
+    way = flash_attention_bwd.route(q.dtype, Dh)
+    print(f"  flash_attention_bwd {label} B={B} S={Sq} Hq={Hq} Hkv="
+          f"{k.shape[2]} Dh={Dh} route {way}: kernels {ms:.3f} ms by events ("
+          + ", ".join(f"{n} {t:.3f}" for n, t in split.items())
+          + f")  bound {bound:.3f} ms ({by})  plain f32 {plain_ms:.3f} ms  "
+          f"sdpa backward {lib_ms:.3f} ms  [{card}]")
+    return ms, plain_ms, bound, by, lib_ms, split
+
+
+def lm_profile(label: str, fn) -> dict[str, float] | None:
+    """Where one LM train step spends the card's time, under
+    ``torch.profiler``: K6's forward and backward by kernel name, GEMMs by
+    the op that launched each kernel, the rest (the loss, norms, RoPE,
+    activations, the embedding's fold, AdamW); and the share of the wall
+    time the card was idle. None where every window lost its device
+    events."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    named = {"K6 forward": ("flash_mma", "flash_fwd", "flash_merge"),
+             "K6 backward": ("bwd_dot", "bwd_dkdv", "bwd_dq")}
+    for _ in range(PROFILE_TRIES):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        events = prof.events()
+        busy = 0.0
+        parts = dict.fromkeys(named, 0.0)
+        for e in events:
+            if e.device_type == DeviceType.CUDA and \
+                    not getattr(e, "is_user_annotation", False):
+                us = e.time_range.elapsed_us()
+                busy += us
+                for part, kernels in named.items():
+                    if any(k in e.name for k in kernels):
+                        parts[part] += us
+        if busy > 0:
+            break
+        print(f"  (profile {label} lost its device events; again)")
+    else:
+        print(f"  profile {label}: not measured (the profiler recorded no "
+              f"device time in {PROFILE_TRIES} windows)")
+        return None
+    ours = sum(named.values(), ())
+    parts["GEMMs"] = 0.0
+    for e in events:
+        if e.device_type != DeviceType.CPU or not e.kernels:
+            continue
+        chain, up = [], e
+        while up is not None:
+            chain.append(up.name)
+            up = up.cpu_parent
+        if any(n in GEMM_OPS for n in chain):
+            parts["GEMMs"] += sum(k.duration for k in e.kernels
+                                  if not any(s in k.name for s in ours))
+    parts["rest"] = busy - sum(parts.values())
+    print(f"  profile {label}: wall {wall_us / 1e3:.3f} ms, device busy "
+          f"{busy / 1e3:.3f} ms, idle share {1 - busy / wall_us:.3f}; "
+          + ", ".join(f"{name} {us / 1e3:.3f} ms ({us / max(busy, 1e-9):.3f})"
+                      for name, us in parts.items()))
+    return {**{k: v / 1e3 for k, v in parts.items()},
+            "idle_share": 1 - busy / wall_us}
+
+
+def lm_train_launches(cfg, accum: int) -> dict[str, int]:
+    """K6's forward and backward launches a train step of ``accum``
+    micro-batches: each layer's forward twice with remat (the step's and
+    the backward's recompute), once without, and its backward once, three
+    kernels a call on the route ``flash_attention_bwd.route`` picks."""
+    from repro_torch.kernels import flash_attention_bwd
+
+    fwd = (2 if cfg.remat else 1) * cfg.n_layers * accum
+    calls = cfg.n_layers * accum
+    way = flash_attention_bwd.route(cfg.torch_dtype(), cfg.head_dim)
+    return {"flash_attention": fwd, "flash_attention_bwd": calls,
+            "flash_attention_bwd_dot": calls,
+            "flash_attention_bwd_dkdv": calls,
+            "flash_attention_bwd_dq": calls,
+            "flash_attention_bwd_mma": calls * (way == "mma"),
+            "flash_attention_bwd_simt": calls * (way == "simt")}
+
+
+def lm_launch_counts() -> dict[str, int]:
+    from repro_torch.kernels import flash_attention, flash_attention_bwd
+
+    return {"flash_attention": flash_attention.LAUNCHES["flash_attention"],
+            **flash_attention_bwd.LAUNCHES}
+
+
+def lm_reset_launches() -> None:
+    from repro_torch.kernels import flash_attention, flash_attention_bwd
+
+    flash_attention.reset_launches()
+    flash_attention_bwd.reset_launches()
+
+
+def lm_grads_repeat(params, cfg, batch) -> tuple[bool, list[str]]:
+    """One micro-batch's loss and gradients twice from the same
+    parameters: (the same bits, the float scatters a recorder saw in the
+    first)."""
+    import torch
+
+    from repro_torch.models import transformer
+
+    recorder = float_scatter_recorder()
+    with recorder:
+        loss, grads = transformer.value_and_grad(params, cfg, batch["tokens"],
+                                                 batch["labels"])
+    loss2, grads2 = transformer.value_and_grad(params, cfg, batch["tokens"],
+                                               batch["labels"])
+    torch.cuda.synchronize()
+    same = bool(torch.equal(loss, loss2)) and all(
+        torch.equal(a, b) for a, b in zip(grads, grads2))
+    return same, sorted(set(recorder.seen))
+
+
+def lm_family_train(arch_id: str, layers: int, dev, gen, card: str,
+                    stats: dict) -> dict[str, int]:
+    """One train step of ``arch_id`` at full width cut to ``layers``
+    layers, on one sequence of LM_TRAIN_SEQ tokens: a finite loss,
+    parameters that moved, the launches of its structure, the gradients'
+    bits repeating with no float scatter, and layer 0's backward against
+    float64 plain. Returns the step's launches."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import LMArch
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    base = get_arch(arch_id)
+    cfg = dataclasses.replace(base.cfg, n_layers=layers)
+    arch = LMArch(arch_id, cfg, base.smoke_cfg)
+    t0 = time.perf_counter()
+    params = arch.init_params(gen, dev)
+    batch = arch.make_inputs("train_4k", gen, dev, batch=1,
+                             seq=LM_TRAIN_SEQ, seed=1)
+    same, scatters = lm_grads_repeat(params, cfg, batch)
+    start = [p.detach().clone() for p in tree_leaves(params)[:2]]
+    state = adamw_init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    lm_reset_launches()
+    with recorded_attention_bwd() as seen:
+        params, state, loss = arch.build_step("train_4k")(params, state,
+                                                          batch)
+        torch.cuda.synchronize()
+    launches = lm_launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    moved = any(bool((a != b).any())
+                for a, b in zip(start, tree_leaves(params)[:2]))
+    print(f"  {arch_id} ({layers} of {base.cfg.n_layers} layers, d "
+          f"{cfg.d_model}, {cfg.n_heads} heads on {cfg.n_kv_heads}, Dh "
+          f"{cfg.head_dim}, vocab {cfg.vocab}, qkv_bias {cfg.qkv_bias}): one "
+          f"step of 1 x {LM_TRAIN_SEQ} tokens, loss {float(loss):.6f}, "
+          f"parameters moved {moved}, peak {peak / 1e9:.2f} GB; gradients "
+          f"repeat their bits: {same}; float scatters {scatters}; launches "
+          f"{launches}; {time.perf_counter() - t0:.1f}s  [{card}]")
+    check(bool(torch.isfinite(loss)) and moved, f"{arch_id}: the train step "
+          f"gave a non-finite loss or moved nothing")
+    check(same, f"{arch_id}: a second run of the step's gradients gave "
+          f"other bits")
+    check(not scatters, f"{arch_id}: float scatters ran in the train step: "
+          f"{scatters}")
+    check(launches == lm_train_launches(cfg, 1), f"{arch_id}: launches "
+          f"{launches}, its structure gives {lm_train_launches(cfg, 1)}")
+    call = seen["call"]
+    del params, state, start, batch
+    torch.cuda.empty_cache()
+    attention_bwd_check(f"{arch_id} layer 0", call, stats)
+    return launches
+
+
+def phase17_lm_train(dev, gen, card: str) -> tuple[dict, int]:
+    """Dense LM training on the card: gemma-2b's train_4k at full width and
+    depth and full sequence, cut in batch only (LM_TRAIN_ACCUM
+    micro-batches of LM_TRAIN_MICRO sequences, each layer recomputed in
+    the backward), through K6 and its backward; stablelm-1.6b and
+    qwen1.5-32b one step each at 2 layers; K6's backward against float64
+    plain at each shape. Returns the backward's row of the ``kernels``
+    line and K6's forward launches in the phase's train steps."""
+    import torch
+
+    from repro_torch.configs import LM_SHAPES, get_arch
+    from repro_torch.configs.base import LMArch
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    print(f"phase 17: dense LM training (the loss, K6's backward, AdamW), "
+          f"card {card}")
+    t_phase = time.perf_counter()
+    base = get_arch("gemma-2b")
+    cfg = base.cfg
+    B = LM_TRAIN_MICRO * LM_TRAIN_ACCUM
+    # the reference's AdamW (lr 3e-4 after a linear warm-up of 100 steps):
+    # without the warm-up, Adam's first sign-sized steps overshoot on one
+    # batch at lr 3e-5 already (12.73, 9.97, 11.96, 10.91)
+    arch = LMArch("gemma-2b", cfg, base.smoke_cfg, opt=AdamWConfig(),
+                  grad_accum=LM_TRAIN_ACCUM)
+    shape = LM_SHAPES["train_4k"]
+    print(f"  cut: train_4k B={shape['batch']} S={shape['seq']} -> B={B} "
+          f"S={LM_TRAIN_SEQ} ({LM_TRAIN_ACCUM} micro-batches of "
+          f"{LM_TRAIN_MICRO}, each layer recomputed in the backward); width "
+          f"and depth as published; AdamW lr {arch.opt.lr} after a warm-up of "
+          f"{arch.opt.warmup_steps} steps, {LM_TRAIN_STEPS} steps on one "
+          f"TokenStream batch")
+    t0 = time.perf_counter()
+    params = arch.init_params(gen, dev)
+    n_params = sum(t.numel() for t in params.parameters())
+    check(n_params == cfg.param_count == GEMMA_PARAMS,
+          f"gemma-2b has {n_params} parameters, config {cfg.param_count}")
+    # one batch for every step: its loss must fall (fresh batches of
+    # random tokens move it by more than a few small steps do)
+    batches = [arch.make_inputs("train_4k", gen, dev, batch=B,
+                                seq=LM_TRAIN_SEQ, seed=0)] * LM_TRAIN_STEPS
+    print(f"  init: {n_params} parameters ({n_params * 2 / 1e9:.2f} GB bf16)"
+          f", {time.perf_counter() - t0:.2f}s")
+    micro = {k: v[:LM_TRAIN_MICRO] for k, v in batches[0].items()}
+    same, scatters = lm_grads_repeat(params, cfg, micro)
+    print(f"  one micro-batch's loss and gradients twice: same bits {same}; "
+          f"float scatters {scatters}")
+    check(same, "gemma-2b: a second run of the gradients gave other bits")
+    check(not scatters, f"gemma-2b: float scatters ran in the train step: "
+          f"{scatters}")
+    del micro
+
+    # the main path: LM_TRAIN_STEPS train steps
+    step = arch.build_step("train_4k")
+    state = adamw_init(params)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    losses, times = [], []
+    lm_reset_launches()
+    with recorded_attention_bwd() as seen:
+        for batch in batches:
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            params, state, loss = step(params, state, batch)
+            stop.record()
+            losses.append(loss)
+            times.append((start, stop))
+        torch.cuda.synchronize()
+    launches = lm_launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = [float(x) for x in losses]
+    ms = [a.elapsed_time(b) for a, b in times]
+    per_step = {k: v / LM_TRAIN_STEPS for k, v in launches.items()}
+    want = lm_train_launches(cfg, LM_TRAIN_ACCUM)
+    flops = arch.model_flops("train_4k", batch=B, seq=LM_TRAIN_SEQ)
+    nbytes = arch.model_bytes("train_4k", batch=B, seq=LM_TRAIN_SEQ)
+    least = max(flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+    steady = ms[1:]
+    mean_ms = sum(steady) / len(steady)
+    print(f"  {LM_TRAIN_STEPS} train steps: losses {losses}; ms a step "
+          f"{[round(x, 3) for x in ms]} (mean of steps 2-{LM_TRAIN_STEPS} "
+          f"{mean_ms:.3f} ms, {B * LM_TRAIN_SEQ / mean_ms * 1e3:.1f} tokens/s)"
+          f"; least {least:.3f} ms ({flops:.4e} flops at 989 TFLOP/s bf16, "
+          f"{nbytes:.4e} bytes at 3.35 TB/s; {least / mean_ms:.4f} of it); "
+          f"peak {peak / 1e9:.2f} GB ({(peak - held) / 1e9:.2f} GB above the "
+          f"{held / 1e9:.2f} GB held before); launches a step {per_step}  "
+          f"[{card}]")
+    check(all(math.isfinite(x) for x in losses), "gemma-2b: a non-finite "
+          "loss")
+    check(losses[-1] < losses[0], f"gemma-2b: the loss did not fall over "
+          f"the steps ({losses})")
+    check(per_step == {k: float(v) for k, v in want.items()},
+          f"gemma-2b: launches a step {per_step}, its structure gives {want}")
+    lm_profile("gemma-2b train_4k step", lambda: step(params, state,
+                                                      batches[-1]))
+    call = seen["call"]
+    del params, state, batches, batch, loss
+    torch.cuda.empty_cache()
+
+    stats = {"max_abs_err": 0.0}
+    attention_bwd_check("gemma-2b layer 0", call, stats)
+    ms_bwd, plain_ms, bound, by, lib_ms, split = attention_bwd_times(
+        "gemma-2b layer 0", call, card)
+    total = launches["flash_attention_bwd"]
+    fwd_launches = launches["flash_attention"]
+    del call
+    torch.cuda.empty_cache()
+    for arch_id, layers in LM_TRAIN_FAMILY:
+        got = lm_family_train(arch_id, layers, dev, gen, card, stats)
+        total += got["flash_attention_bwd"]
+        fwd_launches += got["flash_attention"]
+        torch.cuda.empty_cache()
+    print(f"  phase 17 wall {time.perf_counter() - t_phase:.1f}s")
+    return {"name": "flash_attention_bwd", "launches": total,
+            "max_abs_err": stats["max_abs_err"], "ms": ms_bwd,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": lib_ms, "ms_by_kernel": split}, fwd_launches
+
+
 def main() -> int:
     # the port must not need JAX or the JAX package
     sys.modules["jax"] = None
@@ -6218,6 +6808,9 @@ def main() -> int:
     bag_grad_rows, din_bag, din_segment = phase16_din_train(dev, gen, card)
     k5["launches"] += din_bag
     segment_row["launches"] += din_segment
+    torch.cuda.empty_cache()
+    bwd_row, lm_fwd = phase17_lm_train(dev, gen, card)
+    k6["launches"] += lm_fwd
     # the fold's launches on every path that drove it (counts zeroed before
     # each, read after)
     fold_row["launches"] = sum(FOLD_LAUNCHES.values())
@@ -6234,7 +6827,8 @@ def main() -> int:
             "max_abs_err": stats[name]["max_abs_err"], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
             "library_ms": lib_ms})
-    for row in (k6, k5, fold_row, segment_row, grad_row, *bag_grad_rows):
+    for row in (k6, k5, fold_row, segment_row, grad_row, *bag_grad_rows,
+                bwd_row):
         summary.append({"name": row["name"], "route": "cuda",
                         "source": SOURCES[row["name"]],
                         "replaces": REPLACES[row["name"]],

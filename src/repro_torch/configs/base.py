@@ -18,8 +18,10 @@ of a serving kind (``prefill``, ``decode``, ``serve``, ``retrieval``):
 The GNN family's cells are of the train kind: ``GNNArch.build_step``
 returns the JAX package's train step (the loss's gradient under autograd,
 then AdamW), and ``GNNArch.forward_step`` its forward half; DIN's
-``train_batch`` cell the same through ``DINArch.build_step``. The LM train
-kind, meshes and partition specs come with later slices.
+``train_batch`` cell the same through ``DINArch.build_step``, and the
+dense LMs' ``train_4k`` through ``LMArch.build_step`` (with the
+reference's ``grad_accum`` micro-batches and per-layer remat). The MoE
+LMs' training, meshes and partition specs come with later slices.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..data import RecsysStream, minibatch_stream
+from ..data import RecsysStream, TokenStream, minibatch_stream
 from ..models import dimenet, gcn, graphcast, pna, transformer
 from ..models.gnn.common import GraphBatch, random_graph_batch
 from ..models.common import tree_leaves
@@ -41,9 +43,10 @@ from ..optim import AdamWConfig, adamw_update, global_norm
 from ..ppr.datasets import load
 from ..ppr.graph import Graph
 
-_TRAIN_LATER = ("LM training steps are not ported yet (queue 1, item 1b "
-                "of ROADMAP.md: a later slice of the port); the LMs' serving "
-                "kinds and the GNNs' and DIN's training are")
+_TRAIN_LATER = ("the MoE LMs' training is not ported yet (queue 1, item "
+                "1b-ii of ROADMAP.md: a later slice of the port, with the "
+                "backwards of the router, dispatch and combine); the dense "
+                "LMs', the GNNs' and DIN's training are")
 # the JAX package's attention key block (LMConfig.attn_block_kv), which its
 # prefill byte count re-reads the keys and values by
 _JAX_ATTN_BLOCK_KV = 1024
@@ -128,21 +131,72 @@ class LMArch(ArchDef):
     shapes = LM_SHAPES
 
     def __init__(self, arch_id: str, cfg: transformer.LMConfig,
-                 smoke_cfg: transformer.LMConfig):
+                 smoke_cfg: transformer.LMConfig,
+                 opt: AdamWConfig = AdamWConfig(), grad_accum: int = 1):
         self.arch_id = arch_id
         self.cfg = cfg
         self.smoke_cfg = smoke_cfg
+        self.opt = opt
+        # micro-batches a train step sums its gradients over, in order:
+        # peak activation memory divides by it (the reference's HBM-fit
+        # lever), for one gradient-sized accumulator
+        self.grad_accum = grad_accum
 
     def init_params(self, generator, device="cuda", smoke=False):
         return transformer.init(self.config(smoke), generator, device)
 
+    def _check_trainable(self) -> None:
+        if self.cfg.moe is not None:
+            raise NotImplementedError(f"{self.arch_id}: {_TRAIN_LATER}")
+
     def build_step(self, shape_id, *, smoke=False, **options):
+        """Serving kinds: prefill(params, batch) -> (last logits, cache),
+        decode(params, batch) -> (logits, cache). The train kind:
+        train_step(params, opt_state, batch) -> (params, opt_state, loss),
+        the JAX package's: ``grad_accum`` micro-batches of the batch's
+        tokens and labels (``transformer.value_and_grad`` each, each layer
+        recomputed in the backward where ``cfg.remat``), their gradients
+        and losses summed in order and divided by ``grad_accum``, then
+        :func:`~repro_torch.optim.adamw_update` with the arch's ``opt``,
+        which writes the new parameters and moments into the ones given.
+        The MoE LMs' train kind raises ``NotImplementedError`` (queue 1,
+        item 1b-ii)."""
         cfg = self.config(smoke)
         kind = self.kind(shape_id)
         if options:
             raise ValueError(f"no options for {kind}: {sorted(options)}")
         if kind == "train":
-            raise NotImplementedError(_TRAIN_LATER)
+            self._check_trainable()
+            opt, accum = self.opt, self.grad_accum
+            if accum < 1:
+                raise ValueError(f"grad_accum must be >= 1, got {accum}")
+
+            def train_step(params, opt_state, batch):
+                tokens, labels = batch["tokens"], batch["labels"]
+                B = tokens.shape[0]
+                if B % accum:
+                    raise ValueError(f"batch {B} is not a multiple of "
+                                     f"grad_accum {accum}")
+                mb = B // accum
+                loss, grads = transformer.value_and_grad(
+                    params, cfg, tokens[:mb], labels[:mb])
+                if accum > 1:
+                    total = torch.zeros((), dtype=torch.float32,
+                                        device=loss.device) + loss
+                    for i in range(1, accum):
+                        part = slice(i * mb, (i + 1) * mb)
+                        loss_i, grads_i = transformer.value_and_grad(
+                            params, cfg, tokens[part], labels[part])
+                        for g, g_i in zip(grads, grads_i):
+                            g.add_(g_i)
+                        total = total + loss_i
+                        del grads_i
+                    grads = tuple(g / accum for g in grads)
+                    loss = total / accum
+                params, opt_state, _ = adamw_update(opt, params, grads,
+                                                    opt_state)
+                return params, opt_state, loss
+            return train_step
         if kind == "prefill":
             def prefill(params, batch):
                 return transformer.prefill_step(params, cfg, batch["tokens"])
@@ -155,16 +209,25 @@ class LMArch(ArchDef):
         return decode
 
     def make_inputs(self, shape_id, generator, device="cuda", *, smoke=False,
-                    **cuts):
+                    seed: int | None = None, **cuts):
         """prefill: tokens (B, S). decode: one token (B, 1) against an
         S-long cache of random keys and values, written at the last slot
-        (``cache_len = S - 1``). Cuts: ``batch``, ``seq``."""
+        (``cache_len = S - 1``). train: tokens and labels (B, S), the first
+        batch of the JAX package's token stream (``TokenStream``: Zipf(1.2)
+        tokens with EOS sprinkled, labels the next token) of seed ``seed``
+        (None: drawn from ``generator``). Cuts: ``batch``, ``seq``."""
         s = _cut(self.shapes[shape_id], cuts, ("batch", "seq"))
         cfg = self.config(smoke)
         dev = resolve_device(device)
         B, S = s["batch"], s["seq"]
         if s["kind"] == "train":
-            raise NotImplementedError(_TRAIN_LATER)
+            if seed is None:
+                seed = int(torch.randint(0, 2**31 - 1, (1,),
+                                         generator=generator))
+            batch = next(iter(TokenStream(vocab=cfg.vocab, seq_len=S,
+                                          batch=B, seed=seed)))
+            return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                    for k, v in batch.items()}
         if s["kind"] == "prefill":
             return {"tokens": _randint(generator, cfg.vocab, (B, S), dev)}
         cache = transformer.make_kv_cache(cfg, B, S, device=dev)
@@ -176,25 +239,37 @@ class LMArch(ArchDef):
 
     def model_flops(self, shape_id, **cuts):
         s = _cut(self.shapes[shape_id], cuts, ("batch", "seq"))
-        if s["kind"] == "train":
-            raise NotImplementedError(_TRAIN_LATER)
         cfg = self.cfg
+        train = s["kind"] == "train"
+        if train:
+            self._check_trainable()
         tokens = s["batch"] * (s["seq"] if s["kind"] != "decode" else 1)
-        flops = 2.0 * cfg.flops_param_count * tokens
+        # 2 N a token forward; training 6 N (2 forward + 4 backward)
+        flops = (6.0 if train else 2.0) * cfg.flops_param_count * tokens
         if s["kind"] != "decode":
             # causal attention scores and values: 12 B S^2/2 H Dh a layer
+            # (x3 for training's backward)
             flops += (s["batch"] * s["seq"] ** 2 * cfg.n_heads * cfg.head_dim
-                      * 2 * cfg.n_layers)
+                      * 2 * cfg.n_layers) * (3.0 if train else 1.0)
         return flops
 
     def model_bytes(self, shape_id, **cuts):
         s = _cut(self.shapes[shape_id], cuts, ("batch", "seq"))
-        if s["kind"] == "train":
-            raise NotImplementedError(_TRAIN_LATER)
         cfg = self.cfg
         B, S, L = s["batch"], s["seq"], cfg.n_layers
         weights = 2.0 * cfg.param_count                 # bf16
         kv = L * B * S * cfg.n_kv_heads * cfg.head_dim * 2 * 2
+        if s["kind"] == "train":
+            self._check_trainable()
+            # weights read forward, again by the remat and the backward,
+            # bf16 gradients written and read, float32 moments read and
+            # written (20 bytes a parameter); the layers' checkpointed
+            # streams, the keys and values re-read a query block, and the
+            # logits thrice
+            act = B * S * cfg.d_model * 2.0
+            nq = -(-S // _JAX_ATTN_BLOCK_KV)
+            return (5 * weights + 20.0 * cfg.param_count + 15.0 * L * act
+                    + nq * kv + 3.0 * B * S * cfg.vocab * 2)
         if s["kind"] == "prefill":
             act = B * S * cfg.d_model * 2.0             # one activation
             nq = -(-S // _JAX_ATTN_BLOCK_KV)

@@ -30,6 +30,7 @@ SOURCES: dict[str, str] = {"ell_spmm": "ell_spmm.cu",
                            "ell_spmv": "ell_spmv.cu",
                            "walk_gather": "walk_gather.cu",
                            "flash_attention": "flash_attention.cu",
+                           "flash_attention_bwd": "flash_attention_bwd.cu",
                            "embedding_bag": "embedding_bag.cu",
                            "embedding_bag_grad": "embedding_bag_grad.cu",
                            "endpoint_fold": "endpoint_fold.cu",

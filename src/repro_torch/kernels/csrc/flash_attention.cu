@@ -54,6 +54,14 @@
 //    splits of a row in split order, with no atomics, so the bits repeat.
 //    With one split (the grid already fills the card) flash_fwd writes the
 //    output itself and there is no merge.
+//
+// Training asks for the float32 logsumexp of each row as well (``lse``,
+// (B, Sq, Hq), m + log l in the scaled units of the scores), which K6's
+// backward (csrc/flash_attention_bwd.cu) reads to form P = exp(S - lse)
+// again. Route A writes it from its running (m, l), route B from the
+// block's (m, l) or, with splits, from flash_merge's (M, L). Serving
+// passes a null pointer: nothing else changes, so the output's bits are
+// those of a call that asks for no logsumexp.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -135,7 +143,8 @@ template <typename T, int DH>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, T* __restrict__ out,
-          float* __restrict__ part, int Sq, int Skv, int Hq, int group,
+          float* __restrict__ part, float* __restrict__ lse, int Sq,
+          int Skv, int Hq, int group,
           int kv_total, int splits, Strides qst, Strides kst, Strides vst,
           int causal, int q_offset, float scale) {
   constexpr int BK = Tile<DH>::kKeys;
@@ -313,13 +322,15 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     }
     const int qi = rho / group;
     const int h = hkv * group + rho % group;
-    T* o = out + ((static_cast<long long>(b) * Sq + qi) * Hq + h) * DH;
+    const long long orow = (static_cast<long long>(b) * Sq + qi) * Hq + h;
+    T* o = out + orow * DH;
     const float inv = 1.0f / fmaxf(l[r], 1e-30f);
 #pragma unroll
     for (int i = 0; i < DPL; ++i) {
       const int d = lane + 32 * i;
       if (DH >= 32 || d < DH) store(o + d, acc[r][i] * inv);
     }
+    if (lse != nullptr && lane == 0) lse[orow] = m[r] + logf(l[r]);
   }
 }
 
@@ -332,8 +343,9 @@ constexpr int kMergeThreads = 256;
 
 template <typename T, int DH>
 __global__ void __launch_bounds__(kMergeThreads)
-flash_merge(const float* __restrict__ part, T* __restrict__ out, int B,
-            int Sq, int Hq, int Hkv, int group, int splits) {
+flash_merge(const float* __restrict__ part, T* __restrict__ out,
+            float* __restrict__ lse, int B, int Sq, int Hq, int Hkv,
+            int group, int splits) {
   extern __shared__ float w[];                  // [splits]
   __shared__ float red[kMergeThreads / 32];
   const int rows = Sq * group;
@@ -361,8 +373,10 @@ flash_merge(const float* __restrict__ part, T* __restrict__ out, int B,
   for (int s = 0; s < splits; ++s)
     L += part[n_part + s * per_split + row] * w[s];
   const float inv = 1.0f / fmaxf(L, 1e-30f);
-  T* o = out + ((static_cast<long long>(b) * Sq + rho / group) * Hq
-                + hkv * group + rho % group) * DH;
+  const long long orow = (static_cast<long long>(b) * Sq + rho / group) * Hq
+                         + hkv * group + rho % group;
+  T* o = out + orow * DH;
+  if (lse != nullptr && threadIdx.x == 0) lse[orow] = M + logf(L);
   const float* pa = part + 2 * n_part + row * DH;
   for (int d = threadIdx.x; d < DH; d += kMergeThreads) {
     float a = 0.0f;
@@ -465,8 +479,9 @@ __device__ __forceinline__ float quad_sum(float x) {
 template <int DH>
 __global__ void __launch_bounds__(kThreadsA, 2)
 flash_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-          const bf16* __restrict__ v, bf16* __restrict__ out, int Sq,
-          int Skv, int Hq, int Hkv, int B, int group, Strides qst,
+          const bf16* __restrict__ v, bf16* __restrict__ out,
+          float* __restrict__ lse, int Sq, int Skv, int Hq, int Hkv, int B,
+          int group, Strides qst,
           Strides kst, Strides vst, int causal, int q_offset, float scale) {
   constexpr int BN = TileA<DH>::kKeys;
   constexpr int P = TileA<DH>::kPitch;
@@ -651,8 +666,10 @@ flash_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int rho = row0 + wrow + g + 8 * r;
     if (rho >= rows) continue;
     const float inv = 1.0f / fmaxf(l[r], 1e-30f);
-    bf16* o = out + ((static_cast<long long>(b) * Sq + rho / group) * Hq
-                     + hkv * group + rho % group) * DH + 2 * t;
+    const long long orow = (static_cast<long long>(b) * Sq + rho / group)
+                           * Hq + hkv * group + rho % group;
+    bf16* o = out + orow * DH + 2 * t;
+    if (lse != nullptr && t == 0) lse[orow] = m[r] + logf(l[r]);
 #pragma unroll
     for (int i = 0; i < DT; ++i)
       *reinterpret_cast<__nv_bfloat162*>(o + i * 8) = __floats2bfloat162_rn(
@@ -670,6 +687,7 @@ struct Args {
   const void* v;
   void* out;
   float* part;
+  float* lse;
   int B, Sq, Skv, Hq, Hkv;
   Strides qst, kst, vst;
   int causal, q_offset;
@@ -698,14 +716,15 @@ int launch_split(const Args& a) {
   const dim3 grid(((rows + kRows - 1) / kRows) * a.splits, a.Hkv, a.B);
   flash_fwd<T, DH><<<grid, kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<T*>(a.out), a.part, a.Sq,
+      static_cast<const T*>(a.v), static_cast<T*>(a.out), a.part, a.lse,
+      a.Sq,
       a.Skv, a.Hq, group, a.kv_total, a.splits, a.qst, a.kst, a.vst,
       a.causal, a.q_offset, a.scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || a.splits == 1) return static_cast<int>(err);
   flash_merge<T, DH><<<a.B * a.Hkv * rows, kMergeThreads,
                        a.splits * sizeof(float), a.stream>>>(
-      a.part, static_cast<T*>(a.out), a.B, a.Sq, a.Hq, a.Hkv, group,
+      a.part, static_cast<T*>(a.out), a.lse, a.B, a.Sq, a.Hq, a.Hkv, group,
       a.splits);
   return static_cast<int>(cudaGetLastError());
 }
@@ -719,8 +738,9 @@ int launch_mma(const Args& a) {
   const int row_tiles = (a.Sq * group + kRowsA - 1) / kRowsA;
   flash_mma<DH><<<row_tiles * a.Hkv * a.B, kThreadsA, smem, a.stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<bf16*>(a.out), a.Sq, a.Skv,
-      a.Hq, a.Hkv, a.B, group, a.qst, a.kst, a.vst, a.causal, a.q_offset,
+      static_cast<const bf16*>(a.v), static_cast<bf16*>(a.out), a.lse, a.Sq,
+      a.Skv, a.Hq, a.Hkv, a.B, group, a.qst, a.kst, a.vst, a.causal,
+      a.q_offset,
       a.scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -757,7 +777,8 @@ extern "C" {
 // q, k and v; the last axis of each is contiguous. route 0: flash_fwd over
 // ``splits`` key ranges of [0, kv_total) (with splits > 1, ``scratch``
 // holds splits * B * Hkv * Sq * (Hq / Hkv) * (Dh + 2) floats, and
-// flash_merge follows); route 1: flash_mma (bfloat16 only). Returns a
+// flash_merge follows); route 1: flash_mma (bfloat16 only). ``lse``: null,
+// or B * Sq * Hq floats that receive each row's logsumexp. Returns a
 // cudaError_t.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* out, int dtype, int B, int Sq, int Skv,
@@ -766,8 +787,10 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
                            long long k_ss, long long k_sh, long long v_sb,
                            long long v_ss, long long v_sh, int causal,
                            int q_offset, float scale, int route, int splits,
-                           int kv_total, void* scratch, void* stream) {
-  const Args a{q, k, v, out, static_cast<float*>(scratch), B, Sq, Skv, Hq,
+                           int kv_total, void* scratch, void* lse,
+                           void* stream) {
+  const Args a{q, k, v, out, static_cast<float*>(scratch),
+               static_cast<float*>(lse), B, Sq, Skv, Hq,
                Hkv, Strides{q_sb, q_ss, q_sh}, Strides{k_sb, k_ss, k_sh},
                Strides{v_sb, v_ss, v_sh}, causal, q_offset, scale, splits,
                kv_total, static_cast<cudaStream_t>(stream)};

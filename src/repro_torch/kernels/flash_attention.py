@@ -53,7 +53,8 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "flash_attention_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                 _L, _L, _L, _L, _L, _L, _L, _L, _L,
-                                _I, _I, ctypes.c_float, _I, _I, _I, _P, _P],
+                                _I, _I, ctypes.c_float, _I, _I, _I, _P, _P,
+                                _P],
                                _I),
     "flash_attention_error_string": ([_I], ctypes.c_char_p),
 }
@@ -114,8 +115,9 @@ def split_bounds(kv_end: int, splits: int) -> list[tuple[int, int]]:
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True,
-                         q_offset: int = 0) -> torch.Tensor:
+                         *, causal: bool = True, q_offset: int = 0,
+                         return_lse: bool = False
+                         ) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
     """K6: attention of q (B, Sq, Hq, Dh) over k, v (B, Skv, Hkv, Dh) on
     the card, Hq a multiple of Hkv, Dh in :data:`HEAD_DIMS`, all three
     float32 or all bfloat16 with the last axis contiguous (and q, k, v rows
@@ -123,7 +125,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the global position of query row 0 for the causal mask (the cache
     length at decode), a run-time value. The route follows :func:`route`;
     route B's split count :func:`split_plan` with the card's SM count.
-    Returns (B, Sq, Hq, Dh) in q's dtype, contiguous."""
+    Returns (B, Sq, Hq, Dh) in q's dtype, contiguous; with ``return_lse``
+    also each row's float32 logsumexp (B, Sq, Hq) of the scaled scores,
+    which K6's backward reads (the output's bits are the same either
+    way)."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"q must be a CUDA tensor, got {dev}")
@@ -180,6 +185,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if blocks > _INT32_MAX:
         raise ValueError(f"shapes out of range: {blocks} blocks")
     out = torch.empty((B, Sq, Hq, Dh), dtype=q.dtype, device=dev)
+    lse = torch.empty((B, Sq, Hq), dtype=torch.float32, device=dev) \
+        if return_lse else None
     lib = _lib()
     with _build.on_card(dev) as stream:
         err = lib.flash_attention_launch(
@@ -187,11 +194,12 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             _DTYPES[q.dtype], B, Sq, Skv, Hq, Hkv, Dh, *q.stride()[:3],
             *k.stride()[:3], *v.stride()[:3], int(bool(causal)), q_offset,
             1.0 / math.sqrt(Dh), _ROUTE_CODE[way], splits, kv_end,
-            None if scratch is None else scratch.data_ptr(), stream)
+            None if scratch is None else scratch.data_ptr(),
+            None if lse is None else lse.data_ptr(), stream)
     if err != 0:
         msg = lib.flash_attention_error_string(err).decode()
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err} "
                            f"({msg})")
     LAUNCHES["flash_attention"] += 1
     LAUNCHES[f"flash_attention_{way}"] += 1
-    return out
+    return (out, lse) if return_lse else out

@@ -4,9 +4,9 @@ A CUDA tensor goes to the hand-written kernel, a CPU tensor to the plain
 PyTorch version in :mod:`repro_torch.kernels.ref`. There is no other route:
 a CUDA call whose kernel does not build or launch raises. The same holds
 for the backwards that training takes through :func:`segment_reduce`,
-:func:`gather_rows` and :func:`embedding_bag`: on the card they are the
-port's kernels, never a plain version, ``index_add_`` or another float
-fold on atomics.
+:func:`gather_rows`, :func:`embedding_bag` and :func:`flash_attention`:
+on the card they are the port's kernels, never a plain version,
+``index_add_`` or another float fold on atomics.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ from .ell_spmv import (DensePlan, SlicedFold, ell_spmm_cuda,
 from .embedding_bag import embedding_bag_cuda, embedding_bag_grad_cuda
 from .endpoint_fold import endpoint_fold_cuda
 from .flash_attention import flash_attention_cuda
+from .flash_attention_bwd import flash_attention_bwd_cuda
 from .segment_reduce import segment_reduce_cuda, segment_reduce_grad_cuda
 from .walk_gather import walk_endpoint_gather_cuda
 
@@ -167,11 +168,64 @@ def endpoint_fold(pos: torch.Tensor, weights: torch.Tensor,
     return ref.endpoint_fold_ref(pos, weights, n)
 
 
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor | None,
+                        dout: torch.Tensor, *, causal: bool = True,
+                        q_offset: int = 0
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K6's backward: (dQ, dK, dV) given the forward's output ``o``, its
+    logsumexp ``lse`` (B, Sq, Hq) and the output's gradient ``dout``. On
+    the card ``csrc/flash_attention_bwd.cu``, which needs the logsumexp;
+    the plain version (``ref.flash_attention_bwd_ref``) forms its own."""
+    if _on_cuda(q):
+        if lse is None:
+            raise ValueError("K6's backward on the card needs the forward's "
+                             "logsumexp")
+        return flash_attention_bwd_cuda(q, k, v, o, lse, dout, causal=causal,
+                                        q_offset=q_offset)
+    return ref.flash_attention_bwd_ref(q, k, v, o, dout, causal=causal,
+                                       q_offset=q_offset)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K6 with its backward (:func:`flash_attention_bwd`), for training. On
+    the card the forward also writes each row's logsumexp, which it keeps
+    with q, k, v and the output."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_offset):
+        lse = None
+        if _on_cuda(q):
+            out, lse = flash_attention_cuda(q, k, v, causal=causal,
+                                            q_offset=q_offset,
+                                            return_lse=True)
+        else:
+            out = ref.flash_attention_ref(q, k, v, causal=causal,
+                                          q_offset=q_offset)
+        ctx.causal, ctx.q_offset = causal, q_offset
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, g.contiguous(),
+                                         causal=ctx.causal,
+                                         q_offset=ctx.q_offset)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, q_offset: int = 0) -> torch.Tensor:
     """Attention of q (B, Sq, Hq, Dh) over k, v (B, Skv, Hkv, Dh) with GQA
     folding and, if ``causal``, the mask at global query positions
-    ``q_offset + i``. Output in q's dtype."""
+    ``q_offset + i``. Output in q's dtype. Differentiable in q, k and v
+    where autograd asks (training): the backward is
+    :func:`flash_attention_bwd`. A call that needs no gradient (serving) is
+    K6's forward alone."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, int(q_offset))
     if _on_cuda(q):
         return flash_attention_cuda(q, k, v, causal=causal, q_offset=q_offset)
     return ref.flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset)
@@ -417,15 +471,18 @@ class _GatherRows(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        # the fold is float32: rows of another float type are widened for
+        # it and the sums rounded back (a no-op for float32)
         rows = g.reshape(g.shape[0], math.prod(g.shape[1:])).contiguous()
-        summed = _segment_rows(rows, ctx.plan, "sum")[:ctx.shape[0]]
-        return summed.reshape(ctx.shape), None, None
+        summed = _segment_rows(rows.float(), ctx.plan, "sum")[:ctx.shape[0]]
+        return summed.to(g.dtype).reshape(ctx.shape), None, None
 
 
 def gather_rows(x: torch.Tensor, index: torch.Tensor,
                 plan: SegmentPlan) -> torch.Tensor:
     """Rows ``x[index]`` (one ``index_select``) with a gradient that is
-    ``segment_reduce(g, plan, "sum")`` cut to x's rows. ``plan`` is the
+    ``segment_reduce(g, plan, "sum")`` cut to x's rows (taken in float32
+    for rows of another float type, then rounded to it). ``plan`` is the
     plan of ``index`` over at least x.shape[0] segments, built once per
     index and batch, or of an index that differs from it only on rows
     whose gradient is exactly zero (the masked edges a model multiplies by

@@ -167,6 +167,52 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.einsum("bhqk,bkhd->bqhd", p, vr).to(q.dtype)
 
 
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            dout: torch.Tensor, *, causal: bool = True,
+                            q_offset: int = 0
+                            ) -> tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """The gradients (dQ, dK, dV) of :func:`flash_attention_ref` given its
+    output ``o`` and the output's gradient ``dout``, by the formulas K6's
+    backward runs: with S = q k^T / sqrt(Dh) (masked as the forward masks
+    it), lse its row logsumexp, P = exp(S - lse) (0 where masked) and D =
+    rowsum(dout o o),
+
+        dV = P^T dout,  dS = P o (dout V^T - D),
+        dQ = dS K / sqrt(Dh),  dK = dS^T Q / sqrt(Dh),
+
+    a KV head's dK and dV summed over its query heads. In float32, or
+    float64 for float64 inputs; each gradient in its input's dtype."""
+    B, Sq, Hq, Dh = q.shape
+    Hkv = k.shape[2]
+    if Hq % Hkv:
+        raise ValueError(f"Hq={Hq} is not a multiple of Hkv={Hkv}")
+    acc = torch.float64 if q.dtype == torch.float64 else torch.float32
+    group = Hq // Hkv
+    scale = 1.0 / math.sqrt(Dh)
+    qa, ga = q.to(acc), dout.to(acc)
+    kr = k.to(acc).repeat_interleave(group, dim=2)
+    vr = v.to(acc).repeat_interleave(group, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", qa, kr) * scale
+    seen = torch.ones(s.shape[-2:], dtype=torch.bool, device=q.device)
+    if causal:
+        qi = torch.arange(Sq, device=q.device) + q_offset
+        seen = qi[:, None] >= torch.arange(k.shape[1], device=q.device)
+    s = torch.where(seen, s, torch.tensor(-1e30, dtype=acc, device=q.device))
+    p = torch.where(seen, torch.exp(s - torch.logsumexp(s, -1, keepdim=True)),
+                    torch.zeros((), dtype=acc, device=q.device))
+    dsum = (ga * o.to(acc)).sum(-1).transpose(1, 2)[..., None]   # (B,H,Sq,1)
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", ga, vr) - dsum)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kr) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qa) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, ga)
+    Skv = k.shape[1]
+    dk = dk.reshape(B, Skv, Hkv, group, Dh).sum(3)
+    dv = dv.reshape(B, Skv, Hkv, group, Dh).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def embedding_bag_ref(table: torch.Tensor, ids: torch.Tensor,
                       weights: torch.Tensor | None = None) -> torch.Tensor:
     """EmbeddingBag(sum): ``out[b] = sum_l w[b,l] * table[ids[b,l]]``.

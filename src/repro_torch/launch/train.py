@@ -1,20 +1,25 @@
 """End-to-end training loop of the port, on the card: the config
 registry, the data pipeline, the train step (the loss's gradient under
 autograd, then AdamW), int8 gradient compression, asynchronous
-checkpoints and an elastic restart. A copy of ``repro.launch.train``'s
-DIN and GNN branches over the port's modules.
+checkpoints and an elastic restart. A copy of ``repro.launch.train`` over
+the port's modules.
 
-    python -m repro_torch.launch.train --arch din --steps 30 \\
-        --preset smoke --ckpt-dir build/ckpt [--resume] [--compress-grads] \\
-        [--fail-at 15:0] [--device cuda]
+    python -m repro_torch.launch.train --arch gemma-2b --steps 30 \\
+        --preset smoke --seq 64 --ckpt-dir build/ckpt [--resume] \\
+        [--compress-grads] [--fail-at 15:0] [--device cuda]
 
-It trains the architecture's smoke config: DIN on a ``RecsysStream`` of
-``--batch`` users (the loss and the tables' gradients through K5, its
-backward and ``segment_reduce`` on the card), a GNN on one random graph of
-128 nodes and 512 edges. ``--device`` defaults to ``cuda`` and raises
-without a card unless ``--device cpu`` is given. An LM ``--arch`` or
-``--preset lm100m`` raises ``NotImplementedError``: LM training is queue 1,
-item 1b of ROADMAP.md.
+It trains the architecture's smoke config: a dense LM on a ``TokenStream``
+of ``--batch`` sequences of ``--seq`` tokens (``--preset lm100m``: the
+reference's ~100M-parameter LM instead; the loss and every gradient
+through ``transformer.value_and_grad``, attention through K6 and its
+backward on the card), DIN on a ``RecsysStream`` of ``--batch`` users (the
+loss and the tables' gradients through K5, its backward and
+``segment_reduce`` on the card), a GNN on one random graph of 128 nodes
+and 512 edges. ``--device`` defaults to ``cuda`` and raises without a
+card unless ``--device cpu`` is given. An MoE LM ``--arch`` raises
+``NotImplementedError``: its training is queue 1, item 1b-ii of
+ROADMAP.md. As in the reference, ``--preset`` and ``--seq`` are read by
+the LM branch alone.
 
 What differs from the reference, so that a resumed run equals a straight
 one: a checkpoint is labelled with the steps it holds (the reference
@@ -46,16 +51,22 @@ from ..checkpoint.store import AsyncCheckpointer, latest_step, restore
 from ..configs import get_arch
 from ..configs.base import DINArch, GNNArch, LMArch
 from ..core.allocator import DeviceAllocator
-from ..data.pipeline import Prefetcher, RecsysStream
+from ..data.pipeline import Prefetcher, RecsysStream, TokenStream
 from ..ft.elastic import ElasticController, FailureInjector
+from ..models import transformer
 from ..models.common import tree_leaves
 from ..optim import (AdamWConfig, AdamWState, adamw_init, adamw_update,
                      compress_grads, compress_init, step_noise)
 from ..optim.compress import CompressState
 
-LM_LATER = ("LM training is not ported yet: queue 1, item 1b of ROADMAP.md "
-            "(the LM loss, K6's backward and the MoE backwards); this "
-            "entry point trains DIN and the GNNs")
+LM_LATER = ("MoE LM training is not ported yet: queue 1, item 1b-ii of "
+            "ROADMAP.md (the backwards of the router, dispatch and "
+            "combine); this entry point trains the dense LMs, DIN and the "
+            "GNNs")
+# the reference's custom ~100M-parameter LM (--preset lm100m)
+LM100M = transformer.LMConfig(
+    name="lm100m", n_layers=8, d_model=512, n_heads=8, n_kv_heads=8,
+    d_ff=2048, vocab=32_000, dtype="float32", remat=False)
 DEFAULT_CKPT = Path(__file__).resolve().parents[3] / "build" / "ckpt"
 NOISE_SEED_STRIDE = 1_000_003      # a step's noise seed: seed * this + step
 
@@ -66,6 +77,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--preset", choices=["smoke", "lm100m"], default="smoke")
     ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--ckpt-dir", default=str(DEFAULT_CKPT))
     ap.add_argument("--ckpt-every", type=int, default=50)
@@ -80,11 +92,46 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def build_lm(arch_id: str, preset: str) -> transformer.LMConfig:
+    """The LM config a run trains: ``LM100M``, or the arch's smoke config."""
+    if preset == "lm100m":
+        return LM100M
+    arch = get_arch(arch_id)
+    if not isinstance(arch, LMArch):
+        raise SystemExit(f"{arch_id} is not an LM arch")
+    return arch.smoke_cfg
+
+
+def _autograd(loss_fn: Callable) -> Callable:
+    """grads(params, batch) -> (loss, gradients in the JAX leaf order) of
+    a loss under autograd, the tree made trainable."""
+    def grads(params, batch):
+        params.requires_grad_(True)
+        leaves = tree_leaves(params)
+        with torch.enable_grad():
+            loss = loss_fn(params, batch)
+            got = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                      materialize_grads=True)
+        return loss.detach(), got
+    return grads
+
+
 def _model(arch, args, dev: torch.device, gen: torch.Generator
            ) -> tuple[Any, Callable, Any]:
-    """(params, loss(params, batch), an iterator of host batches)."""
-    if isinstance(arch, LMArch) or args.preset == "lm100m":
-        raise NotImplementedError(LM_LATER)
+    """(params, grads(params, batch) -> (loss, gradients), an iterator of
+    host batches)."""
+    if isinstance(arch, LMArch):
+        if arch.cfg.moe is not None:
+            raise NotImplementedError(LM_LATER)
+        cfg = build_lm(args.arch, args.preset)
+        params = transformer.init(cfg, gen, dev)
+        stream = iter(TokenStream(vocab=cfg.vocab, seq_len=args.seq,
+                                  batch=args.batch, seed=args.seed))
+
+        def grads(p, batch):
+            return transformer.value_and_grad(
+                p, cfg, batch["tokens"], batch["labels"])
+        return params, grads, stream
     if isinstance(arch, DINArch):
         from ..models.recsys import din
         cfg = arch.smoke_cfg
@@ -95,7 +142,7 @@ def _model(arch, args, dev: torch.device, gen: torch.Generator
 
         def loss_fn(p, batch):
             return din.loss_fn(p, cfg, batch)
-        return params, loss_fn, stream
+        return params, _autograd(loss_fn), stream
     if isinstance(arch, GNNArch):
         from ..models.gnn.common import random_graph_batch
         cfg = arch.make_smoke_cfg()
@@ -119,7 +166,7 @@ def _model(arch, args, dev: torch.device, gen: torch.Generator
         else:
             def loss_fn(p, batch):
                 return arch.model.loss_fn(p, cfg, gb)
-        return params, loss_fn, graphs()
+        return params, _autograd(loss_fn), graphs()
     raise SystemExit(f"training not defined for {args.arch}")
 
 
@@ -151,19 +198,14 @@ def main(argv: list[str] | None = None) -> dict:
     arch = get_arch(args.arch)
     dev = resolve_device(args.device)
     gen = torch.Generator().manual_seed(args.seed)
-    params, loss_fn, stream = _model(arch, args, dev, gen)
+    params, grad_fn, stream = _model(arch, args, dev, gen)
 
     opt_cfg = AdamWConfig(lr=args.lr)
     opt_state = adamw_init(params)
     comp_state = compress_init(params) if args.compress_grads else None
 
     def train_step(params, opt_state, comp_state, batch, step):
-        params.requires_grad_(True)
-        leaves = tree_leaves(params)
-        with torch.enable_grad():
-            loss = loss_fn(params, batch)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
-                                        materialize_grads=True)
+        loss, grads = grad_fn(params, batch)
         if comp_state is not None:
             noise_gen = torch.Generator(device=dev).manual_seed(
                 args.seed * NOISE_SEED_STRIDE + step)
@@ -171,7 +213,7 @@ def main(argv: list[str] | None = None) -> dict:
                 grads, comp_state, step_noise(grads, noise_gen))
         params, opt_state, metrics = adamw_update(opt_cfg, params, grads,
                                                   opt_state)
-        return params, opt_state, comp_state, loss.detach(), metrics
+        return params, opt_state, comp_state, loss, metrics
 
     # --- fault tolerance ------------------------------------------------
     schedule: dict[int, list[int]] = {}

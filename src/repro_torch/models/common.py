@@ -1,5 +1,4 @@
-"""Shared model building blocks, the port of ``repro/models/common.py``
-(the forward half: no loss).
+"""Shared model building blocks, the port of ``repro/models/common.py``.
 
 Norms, rotary embeddings, attention, activations and a small MLP, as plain
 functions on tensors and one ``nn.Module``. Random initialisers take an
@@ -279,6 +278,50 @@ def mlp_apply(mlp: MLP, x: torch.Tensor, activation: str = "relu",
         if i < n - 1 or final_act:
             x = fn(x)
     return x
+
+
+# ---------------------------------------------------------------------------
+# the LM loss
+
+
+class _CrossEntropy(torch.autograd.Function):
+    """The mean token cross-entropy with its backward written out: the
+    gradient of a logit row is (softmax - one-hot of the label) times the
+    row's weight (1 / the number of counted labels, 0 for an ignored
+    label), formed in float32 with the one-hot as a non-accumulating store,
+    so the backward has no scatter that adds (autograd's own backward of
+    the gather would be a float ``scatter_add_``)."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, ignore_id):
+        lf = logits.float()
+        lse = torch.logsumexp(lf, dim=-1)
+        idx = labels.clamp(min=0).long()[..., None]
+        gold = torch.gather(lf, -1, idx)[..., 0]
+        del lf
+        valid = (labels != ignore_id).float()
+        count = torch.clamp(valid.sum(), min=1.0)
+        ctx.save_for_backward(logits, lse, idx, valid, count)
+        return ((lse - gold) * valid).sum() / count
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lse, idx, valid, count = ctx.saved_tensors
+        grad = logits.float()
+        grad.sub_(lse[..., None]).exp_()                 # softmax
+        grad.scatter_(-1, idx, torch.gather(grad, -1, idx) - 1.0)
+        grad.mul_((valid * (g / count))[..., None])
+        return grad.to(logits.dtype), None, None
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       ignore_id: int = -1) -> torch.Tensor:
+    """Mean token cross-entropy of logits (..., V) against integer labels
+    (...): the logsumexp in float32, a label ``ignore_id`` not counted, the
+    sum over the counted labels divided by their number (at least 1), as
+    the JAX package's ``cross_entropy_loss``. A float32 scalar; its
+    gradient in the logits is in their dtype."""
+    return _CrossEntropy.apply(logits, labels, ignore_id)
 
 
 # ---------------------------------------------------------------------------

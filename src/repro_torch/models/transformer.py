@@ -12,19 +12,32 @@ tree of frozen parameters is keyed as the JAX package's pytree: every leaf
 of ``params["layers"]`` is stacked over a leading (L,) axis, and weights
 are (d_in, d_out) for ``x @ w``. :func:`params_from_numpy` loads the JAX
 ``init`` pytree into it. The JAX module scans over the stacked layers
-under ``jax.checkpoint`` and places sharding constraints; the port loops
-over the layers and has neither (both are compile and sharding devices of
-JAX; this is one card).
+and places sharding constraints; the port loops over the layers and has
+no constraints (a sharding device of JAX; this is one card). Training
+recomputes each layer in the backward, as the JAX module's
+``jax.checkpoint`` with the policy "nothing" does (``cfg.remat``), through
+``torch.utils.checkpoint``.
 
-Entry points, inference only:
-    prefill_step  tokens -> last-token logits + KV cache
-    decode_step   one token + KV cache -> logits, cache written in place
-    forward       tokens -> final hidden states
+Entry points:
+    loss_fn         tokens, labels -> mean token cross-entropy (training)
+    value_and_grad  tokens, labels -> (loss, every parameter's gradient)
+    prefill_step    tokens -> last-token logits + KV cache
+    decode_step     one token + KV cache -> logits, cache written in place
+    forward         tokens -> final hidden states
 
 Attention goes through ``kernels.ops.flash_attention`` (K6 on the card) at
-the two places where the JAX model calls ``flash_attention_jnp``. The
-projections, the feed-forward (dense, or the experts' batched products of
-``models/moe.py``) and the unembedding are plain products.
+the two places where the JAX model calls ``flash_attention_jnp``; in
+training its backward is K6's backward kernels. The projections, the
+feed-forward (dense, or the experts' batched products of ``models/moe.py``)
+and the unembedding are plain products. The serving steps run under
+``no_grad`` and never build a training graph.
+
+Training's gradients land as the serving tree holds the parameters: the
+token embedding's through ``ops.gather_rows`` (a fold of the gradient rows
+by token over the batch's plan, no accumulating ``index_put_``), each
+layer's into its own slice of a leaf's stack (each layer reads its own
+leaves, detached views of the stacks, so no layer's backward writes a
+zero stack), a tied embedding's as the unembedding's plus the gather's.
 """
 
 from __future__ import annotations
@@ -34,11 +47,13 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from ..kernels import ops
-from .common import (ParamTree, act_fn, apply_rope, dense_init, embed_init,
-                     rms_norm, rope_at, rope_frequencies, tensor_from_numpy)
+from .common import (ParamTree, act_fn, apply_rope, cross_entropy_loss,
+                     dense_init, embed_init, rms_norm, rope_at,
+                     rope_frequencies, tensor_from_numpy, tree_leaves)
 from .moe import MoEConfig, moe_apply, moe_init
 
 # leaves kept in float32 whatever the model's dtype: the MoE router
@@ -62,6 +77,7 @@ class LMConfig:
     norm_eps: float = 1e-6
     moe: MoEConfig | None = None
     dtype: str = "bfloat16"
+    remat: bool = True                 # training recomputes each layer
 
     @property
     def head_dim(self) -> int:
@@ -230,13 +246,14 @@ def layer_params(params: DecoderLM, i: int) -> dict:
 
 def _attention(p: dict, cfg: LMConfig, x: torch.Tensor, cos: torch.Tensor,
                sin: torch.Tensor, positions: torch.Tensor, *,
-               kv_cache: torch.Tensor | None = None, cache_len: int = 0
-               ) -> tuple[torch.Tensor, torch.Tensor]:
+               kv_cache: torch.Tensor | None = None, cache_len: int = 0,
+               keep_cache: bool = True
+               ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Causal self-attention of x (B, S, d). With ``kv_cache`` (2, B, Smax,
     Hkv, Dh) the new keys and values are written into it at ``cache_len``
     (in place) and the queries attend to the cache; without, to
     themselves, and the (2, B, S, Hkv, Dh) keys and values are returned as
-    the cache."""
+    the cache (None without ``keep_cache``: training keeps none)."""
     B, S, _ = x.shape
     dh, H, Hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     q = x @ p["wq"]
@@ -255,26 +272,46 @@ def _attention(p: dict, cfg: LMConfig, x: torch.Tensor, cos: torch.Tensor,
         out = ops.flash_attention(q, kv_cache[0], kv_cache[1], causal=True,
                                   q_offset=cache_len)
     else:
-        cache = torch.stack([k, v])
+        cache = torch.stack([k, v]) if keep_cache else None
         out = ops.flash_attention(q, k, v, causal=True)
     return out.reshape(B, S, H * dh) @ p["wo"], cache
+
+
+def _block(p: dict, cfg: LMConfig, x: torch.Tensor, cos: torch.Tensor,
+           sin: torch.Tensor, positions: torch.Tensor,
+           kv_cache: torch.Tensor | None = None, cache_len: int = 0,
+           keep_cache: bool = True
+           ) -> tuple[torch.Tensor, torch.Tensor | None, torch.Tensor]:
+    """One layer: (x out, its cache, the MoE aux loss (0 for a dense
+    feed-forward), float32)."""
+    h, cache = _attention(p["attn"], cfg, rms_norm(x, p["ln1"], cfg.norm_eps),
+                          cos, sin, positions, kv_cache=kv_cache,
+                          cache_len=cache_len, keep_cache=keep_cache)
+    x = x + h
+    y = rms_norm(x, p["ln2"], cfg.norm_eps)
+    fp = p["ffn"]
+    if cfg.moe is not None:
+        ff, aux = moe_apply(fp, cfg.moe, y)
+        return x + ff, cache, aux
+    hh = act_fn(cfg.act)(y @ fp["w_gate"]) * (y @ fp["w_up"])
+    return x + hh @ fp["w_down"], cache, torch.zeros(
+        (), dtype=torch.float32, device=x.device)
 
 
 def _layer(p: dict, cfg: LMConfig, x: torch.Tensor, cos: torch.Tensor,
            sin: torch.Tensor, positions: torch.Tensor,
            kv_cache: torch.Tensor | None = None,
            cache_len: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
-    h, cache = _attention(p["attn"], cfg, rms_norm(x, p["ln1"], cfg.norm_eps),
-                          cos, sin, positions, kv_cache=kv_cache,
-                          cache_len=cache_len)
-    x = x + h
-    y = rms_norm(x, p["ln2"], cfg.norm_eps)
-    fp = p["ffn"]
-    if cfg.moe is not None:
-        # the aux loss is training's: serving drops it
-        return x + moe_apply(fp, cfg.moe, y)[0], cache
-    hh = act_fn(cfg.act)(y @ fp["w_gate"]) * (y @ fp["w_up"])
-    return x + hh @ fp["w_down"], cache
+    """A serving layer: (x out, its cache); the aux loss is training's."""
+    x, cache, _ = _block(p, cfg, x, cos, sin, positions, kv_cache, cache_len)
+    return x, cache
+
+
+def _train_layer(p: dict, cfg: LMConfig, x: torch.Tensor, cos: torch.Tensor,
+                 sin: torch.Tensor, positions: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    x, _, aux = _block(p, cfg, x, cos, sin, positions, keep_cache=False)
+    return x, aux
 
 
 def _unembed(params: DecoderLM, cfg: LMConfig, h: torch.Tensor) -> torch.Tensor:
@@ -350,6 +387,138 @@ def decode_step(params: DecoderLM, cfg: LMConfig, token: torch.Tensor,
                       kv_cache=kv_cache[i], cache_len=cache_len)
     h = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _unembed(params, cfg, h)[:, 0].float(), kv_cache
+
+
+# ---------------------------------------------------------------------------
+# training
+
+
+def _stacked(tree: ParamTree, path: tuple[str, ...] = ()
+             ) -> list[tuple[tuple[str, ...], torch.Tensor]]:
+    """(path, stacked leaf) of every leaf of ``params["layers"]``."""
+    out = []
+    for key in tree.keys():
+        value = tree[key]
+        if isinstance(value, ParamTree):
+            out += _stacked(value, path + (key,))
+        else:
+            out.append((path + (key,), value))
+    return out
+
+
+def _nest(pairs: list[tuple[tuple[str, ...], torch.Tensor]]) -> dict:
+    out: dict = {}
+    for path, value in pairs:
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = value
+    return out
+
+
+def _train_loss(top: Mapping, layers: list[dict], cfg: LMConfig,
+                tokens: torch.Tensor, labels: torch.Tensor, remat: bool
+                ) -> torch.Tensor:
+    """The loss on trainable leaves: ``top`` holds "embed" (the gather's
+    table), "unembed" (the unembedding: the table again, tied, or
+    ``lm_head``) and "final_norm"; ``layers`` one tree a layer. The
+    token embedding's gradient is a fold over the plan of the tokens
+    (``ops.gather_rows``); with ``remat`` each layer is recomputed in the
+    backward."""
+    B, S = tokens.shape
+    flat = tokens.reshape(-1)
+    plan = ops.segment_plan(flat, cfg.vocab, keep_index=False)
+    x = ops.gather_rows(top["embed"], flat, plan).reshape(B, S, -1).to(
+        cfg.torch_dtype())
+    cos, sin = rope_frequencies(cfg.head_dim, S, cfg.rope_theta,
+                                tokens.device)
+    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    for p in layers:
+        if remat:
+            x, aux = checkpoint(_train_layer, p, cfg, x, cos, sin, positions,
+                                use_reentrant=False)
+        else:
+            x, aux = _train_layer(p, cfg, x, cos, sin, positions)
+        aux_total = aux_total + aux
+    h = rms_norm(x, top["final_norm"], cfg.norm_eps)
+    head = top["unembed"]
+    logits = h @ (head.T if cfg.tie_embeddings else head)
+    loss = cross_entropy_loss(logits, labels)
+    if cfg.moe is not None:
+        loss = loss + cfg.moe.router_aux_weight * aux_total
+    return loss
+
+
+def loss_fn(params: DecoderLM, cfg: LMConfig, tokens: torch.Tensor,
+            labels: torch.Tensor) -> torch.Tensor:
+    """tokens, labels (B, S) -> the mean token cross-entropy of the next
+    token (float32 logsumexp, labels -1 ignored), plus the routers' aux
+    loss times ``router_aux_weight`` for an MoE: the JAX ``loss_fn``.
+    Differentiable in the parameters where they require a gradient (see
+    :func:`value_and_grad`, which gives every leaf its own)."""
+    top = {"embed": params["embed"], "final_norm": params["final_norm"],
+           "unembed": params["embed"] if cfg.tie_embeddings
+           else params["lm_head"]}
+    layers = [layer_params(params, i) for i in range(cfg.n_layers)]
+    return _train_loss(top, layers, cfg, tokens, labels,
+                       cfg.remat and torch.is_grad_enabled())
+
+
+def value_and_grad(params: DecoderLM, cfg: LMConfig, tokens: torch.Tensor,
+                   labels: torch.Tensor
+                   ) -> tuple[torch.Tensor, tuple[torch.Tensor, ...]]:
+    """(loss, grads): :func:`loss_fn` and its gradient in every parameter,
+    a tuple in the JAX pytree's leaf order (``tree_leaves``), as
+    ``jax.value_and_grad`` gives it. Each layer reads detached views of
+    the stacked leaves, so each layer's gradient is its own tensor, and
+    the stacks' gradients are those stacked in layer order; a tied
+    embedding's gradient is the unembedding's plus the gather's.
+    ``cfg.remat`` recomputes each layer in the backward; the gradients'
+    bits are the same either way."""
+
+    def leaf(t: torch.Tensor) -> torch.Tensor:
+        return t.detach().requires_grad_(True)
+
+    stacks = _stacked(params["layers"])
+    with torch.enable_grad():
+        top = {"embed": leaf(params["embed"]),
+               "final_norm": leaf(params["final_norm"]),
+               "unembed": leaf(params["embed"] if cfg.tie_embeddings
+                               else params["lm_head"])}
+        views = [[leaf(stack[i]) for _, stack in stacks]
+                 for i in range(cfg.n_layers)]
+        layers = [_nest([(path, v) for (path, _), v in zip(stacks, row)])
+                  for row in views]
+        loss = _train_loss(top, layers, cfg, tokens, labels, cfg.remat)
+        inputs = [top["embed"], top["unembed"], top["final_norm"],
+                  *(v for row in views for v in row)]
+        got = torch.autograd.grad(loss, inputs, allow_unused=True,
+                                  materialize_grads=True)
+    del layers, views
+    got = list(got)
+    g_embed, g_unembed, g_norm = got[:3]
+    by_leaf = {id(params["final_norm"]): g_norm}
+    if cfg.tie_embeddings:
+        by_leaf[id(params["embed"])] = g_unembed + g_embed
+    else:
+        by_leaf[id(params["embed"])] = g_embed
+        by_leaf[id(params["lm_head"])] = g_unembed
+    del g_embed, g_unembed
+    # each stack's gradient in layer order, the layers' own freed as it is
+    # written
+    n = len(stacks)
+    for j, (_, stack) in enumerate(stacks):
+        rows = range(3 + j, len(got), n)
+        by_leaf[id(stack)] = torch.stack([got[i] for i in rows])
+        for i in rows:
+            got[i] = None
+    return loss.detach(), tuple(by_leaf[id(p)] for p in tree_leaves(params))
+
+
+def model_flops_per_token(cfg: LMConfig) -> float:
+    """MODEL_FLOPS = 6 N_active a trained token (2 forward + 4 backward)."""
+    return 6.0 * cfg.active_param_count
 
 
 def make_kv_cache(cfg: LMConfig, batch: int, max_seq: int,

@@ -8,7 +8,10 @@ PPR, a dynamic graph's residency on the card, and the node-sharded
 residency's kernels and queries on one card, the GNNs' segment
 reduction against its float64 plain version and the four GNNs' forward
 on the card against the CPU, and K5's backward against its float64 plain
-version with DIN's train step on the card against the CPU. Every test
+version with DIN's train step on the card against the CPU, and K6's
+backward against its float64 plain version on both routes (the
+logsumexp its forward writes leaving the output's bits as they are)
+with the dense LMs' train step on the card against the CPU. Every test
 here needs an NVIDIA card and ``nvcc`` and skips without them; this file
 imports neither JAX nor ``repro``, so it runs where only torch is
 installed:
@@ -1632,3 +1635,171 @@ def test_din_train_step_on_card_matches_cpu_and_repeats(card):
         limit = 1e-4 * b.abs() + 1e-6 * float(b.abs().max())
         limit = torch.where(t, limit + 2 * lr, limit)
         assert bool(((a.detach().cpu().double() - b).abs() <= limit).all())
+
+
+# ---------------------------------------------------------------------------
+# K6's backward (csrc/flash_attention_bwd.cu)
+
+# (B, Sq, Hq, Hkv, Dh, q_offset): groups 1, 4 and 8, Dh 64, 128 and 256,
+# q_offset 0 and not; Skv = Sq + q_offset (training's causal shape)
+ATTN_BWD_SHAPES = [(2, 70, 8, 1, 64, 0), (1, 100, 4, 1, 128, 29),
+                   (2, 45, 4, 4, 256, 0), (1, 64, 8, 1, 256, 0),
+                   (2, 33, 8, 2, 64, 40), (1, 130, 4, 4, 128, 0),
+                   (1, 96, 8, 8, 32, 7), (2, 17, 8, 1, 256, 100)]
+
+
+def _bwd_inputs(card, B, Sq, Hq, Hkv, Dh, off, dtype, seed):
+    g = torch.Generator(device=card).manual_seed(seed)
+    q = torch.randn((B, Sq, Hq, Dh), generator=g, device=card, dtype=dtype)
+    k, v = (torch.randn((B, Sq + off, Hkv, Dh), generator=g, device=card,
+                        dtype=dtype) for _ in range(2))
+    dout = torch.randn((B, Sq, Hq, Dh), generator=g, device=card,
+                       dtype=dtype)
+    return q, k, v, dout
+
+
+@pytest.mark.parametrize("B,Sq,Hq,Hkv,Dh,off", ATTN_BWD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_matches_float64_plain_and_repeats(
+        card, B, Sq, Hq, Hkv, Dh, off, dtype):
+    """dQ, dK and dV against ``ref.flash_attention_bwd_ref`` in float64
+    (``chip_smoke.attention_bwd_plain``'s limits, which refuse its broken
+    versions here too), bits repeating, one launch of each kernel on the
+    route the rule picks (the tensor cores for bfloat16 at Dh 64 to 256)."""
+    import chip_smoke
+    from repro_torch.kernels import flash_attention_bwd
+
+    q, k, v, dout = _bwd_inputs(card, B, Sq, Hq, Hkv, Dh, off, dtype, Sq + Dh)
+    o, lse = flash_attention.flash_attention_cuda(q, k, v, q_offset=off,
+                                                  return_lse=True)
+    flash_attention_bwd.reset_launches()
+    got = flash_attention_bwd.flash_attention_bwd_cuda(q, k, v, o, lse, dout,
+                                                       q_offset=off)
+    again = flash_attention_bwd.flash_attention_bwd_cuda(q, k, v, o, lse,
+                                                         dout, q_offset=off)
+    torch.cuda.synchronize()
+    way = flash_attention_bwd.route(dtype, Dh)
+    assert way == ("mma" if dtype == torch.bfloat16 and Dh >= 64
+                   else "simt")
+    assert flash_attention_bwd.LAUNCHES == {
+        "flash_attention_bwd": 2, "flash_attention_bwd_dot": 2,
+        "flash_attention_bwd_dkdv": 2, "flash_attention_bwd_dq": 2,
+        "flash_attention_bwd_mma": 2 * (way == "mma"),
+        "flash_attention_bwd_simt": 2 * (way == "simt")}
+    plain = chip_smoke.attention_bwd_plain(q, k, v, o, dout, True, off)
+    for x, y, want, limit in zip(got, again, plain["want"],
+                                 plain["limits"]):
+        assert x.dtype == dtype and x.shape == want.shape
+        _within(x, want, limit)
+        assert torch.equal(x, y)
+    for name, (i, bad) in plain["broken"].items():
+        assert chip_smoke.limit_ratio(bad, plain["want"][i],
+                                      plain["limits"][i])[1] > 1.0, name
+
+
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,Dh,causal,off,bf16_route",
+                         ATTN_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_lse_keeps_the_output_bits(
+        card, B, Sq, Skv, Hq, Hkv, Dh, causal, off, bf16_route, dtype):
+    """Asking K6 for the logsumexp leaves the output's bits as they are, on
+    every route; the logsumexp within (Skv + Dh + 8) 2^-24 (1 + sigma) of
+    float64's (sigma the largest scaled sum_d |q| |k|)."""
+    g = torch.Generator(device=card).manual_seed(Sq * 7 + Skv)
+    q = torch.randn((B, Sq, Hq, Dh), generator=g, device=card, dtype=dtype)
+    k, v = (torch.randn((B, Skv, Hkv, Dh), generator=g, device=card,
+                        dtype=dtype) for _ in range(2))
+    taken, (out, lse) = _routes_taken(
+        lambda: flash_attention.flash_attention_cuda(
+            q, k, v, causal=causal, q_offset=off, return_lse=True))
+    assert taken == [bf16_route if dtype == torch.bfloat16 else "split"]
+    plain = flash_attention.flash_attention_cuda(q, k, v, causal=causal,
+                                                 q_offset=off)
+    assert torch.equal(out, plain)
+    group = Hq // Hkv
+    kr = k.double().repeat_interleave(group, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.double(), kr) / Dh**0.5
+    a = torch.einsum("bqhd,bkhd->bhqk", q.double().abs(), kr.abs()) / Dh**0.5
+    if causal:
+        seen = (torch.arange(Sq, device=card)[:, None] + off
+                >= torch.arange(Skv, device=card)[None, :])
+        s = s.masked_fill(~seen, -1e30)
+        a = a.masked_fill(~seen, 0.0)
+    want = torch.logsumexp(s, -1).transpose(1, 2)        # (B, Sq, Hq)
+    sigma = float(a.max())
+    assert lse.shape == (B, Sq, Hq) and lse.dtype == torch.float32
+    limit = (Skv + Dh + 8) * 2.0**-24 * (1 + sigma) * (1 + want.abs())
+    _within(lse, want, limit)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_autograd_on_card_is_the_kernels(card, dtype):
+    """``ops.flash_attention`` under autograd: K6's forward with the
+    logsumexp, whose output has the serving call's bits, and the backward
+    kernels' gradients, each kernel launched once; under ``no_grad`` K6
+    alone."""
+    from repro_torch.kernels import flash_attention_bwd
+
+    q, k, v, dout = _bwd_inputs(card, 2, 80, 8, 1, 256, 0, dtype, 5)
+    flash_attention.reset_launches()
+    flash_attention_bwd.reset_launches()
+    with torch.no_grad():
+        served = ops.flash_attention(q, k, v)
+    assert flash_attention_bwd.LAUNCHES["flash_attention_bwd"] == 0
+    lq, lk, lv = (t.clone().requires_grad_(True) for t in (q, k, v))
+    out = ops.flash_attention(lq, lk, lv)
+    grads = torch.autograd.grad(out, (lq, lk, lv), dout)
+    torch.cuda.synchronize()
+    assert torch.equal(out.detach(), served)
+    assert flash_attention.LAUNCHES["flash_attention"] == 2
+    way = flash_attention_bwd.route(dtype, 256)
+    assert flash_attention_bwd.LAUNCHES == {
+        "flash_attention_bwd": 1, "flash_attention_bwd_dot": 1,
+        "flash_attention_bwd_dkdv": 1, "flash_attention_bwd_dq": 1,
+        "flash_attention_bwd_mma": int(way == "mma"),
+        "flash_attention_bwd_simt": int(way == "simt")}
+    o, lse = flash_attention.flash_attention_cuda(q, k, v, return_lse=True)
+    direct = flash_attention_bwd.flash_attention_bwd_cuda(q, k, v, o, lse,
+                                                          dout)
+    assert all(torch.equal(a, b) for a, b in zip(grads, direct))
+
+
+@pytest.mark.parametrize("arch_id", ["gemma-2b", "qwen1.5-32b"])
+def test_lm_train_step_on_card_matches_cpu_and_repeats(card, arch_id):
+    """An LM smoke config's train step (2 micro-batches) on the card
+    against the CPU's: the loss within rtol 1e-5, the gradients within
+    rtol 1e-4 of |g| + 1e-5 max|g| (float32 sums in other orders); a
+    second run with the same bits; K6's forward twice a layer and
+    micro-batch (remat) and its backward once."""
+    from repro_torch.kernels import flash_attention_bwd
+    from repro_torch.models import transformer
+
+    arch = get_arch(arch_id)
+    cfg = arch.smoke_cfg
+    params = arch.init_params(torch.Generator().manual_seed(0), "cpu",
+                              smoke=True)
+    batch = arch.make_inputs("train_4k", torch.Generator(), "cpu",
+                             smoke=True, seed=2, batch=2, seq=48)
+    want_loss, want = transformer.value_and_grad(params, cfg,
+                                                 batch["tokens"],
+                                                 batch["labels"])
+    p_card = params.to(card)
+    b_card = {k: v.to(card) for k, v in batch.items()}
+    runs = []
+    for _ in range(2):
+        flash_attention.reset_launches()
+        flash_attention_bwd.reset_launches()
+        runs.append(transformer.value_and_grad(p_card, cfg, b_card["tokens"],
+                                               b_card["labels"]))
+    torch.cuda.synchronize()
+    assert flash_attention.LAUNCHES["flash_attention"] == 2 * cfg.n_layers
+    assert flash_attention_bwd.LAUNCHES["flash_attention_bwd"] == \
+        cfg.n_layers
+    (l1, g1), (l2, g2) = runs
+    assert torch.equal(l1, l2)
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+    assert float(l1) == pytest.approx(float(want_loss), rel=1e-5)
+    for a, b in zip(g1, want):
+        b = b.double()
+        limit = 1e-4 * b.abs() + 1e-5 * float(b.abs().max())
+        assert bool(((a.cpu().double() - b).abs() <= limit).all())

@@ -188,6 +188,7 @@ def test_import_without_jax_loads_no_repro():
             "import repro_torch.models, repro_torch.configs\n"
             "import repro_torch.models.moe\n"
             "import repro_torch.kernels.flash_attention\n"
+            "import repro_torch.kernels.flash_attention_bwd\n"
             "import repro_torch.kernels.embedding_bag\n"
             "import repro_torch.core.allocator, repro_torch.ft.elastic\n"
             "import repro_torch.deadline_serving\n"
