@@ -907,12 +907,13 @@ def attention_bwd_plain(q, k, v, o, dout, causal: bool, q_offset: int,
     T |K| / sqrt(Dh) (dQ). With ``broken``, also the outputs of broken
     backwards (``broken``: label -> (output index, tensor)): the causal
     limit one key late (each row sees one more key), dK and dV without
-    the first tile of 32 folded rows each key tile sees, dQ without the
-    last key tile each tile of 32 folded rows sees, and (groups above 1)
-    dK and dV from each group's first query head only."""
+    the first row tile each key tile sees, dQ without the last key tile
+    each row tile sees (the tiles of the route the wrapper picks,
+    ``flash_attention_bwd.tiles``), and (groups above 1) dK and dV from
+    each group's first query head only."""
     import torch
 
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import flash_attention_bwd, ref
 
     f = torch.float64
     q64, k64, v64, o64, g64 = (t.to(f) for t in (q, k, v, o, dout))
@@ -968,20 +969,28 @@ def attention_bwd_plain(q, k, v, o, dout, causal: bool, q_offset: int,
     del late
     dsum = (g64 * o64).sum(-1).transpose(1, 2)[..., None]
     ds = p * (torch.einsum("bqhd,bkhd->bhqk", g64, vr) - dsum)
-    # folded row of (query i, head h): i group + h % group
-    rho = qi[None, :] * group + (torch.arange(Hq, device=dev)
-                                 % group)[:, None]           # (Hq, Sq)
-    first = (kj // 32 * 32 - q_offset).clamp(min=0) * group  # (Skv,)
-    keep = ~((rho[:, :, None] >= first) & (rho[:, :, None] < first + 32))
+    # the route's tiles: a row is a position of one query head (route A)
+    # or a folded row of its KV head (route B: query i of head h is
+    # i group + h % group)
+    tile = flash_attention_bwd.tiles(flash_attention_bwd.route(q.dtype, Dh),
+                                     Dh)
+    per = group if tile["folded"] else 1
+    row = qi[None, :] * per + (torch.arange(Hq, device=dev)
+                               % group)[:, None] * (per > 1)   # (Hq, Sq)
+    keys, rows = tile["dkdv_keys"], tile["dkdv_rows"]
+    first = (kj // keys * keys - q_offset).clamp(min=0) * per if causal \
+        else torch.zeros_like(kj)                             # (Skv,)
+    keep = ~((row[:, :, None] >= first) & (row[:, :, None] < first + rows))
     bad["dK without each key tile's first row tile"] = (1, fold(torch.einsum(
         "bhqk,bqhd->bkhd", ds * keep, q64)) * scale)
     bad["dV without each key tile's first row tile"] = (2, fold(torch.einsum(
         "bhqk,bqhd->bkhd", p * keep, g64)))
     del keep
-    last_row = (rho // 32 * 32 + 31).clamp(max=Sq * group - 1)
-    end = (q_offset + last_row // group + 1).clamp(max=Skv) if causal \
+    rows, keys = tile["dq_rows"], tile["dq_keys"]
+    last_row = (row // rows * rows + rows - 1).clamp(max=Sq * per - 1)
+    end = (q_offset + last_row // per + 1).clamp(max=Skv) if causal \
         else torch.full_like(last_row, Skv)
-    tail = kj[None, None, :] >= ((end - 1) // 32 * 32)[:, :, None]
+    tail = kj[None, None, :] >= ((end - 1) // keys * keys)[:, :, None]
     bad["dQ without each row tile's last key tile"] = (0, torch.einsum(
         "bhqk,bkhd->bqhd", ds * ~tail, kr) * scale)
     del tail
@@ -5485,9 +5494,10 @@ def attention_bwd_check(label: str, call, stats: dict) -> None:
 
 
 def attention_bwd_times(label: str, call, card: str):
-    """K6's backward at a recorded call of the path by CUDA events (L2
-    warm; back-to-back calls of milliseconds each): the whole call and
-    each kernel, beside its bound, the plain version's (float32) and
+    """K6's backward at a recorded call of the path by CUDA events, L2
+    warm, each call queued behind a sleep (``queued_ms``: a short kernel's
+    launch costs the host more than its run on the card): the whole call
+    and each kernel, beside its bound, the plain version's (float32) and
     ``F.scaled_dot_product_attention``'s backward on the same inputs.
     Returns (ms, plain_ms, bound, bound_by, sdpa_ms, {kernel: ms})."""
     import torch
@@ -5498,11 +5508,11 @@ def attention_bwd_times(label: str, call, card: str):
     (q, k, v, o, lse, dout), kw = call
     off = kw.get("q_offset", 0)
     bwd = flash_attention_bwd.flash_attention_bwd_cuda
-    ms = events_ms(lambda: bwd(q, k, v, o, lse, dout, q_offset=off),
+    ms = queued_ms(lambda: bwd(q, k, v, o, lse, dout, q_offset=off),
                    ATTN_BWD_REPS)
     dsum = torch.empty(lse.shape, dtype=torch.float32, device=q.device)
     bwd(q, k, v, o, lse, dout, q_offset=off, kernels=("dot",), dsum=dsum)
-    split = {name: events_ms(lambda name=name: bwd(
+    split = {name: queued_ms(lambda name=name: bwd(
         q, k, v, o, lse, dout, q_offset=off, kernels=(name,), dsum=dsum),
         ATTN_BWD_REPS) for name in flash_attention_bwd.KERNELS}
     plain_ms = events_ms(lambda: ref.flash_attention_bwd_ref(
@@ -5512,7 +5522,7 @@ def attention_bwd_times(label: str, call, card: str):
     out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                          enable_gqa=q.shape[2] != k.shape[2])
     gt = dout.transpose(1, 2)
-    lib_ms = events_ms(lambda: torch.autograd.grad(
+    lib_ms = queued_ms(lambda: torch.autograd.grad(
         out, (qt, kt, vt), gt, retain_graph=True), ATTN_BWD_REPS)
     del out, qt, kt, vt
     B, Sq, Hq, Dh = q.shape
@@ -5539,7 +5549,7 @@ def lm_profile(label: str, fn) -> dict[str, float] | None:
     from torch.profiler import ProfilerActivity, profile
 
     named = {"K6 forward": ("flash_mma", "flash_fwd", "flash_merge"),
-             "K6 backward": ("bwd_dot", "bwd_dkdv", "bwd_dq")}
+             "K6 backward": ("bwd_dot", "bwd_dkdv", "bwd_dq", "bwd_fold")}
     for _ in range(PROFILE_TRIES):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -5645,7 +5655,8 @@ def lm_family_train(arch_id: str, layers: int, dev, gen, card: str,
     layers, on one sequence of LM_TRAIN_SEQ tokens: a finite loss,
     parameters that moved, the launches of its structure, the gradients'
     bits repeating with no float scatter, and layer 0's backward against
-    float64 plain. Returns the step's launches."""
+    float64 plain and timed (into ``stats["ms_by_shape"]``). Returns the
+    step's launches."""
     import dataclasses
 
     import torch
@@ -5695,6 +5706,12 @@ def lm_family_train(arch_id: str, layers: int, dev, gen, card: str,
     del params, state, start, batch
     torch.cuda.empty_cache()
     attention_bwd_check(f"{arch_id} layer 0", call, stats)
+    times = attention_bwd_times(f"{arch_id} layer 0", call, card)
+    stats["ms_by_shape"][arch_id] = {"ms": times[0], "bound_ms": times[2],
+                                     "library_ms": times[4],
+                                     "ms_by_kernel": times[5]}
+    del call
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -5800,7 +5817,7 @@ def phase17_lm_train(dev, gen, card: str) -> tuple[dict, int]:
     del params, state, batches, batch, loss
     torch.cuda.empty_cache()
 
-    stats = {"max_abs_err": 0.0}
+    stats = {"max_abs_err": 0.0, "ms_by_shape": {}}
     attention_bwd_check("gemma-2b layer 0", call, stats)
     ms_bwd, plain_ms, bound, by, lib_ms, split = attention_bwd_times(
         "gemma-2b layer 0", call, card)
@@ -5817,7 +5834,8 @@ def phase17_lm_train(dev, gen, card: str) -> tuple[dict, int]:
     return {"name": "flash_attention_bwd", "launches": total,
             "max_abs_err": stats["max_abs_err"], "ms": ms_bwd,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-            "library_ms": lib_ms, "ms_by_kernel": split}, fwd_launches
+            "library_ms": lib_ms, "ms_by_kernel": split,
+            "family_ms": stats["ms_by_shape"]}, fwd_launches
 
 
 def main() -> int:

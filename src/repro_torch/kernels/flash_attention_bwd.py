@@ -10,23 +10,32 @@ train step differentiates its plain ``flash_attention_jnp``
 (``repro/models/common.py:87``) by autodiff, while the port's forward runs
 through K6 on the card, so its backward on the card is a kernel too.
 
-Three kernels a call (see the source's header): ``bwd_dot`` (D = rowsum(dO
-o O)), ``bwd_dkdv`` (a block a key tile, looping over every folded row that
-sees it in one fixed order, so a KV head's query heads add into its dK and
-dV without atomics) and ``bwd_dq`` (a block a tile of folded rows, looping
-over the key tiles it sees); each output is written once, so a second
-call gives the same bits. Two routes, picked by :func:`route` from the
-dtype and Dh alone:
+Three kernels a call (see the source's header): D = rowsum(dO o O), then
+a dK/dV kernel (a block a key tile, looping over every row that sees it
+in one fixed order, so a KV head's query heads add into its dK and dV
+without atomics) and a dQ kernel (a block a tile of rows, looping over
+the key tiles it sees); each output is written once, so a second call
+gives the same bits. Two routes, picked by :func:`route` from the dtype
+and Dh alone:
 
 * ``"mma"`` (route A) for bfloat16 with Dh in :data:`MMA_HEAD_DIMS`
-  (training's dtype): the products on the tensor cores (``mma.sync`` on
-  bf16 tiles brought in by ``cp.async``), P and dS split into two bf16
-  terms each so that neither is rounded once. With grouped KV heads a key
-  tile's rows are split by query head over as many blocks, their float32
-  sums (a scratch of 2 B Skv Hq Dh floats) added in head order by a
-  fourth kernel, ``bwd_fold``, counted with ``bwd_dkdv``.
+  (training's dtype), on Hopper's tensor cores: ``bwd_dot_vec``,
+  ``bwd_dkdv_tma`` (a block a 64-key tile of one query head, the head's
+  rows 64 at a time through a TMA ring, S^T, dP^T, dV and dK by
+  ``wgmma`` in two warpgroups) and ``bwd_dq_tma`` (a block 128
+  rows of one query head, key tiles through a TMA ring). P and dS enter
+  their products as two bf16 terms each, so that neither is rounded
+  once. With grouped KV heads each query head's dK and dV sums (a scratch
+  of 2 B Skv Hq Dh floats) are added in head order by a fourth kernel,
+  ``bwd_fold``, counted with the dK/dV kernel. :func:`tiles`,
+  :func:`dkdv_walk` and :func:`dq_walk` give the tiles each block takes.
+  The call is bound by operations (10 Dh flops a visible pair); route A
+  executes twice that (S and dO V^T in both kernels, P and dS as two
+  terms), so its floor is twice the bound.
 * ``"simt"`` (route B) for everything else (float32; bfloat16 at Dh 8 to
-  32): every product in float32 on the CUDA cores.
+  32): ``bwd_dot``, ``bwd_dkdv`` and ``bwd_dq``, every product in float32
+  on the CUDA cores, rows folded (folded row rho of a KV head is query
+  rho / group of its query head rho % group).
 
 The wrapper checks device, dtype, shape and strides, allocates the
 outputs and D with ``torch.empty``, launches on PyTorch's current stream,
@@ -57,8 +66,8 @@ LAUNCHES: dict[str, int] = {"flash_attention_bwd": 0,
                             "flash_attention_bwd_simt": 0}
 KERNELS = ("dot", "dkdv", "dq")        # in launch order; bit i of ``which``
 MMA_HEAD_DIMS = (64, 128, 256)         # route A's template instances
-KEY_TILE = {"mma": 32, "simt": 32}     # keys a bwd_dkdv block
-ROW_TILE = {"mma": 64, "simt": 32}     # folded rows a bwd_dq block
+KEY_TILE = {"mma": 64, "simt": 32}     # keys a dK/dV block
+ROW_TILE = {"mma": 128, "simt": 32}    # rows a dQ block (see ``tiles``)
 _ROUTE_CODE = {"simt": 0, "mma": 1}
 
 _P = ctypes.c_void_p
@@ -69,6 +78,7 @@ _SIGNATURES = {
                                    + [_I, _I, ctypes.c_float, _I, _I, _P],
                                    _I),
     "flash_attention_bwd_error_string": ([_I], ctypes.c_char_p),
+    "flash_attention_bwd_smem_bytes": ([_I, _I], _I),
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _INT32_MAX = 2**31 - 1
@@ -84,6 +94,14 @@ def _lib() -> ctypes.CDLL:
     return _build.load("flash_attention_bwd", _SIGNATURES)
 
 
+def shared_bytes(Dh: int) -> dict[str, int]:
+    """Route A's dynamic shared memory a block at head dim Dh, as the
+    source sets it (builds the library)."""
+    lib = _lib()
+    return {"dkdv": lib.flash_attention_bwd_smem_bytes(Dh, 1),
+            "dq": lib.flash_attention_bwd_smem_bytes(Dh, 2)}
+
+
 def route(dtype: torch.dtype, Dh: int) -> str:
     """The route of a call: ``"mma"`` (tensor cores) for bfloat16 with Dh in
     :data:`MMA_HEAD_DIMS`, else ``"simt"`` (CUDA cores, float32). Float32
@@ -92,17 +110,67 @@ def route(dtype: torch.dtype, Dh: int) -> str:
         else "simt"
 
 
+def tiles(way: str, Dh: int) -> dict[str, int]:
+    """The tiles of route ``way`` at head dim Dh: the keys of a dK/dV
+    block (``"dkdv_keys"``, :data:`KEY_TILE`) and the rows it takes at a
+    time (``"dkdv_rows"``), the rows of a dQ block (``"dq_rows"``,
+    :data:`ROW_TILE`) and the keys it takes at a time (``"dq_keys"``).
+    Route A's rows are positions of one query head (``"folded"`` 0),
+    route B's folded rows of a KV head (``"folded"`` 1)."""
+    if way == "mma":
+        return {"dkdv_keys": KEY_TILE[way], "dkdv_rows": 64,
+                "dq_rows": ROW_TILE[way], "dq_keys": 32 if Dh >= 256 else 64,
+                "folded": 0}
+    return {"dkdv_keys": KEY_TILE[way], "dkdv_rows": 32,
+            "dq_rows": ROW_TILE[way], "dq_keys": 32, "folded": 1}
+
+
+def dkdv_walk(B: int, Sq: int, Skv: int, Hq: int, q_offset: int,
+              causal: bool = True) -> list[tuple[int, int, int, list[int]]]:
+    """Route A's dK/dV blocks in launch order (the first key tiles, for a
+    causal call the heaviest, first), as ``bwd_dkdv_tma`` computes them:
+    (k0, query head, batch row, the first rows of the 64-row tiles it
+    takes in order: from the first row that sees key k0 to Sq)."""
+    step = tiles("mma", MMA_HEAD_DIMS[0])["dkdv_rows"]
+    out = []
+    for blk in range(-(-Skv // KEY_TILE["mma"]) * Hq * B):
+        hb = blk % (Hq * B)
+        k0 = blk // (Hq * B) * KEY_TILE["mma"]
+        first = min(max(0, k0 - q_offset), Sq) if causal else 0
+        out.append((k0, hb % Hq, hb // Hq, list(range(first, Sq, step))))
+    return out
+
+
+def dq_walk(B: int, Sq: int, Skv: int, Hq: int, Dh: int, q_offset: int,
+            causal: bool = True) -> list[tuple[int, int, int, int,
+                                               list[int]]]:
+    """Route A's dQ blocks in launch order (the last row tiles, for a
+    causal call the heaviest, first), as ``bwd_dq_tma`` computes them:
+    (r0, query head, batch row, the end of the keys its last row sees,
+    the first keys of the key tiles it takes in order)."""
+    rows, keys = ROW_TILE["mma"], tiles("mma", Dh)["dq_keys"]
+    n_rt = -(-Sq // rows)
+    out = []
+    for blk in range(n_rt * Hq * B):
+        hb = blk % (Hq * B)
+        r0 = (n_rt - 1 - blk // (Hq * B)) * rows
+        last = min(r0 + rows, Sq) - 1
+        end = min(Skv, q_offset + last + 1) if causal else Skv
+        out.append((r0, hb % Hq, hb // Hq, end, list(range(0, end, keys))))
+    return out
+
+
 def grid_blocks(B: int, Sq: int, Skv: int, Hq: int, Hkv: int,
                 way: str) -> dict[str, int]:
-    """Blocks of each kernel on route ``way``: ``bwd_dot`` 8 rows a block,
-    ``bwd_dkdv`` a (key tile, KV head, batch row), on route A a (key tile,
-    query head, batch row), ``bwd_dq`` a (folded row tile, KV head, batch
-    row)."""
-    rows = Sq * (Hq // Hkv)
-    heads = Hq if way == "mma" else Hkv
+    """Blocks of each kernel on route ``way``: D 8 rows a block on route
+    B (up to 32 on route A; 8 counted), the dK/dV kernel a (key tile, KV
+    head, batch row), on route A a (key tile, query head, batch row), the
+    dQ kernel a (folded row tile, KV head, batch row), on route A a (row
+    tile, query head, batch row)."""
+    rows, heads = (Sq, Hq) if way == "mma" else (Sq * (Hq // Hkv), Hkv)
     return {"dot": -(-B * Sq * Hq // 8),
             "dkdv": -(-Skv // KEY_TILE[way]) * heads * B,
-            "dq": -(-rows // ROW_TILE[way]) * Hkv * B}
+            "dq": -(-rows // ROW_TILE[way]) * heads * B}
 
 
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
@@ -164,6 +232,12 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                     (lse, "lse")):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, q on {dev}")
+    way = route(q.dtype, Dh)
+    if way == "mma":
+        # a tensor map takes no stride of 0 along an axis of several
+        q, k, v = (t.contiguous() if any(st == 0 and n > 1 for st, n in
+                                         zip(t.stride(), t.shape)) else t
+                   for t in (q, k, v))
     for t, name in ((q, "q"), (k, "k"), (v, "v")):   # rows load 16 bytes
         if t.stride(3) != 1:
             raise ValueError(f"{name}'s last axis must be contiguous, "
@@ -176,7 +250,6 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     for t, name in ((o, "o"), (dout, "dout")):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary")
-    way = route(q.dtype, Dh)
     if max(grid_blocks(B, Sq, Skv, Hq, Hkv, way).values()) > _INT32_MAX:
         raise ValueError("shapes out of range: too many blocks")
     if dsum is None:
@@ -187,8 +260,8 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
             or not dsum.is_contiguous() or dsum.device != dev:
         raise ValueError(f"dsum must be contiguous (B, Sq, Hq) float32 on "
                          f"{dev}")
-    # route A splits the key tiles' rows by query head where heads are
-    # grouped: their float32 sums, folded in head order
+    # route A takes a query head a dK/dV block: where heads are grouped,
+    # their float32 sums, folded in head order
     scratch = None
     if way == "mma" and Hq > Hkv and "dkdv" in kernels:
         scratch = torch.empty(2 * B * Skv * Hq * Dh, dtype=torch.float32,

@@ -1641,11 +1641,16 @@ def test_din_train_step_on_card_matches_cpu_and_repeats(card):
 # K6's backward (csrc/flash_attention_bwd.cu)
 
 # (B, Sq, Hq, Hkv, Dh, q_offset): groups 1, 4 and 8, Dh 64, 128 and 256,
-# q_offset 0 and not; Skv = Sq + q_offset (training's causal shape)
+# q_offset 0 and not; Skv = Sq + q_offset (training's causal shape). The
+# last three at the edges of route A's tiles: Sq and Skv not multiples of
+# 64 or 128, group 8 with q_offset at Dh 256 and B 2 at Dh 128, a last
+# 128-row tile of one row
 ATTN_BWD_SHAPES = [(2, 70, 8, 1, 64, 0), (1, 100, 4, 1, 128, 29),
                    (2, 45, 4, 4, 256, 0), (1, 64, 8, 1, 256, 0),
                    (2, 33, 8, 2, 64, 40), (1, 130, 4, 4, 128, 0),
-                   (1, 96, 8, 8, 32, 7), (2, 17, 8, 1, 256, 100)]
+                   (1, 96, 8, 8, 32, 7), (2, 17, 8, 1, 256, 100),
+                   (2, 200, 8, 1, 256, 37), (2, 150, 4, 2, 128, 13),
+                   (1, 257, 2, 2, 64, 0)]
 
 
 def _bwd_inputs(card, B, Sq, Hq, Hkv, Dh, off, dtype, seed):
