@@ -308,7 +308,28 @@ drives the port's main path, in phases:
    (gemma) dK and dV from one query head of the group; a second launch
    repeats its bits, and K6's output has the same bits with the logsumexp
    asked for and without. gemma-2b's backward timed beside its bound, the
-   plain version's and ``F.scaled_dot_product_attention``'s backward.
+   plain version's and ``F.scaled_dot_product_attention``'s backward. The
+   token embedding's gather backward, one ``segment_reduce`` a
+   micro-batch, is counted with K6's launches;
+18. MoE LM training through ``LMArch.build_step("train_4k")``:
+   qwen2-moe-a2.7b at full width (d 2048, 16 heads on 16, Dh 128, 60
+   experts top 4 and 4 shared, vocab 151,936) and sequence 4,096, cut in
+   batch as phase 17 and in depth to ``MOE_TRAIN_LAYERS`` of 24 (the cut
+   printed with the measured peak), ``LM_TRAIN_STEPS`` steps on one
+   ``TokenStream`` batch: finite losses, the last below the first, the
+   launches of K6, its backward and ``segment_reduce`` that the structure
+   gives, ms a step beside the least time, a profile split into K6's
+   forward and backward, GEMMs, the MoE gathers' forward and backward
+   (``moe.GatherRows``: the dispatch's and combine's fixed-order
+   backwards), AdamW and the rest with the idle share. A micro-batch's
+   loss and gradients twice with the same bits, no float scatter
+   recorded. Layer 0's MoE gradients at T 4,096 in float32 against
+   float64 autograd of the plain formula on the same routing, at the
+   published capacity factor and at 0.5, within rtol 1e-5 + 1e-6 max a
+   leaf; the limit must refuse a dispatch backward without each token's
+   k >= 1 slots and a combine backward that gives dropped entries a
+   gradient. K6's backward at the train shape (16 on 16, Dh 128) held and
+   timed as in phase 17; moonshot-v1-16b-a3b one step at 2 layers.
 
 The launch counts of each path are zeroed just before it and read just
 after. Any failed phase exits non-zero; without a card, or without the
@@ -525,6 +546,26 @@ LM_TRAIN_STEPS = 4
 # one step each at full width, cut in depth: K6's backward at Dh 64 (MHA)
 # and Dh 128 (MHA with QKV bias)
 LM_TRAIN_FAMILY = (("stablelm-1.6b", 2), ("qwen1.5-32b", 2))
+# phase 18: qwen2-moe-a2.7b's train_4k at full width and sequence, cut in
+# batch as phase 17 and in depth: 4 of 24 layers (0.571 B parameters a
+# layer, 0.622 B in the embedding and head) peak near 65 GB; a fifth would
+# pass the card's 80
+MOE_TRAIN_ARCH = "qwen2-moe-a2.7b"
+MOE_TRAIN_LAYERS = 4
+# one step at full width, cut in depth: top 6 of 64, 2 shared, no QKV bias
+MOE_TRAIN_FAMILY = (("moonshot-v1-16b-a3b", 2),)
+# the MoE layer's float32 gradients against float64 on the same routing:
+# rtol of |g| plus MOE_GRAD_ULPS times an entry's first-order rounding
+# scale in units of 2^-24 (moe_rounding_scales). Measured on the CPU at d
+# 128 and 512 (F 88 and 352, E 60, top 4; random and Zipf-repeated rows)
+# the largest error over all entries was 35 units (w_down, skewed
+# routing); on an H100 at qwen2-moe's layer 0 without the propagated
+# terms, the experts' weights missed by up to 1,104 x 512 units where an
+# expert held one or two tokens (the error then is da's, from dh's dot
+# product over d, not the last product's). 128 leaves ~4x.
+MOE_GRAD_RTOL = 1e-5
+MOE_GRAD_ULPS = 128.0
+MOE_GRAD_SEED = 5              # the output gradient's draw
 ATTN_BWD_REPS = 5
 TUNE_PAD_MULTIPLES = (8, 16, 32)
 TUNE_B = 8
@@ -3370,6 +3411,28 @@ def moe_plain64(fp, m, xt, gate_w, gate_i, capacity: int,
     return y, dropped
 
 
+def moe_layer0_input(params, cfg, tokens):
+    """Layer 0's MoE input (T, d) on ``tokens`` (B, S): the embedding,
+    layer 0's attention and the norm before the feed-forward."""
+    import torch
+
+    from repro_torch.models import transformer
+    from repro_torch.models.common import rms_norm, rope_frequencies
+
+    B, S = tokens.shape
+    p = transformer.layer_params(params, 0)
+    cos, sin = rope_frequencies(cfg.head_dim, S, cfg.rope_theta,
+                                tokens.device)
+    pos = torch.arange(S, device=tokens.device).expand(B, S)
+    with torch.no_grad():
+        x = transformer._embed(params, cfg, tokens)
+        h, _ = transformer._attention(p["attn"], cfg,
+                                      rms_norm(x, p["ln1"], cfg.norm_eps),
+                                      cos, sin, pos)
+        return rms_norm(x + h, p["ln2"], cfg.norm_eps).reshape(
+            B * S, cfg.d_model)
+
+
 def moe_layer0_check(arch_id: str, params, cfg, tokens) -> None:
     """Layer 0's MoE feed-forward on the prefill's tokens, on the card,
     against float64: the router's logits, the top-k sets, and y with its
@@ -3380,23 +3443,13 @@ def moe_layer0_check(arch_id: str, params, cfg, tokens) -> None:
     import torch
 
     from repro_torch.models import moe, transformer
-    from repro_torch.models.common import rms_norm, rope_frequencies
 
     B, S = tokens.shape
     T = B * S
     m = cfg.moe
     E, K = m.num_experts, m.top_k
-    p = transformer.layer_params(params, 0)
-    fp = p["ffn"]
-    cos, sin = rope_frequencies(cfg.head_dim, S, cfg.rope_theta,
-                                tokens.device)
-    pos = torch.arange(S, device=tokens.device).expand(B, S)
-    x = transformer._embed(params, cfg, tokens)
-    h, _ = transformer._attention(p["attn"], cfg,
-                                  rms_norm(x, p["ln1"], cfg.norm_eps),
-                                  cos, sin, pos)
-    xt = rms_norm(x + h, p["ln2"], cfg.norm_eps).reshape(T, cfg.d_model)
-    del x, h
+    fp = transformer.layer_params(params, 0)["ffn"]
+    xt = moe_layer0_input(params, cfg, tokens)
     logits, _, gate_w, gate_i = moe.route(fp, m, xt)
     l64 = xt.double() @ fp["router"].double()
     # a dot product rounds relative to sum_j |x_j r_j|, not to its value,
@@ -5537,13 +5590,15 @@ def attention_bwd_times(label: str, call, card: str):
     return ms, plain_ms, bound, by, lib_ms, split
 
 
-def lm_profile(label: str, fn) -> dict[str, float] | None:
+def lm_profile(label: str, fn, ranges: dict[str, str] | None = None
+               ) -> dict[str, float] | None:
     """Where one LM train step spends the card's time, under
-    ``torch.profiler``: K6's forward and backward by kernel name, GEMMs by
-    the op that launched each kernel, the rest (the loss, norms, RoPE,
-    activations, the embedding's fold, AdamW); and the share of the wall
-    time the card was idle. None where every window lost its device
-    events."""
+    ``torch.profiler``: K6's forward and backward by kernel name, then
+    each part of ``ranges`` (part -> the name of a ``record_function``
+    range) by the range around the op that launched each kernel, GEMMs by
+    that op, the rest (the loss, norms, RoPE, activations, the embedding's
+    fold, AdamW unless a range names it); and the share of the wall time
+    the card was idle. None where every window lost its device events."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -5577,6 +5632,8 @@ def lm_profile(label: str, fn) -> dict[str, float] | None:
               f"device time in {PROFILE_TRIES} windows)")
         return None
     ours = sum(named.values(), ())
+    ranges = ranges or {}
+    parts.update(dict.fromkeys(ranges, 0.0))
     parts["GEMMs"] = 0.0
     for e in events:
         if e.device_type != DeviceType.CPU or not e.kernels:
@@ -5585,9 +5642,13 @@ def lm_profile(label: str, fn) -> dict[str, float] | None:
         while up is not None:
             chain.append(up.name)
             up = up.cpu_parent
-        if any(n in GEMM_OPS for n in chain):
-            parts["GEMMs"] += sum(k.duration for k in e.kernels
-                                  if not any(s in k.name for s in ours))
+        us = sum(k.duration for k in e.kernels
+                 if not any(s in k.name for s in ours))
+        part = next((p for p, r in ranges.items() if r in chain), None)
+        if part is not None:
+            parts[part] += us
+        elif any(n in GEMM_OPS for n in chain):
+            parts["GEMMs"] += us
     parts["rest"] = busy - sum(parts.values())
     print(f"  profile {label}: wall {wall_us / 1e3:.3f} ms, device busy "
           f"{busy / 1e3:.3f} ms, idle share {1 - busy / wall_us:.3f}; "
@@ -5601,7 +5662,9 @@ def lm_train_launches(cfg, accum: int) -> dict[str, int]:
     """K6's forward and backward launches a train step of ``accum``
     micro-batches: each layer's forward twice with remat (the step's and
     the backward's recompute), once without, and its backward once, three
-    kernels a call on the route ``flash_attention_bwd.route`` picks."""
+    kernels a call on the route ``flash_attention_bwd.route`` picks; and
+    one ``segment_reduce`` a micro-batch, the token embedding's gather
+    backward."""
     from repro_torch.kernels import flash_attention_bwd
 
     fwd = (2 if cfg.remat else 1) * cfg.n_layers * accum
@@ -5612,21 +5675,26 @@ def lm_train_launches(cfg, accum: int) -> dict[str, int]:
             "flash_attention_bwd_dkdv": calls,
             "flash_attention_bwd_dq": calls,
             "flash_attention_bwd_mma": calls * (way == "mma"),
-            "flash_attention_bwd_simt": calls * (way == "simt")}
+            "flash_attention_bwd_simt": calls * (way == "simt"),
+            "segment_reduce": accum}
 
 
 def lm_launch_counts() -> dict[str, int]:
-    from repro_torch.kernels import flash_attention, flash_attention_bwd
+    from repro_torch.kernels import (flash_attention, flash_attention_bwd,
+                                     segment_reduce)
 
     return {"flash_attention": flash_attention.LAUNCHES["flash_attention"],
-            **flash_attention_bwd.LAUNCHES}
+            **flash_attention_bwd.LAUNCHES,
+            "segment_reduce": segment_reduce.LAUNCHES["segment_reduce"]}
 
 
 def lm_reset_launches() -> None:
-    from repro_torch.kernels import flash_attention, flash_attention_bwd
+    from repro_torch.kernels import (flash_attention, flash_attention_bwd,
+                                     segment_reduce)
 
     flash_attention.reset_launches()
     flash_attention_bwd.reset_launches()
+    segment_reduce.reset_launches()
 
 
 def lm_grads_repeat(params, cfg, batch) -> tuple[bool, list[str]]:
@@ -5647,6 +5715,80 @@ def lm_grads_repeat(params, cfg, batch) -> tuple[bool, list[str]]:
     same = bool(torch.equal(loss, loss2)) and all(
         torch.equal(a, b) for a, b in zip(grads, grads2))
     return same, sorted(set(recorder.seen))
+
+
+def lm_repeat_check(label: str, params, cfg, micro) -> None:
+    """:func:`lm_grads_repeat` on one micro-batch, printed and checked: the
+    same bits, no float scatter."""
+    same, scatters = lm_grads_repeat(params, cfg, micro)
+    print(f"  one micro-batch's loss and gradients twice: same bits {same}; "
+          f"float scatters {scatters}")
+    check(same, f"{label}: a second run of the gradients gave other bits")
+    check(not scatters, f"{label}: float scatters ran in the train step: "
+          f"{scatters}")
+
+
+def lm_train_steps(label: str, arch, params, batches, dev, card: str):
+    """The main path of phases 17 and 18: ``arch``'s train_4k step on each
+    of ``batches`` from ``adamw_init``, the launch counts zeroed just
+    before and read just after, each step timed by CUDA events, the last
+    call of K6's backward recorded (layer 0's). Prints the losses, ms a
+    step beside ``model_flops``/``model_bytes``' least time, the peak
+    memory and the launches a step; checks that the losses are finite and
+    fall and that the launches are the structure's. Returns (params,
+    optimizer state, the step, the recorded call, the launches, the
+    peak)."""
+    import torch
+
+    from repro_torch.optim import adamw_init
+
+    cfg = arch.cfg
+    B = batches[0]["tokens"].shape[0]
+    step = arch.build_step("train_4k")
+    state = adamw_init(params)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    losses, times = [], []
+    lm_reset_launches()
+    with recorded_attention_bwd() as seen:
+        for batch in batches:
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            params, state, loss = step(params, state, batch)
+            stop.record()
+            losses.append(loss)
+            times.append((start, stop))
+        torch.cuda.synchronize()
+    launches = lm_launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = [float(x) for x in losses]
+    ms = [a.elapsed_time(b) for a, b in times]
+    n = len(batches)
+    per_step = {k: v / n for k, v in launches.items()}
+    want = lm_train_launches(cfg, arch.grad_accum)
+    flops = arch.model_flops("train_4k", batch=B, seq=LM_TRAIN_SEQ)
+    nbytes = arch.model_bytes("train_4k", batch=B, seq=LM_TRAIN_SEQ)
+    least = max(flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+    steady = ms[1:]
+    mean_ms = sum(steady) / len(steady)
+    print(f"  {n} train steps: losses {losses}; ms a step "
+          f"{[round(x, 3) for x in ms]} (mean of steps 2-{n} "
+          f"{mean_ms:.3f} ms, {B * LM_TRAIN_SEQ / mean_ms * 1e3:.1f} tokens/s)"
+          f"; least {least:.3f} ms ({flops:.4e} flops at 989 TFLOP/s bf16, "
+          f"{nbytes:.4e} bytes at 3.35 TB/s; {least / mean_ms:.4f} of it); "
+          f"peak {peak / 1e9:.2f} GB ({(peak - held) / 1e9:.2f} GB above the "
+          f"{held / 1e9:.2f} GB held before); launches a step {per_step}  "
+          f"[{card}]")
+    check(all(math.isfinite(x) for x in losses), f"{label}: a non-finite "
+          f"loss")
+    check(losses[-1] < losses[0], f"{label}: the loss did not fall over "
+          f"the steps ({losses})")
+    check(per_step == {k: float(v) for k, v in want.items()},
+          f"{label}: launches a step {per_step}, its structure gives {want}")
+    return params, state, step, seen["call"], launches, peak
 
 
 def lm_family_train(arch_id: str, layers: int, dev, gen, card: str,
@@ -5715,19 +5857,20 @@ def lm_family_train(arch_id: str, layers: int, dev, gen, card: str,
     return launches
 
 
-def phase17_lm_train(dev, gen, card: str) -> tuple[dict, int]:
+def phase17_lm_train(dev, gen, card: str) -> tuple[dict, int, int]:
     """Dense LM training on the card: gemma-2b's train_4k at full width and
     depth and full sequence, cut in batch only (LM_TRAIN_ACCUM
     micro-batches of LM_TRAIN_MICRO sequences, each layer recomputed in
     the backward), through K6 and its backward; stablelm-1.6b and
     qwen1.5-32b one step each at 2 layers; K6's backward against float64
     plain at each shape. Returns the backward's row of the ``kernels``
-    line and K6's forward launches in the phase's train steps."""
+    line, K6's forward launches and ``segment_reduce``'s in the phase's
+    train steps."""
     import torch
 
     from repro_torch.configs import LM_SHAPES, get_arch
     from repro_torch.configs.base import LMArch
-    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.optim import AdamWConfig
 
     print(f"phase 17: dense LM training (the loss, K6's backward, AdamW), "
           f"card {card}")
@@ -5758,63 +5901,13 @@ def phase17_lm_train(dev, gen, card: str) -> tuple[dict, int]:
                                 seq=LM_TRAIN_SEQ, seed=0)] * LM_TRAIN_STEPS
     print(f"  init: {n_params} parameters ({n_params * 2 / 1e9:.2f} GB bf16)"
           f", {time.perf_counter() - t0:.2f}s")
-    micro = {k: v[:LM_TRAIN_MICRO] for k, v in batches[0].items()}
-    same, scatters = lm_grads_repeat(params, cfg, micro)
-    print(f"  one micro-batch's loss and gradients twice: same bits {same}; "
-          f"float scatters {scatters}")
-    check(same, "gemma-2b: a second run of the gradients gave other bits")
-    check(not scatters, f"gemma-2b: float scatters ran in the train step: "
-          f"{scatters}")
-    del micro
-
-    # the main path: LM_TRAIN_STEPS train steps
-    step = arch.build_step("train_4k")
-    state = adamw_init(params)
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats(dev)
-    held = torch.cuda.memory_allocated(dev)
-    losses, times = [], []
-    lm_reset_launches()
-    with recorded_attention_bwd() as seen:
-        for batch in batches:
-            start = torch.cuda.Event(enable_timing=True)
-            stop = torch.cuda.Event(enable_timing=True)
-            start.record()
-            params, state, loss = step(params, state, batch)
-            stop.record()
-            losses.append(loss)
-            times.append((start, stop))
-        torch.cuda.synchronize()
-    launches = lm_launch_counts()
-    peak = torch.cuda.max_memory_allocated(dev)
-    losses = [float(x) for x in losses]
-    ms = [a.elapsed_time(b) for a, b in times]
-    per_step = {k: v / LM_TRAIN_STEPS for k, v in launches.items()}
-    want = lm_train_launches(cfg, LM_TRAIN_ACCUM)
-    flops = arch.model_flops("train_4k", batch=B, seq=LM_TRAIN_SEQ)
-    nbytes = arch.model_bytes("train_4k", batch=B, seq=LM_TRAIN_SEQ)
-    least = max(flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
-    steady = ms[1:]
-    mean_ms = sum(steady) / len(steady)
-    print(f"  {LM_TRAIN_STEPS} train steps: losses {losses}; ms a step "
-          f"{[round(x, 3) for x in ms]} (mean of steps 2-{LM_TRAIN_STEPS} "
-          f"{mean_ms:.3f} ms, {B * LM_TRAIN_SEQ / mean_ms * 1e3:.1f} tokens/s)"
-          f"; least {least:.3f} ms ({flops:.4e} flops at 989 TFLOP/s bf16, "
-          f"{nbytes:.4e} bytes at 3.35 TB/s; {least / mean_ms:.4f} of it); "
-          f"peak {peak / 1e9:.2f} GB ({(peak - held) / 1e9:.2f} GB above the "
-          f"{held / 1e9:.2f} GB held before); launches a step {per_step}  "
-          f"[{card}]")
-    check(all(math.isfinite(x) for x in losses), "gemma-2b: a non-finite "
-          "loss")
-    check(losses[-1] < losses[0], f"gemma-2b: the loss did not fall over "
-          f"the steps ({losses})")
-    check(per_step == {k: float(v) for k, v in want.items()},
-          f"gemma-2b: launches a step {per_step}, its structure gives {want}")
+    lm_repeat_check("gemma-2b", params, cfg,
+                    {k: v[:LM_TRAIN_MICRO] for k, v in batches[0].items()})
+    params, state, step, call, launches, _ = lm_train_steps(
+        "gemma-2b", arch, params, batches, dev, card)
     lm_profile("gemma-2b train_4k step", lambda: step(params, state,
                                                       batches[-1]))
-    call = seen["call"]
-    del params, state, batches, batch, loss
+    del params, state, batches
     torch.cuda.empty_cache()
 
     stats = {"max_abs_err": 0.0, "ms_by_shape": {}}
@@ -5823,19 +5916,408 @@ def phase17_lm_train(dev, gen, card: str) -> tuple[dict, int]:
         "gemma-2b layer 0", call, card)
     total = launches["flash_attention_bwd"]
     fwd_launches = launches["flash_attention"]
+    seg_launches = launches["segment_reduce"]
     del call
     torch.cuda.empty_cache()
     for arch_id, layers in LM_TRAIN_FAMILY:
         got = lm_family_train(arch_id, layers, dev, gen, card, stats)
         total += got["flash_attention_bwd"]
         fwd_launches += got["flash_attention"]
+        seg_launches += got["segment_reduce"]
         torch.cuda.empty_cache()
     print(f"  phase 17 wall {time.perf_counter() - t_phase:.1f}s")
     return {"name": "flash_attention_bwd", "launches": total,
             "max_abs_err": stats["max_abs_err"], "ms": ms_bwd,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
             "library_ms": lib_ms, "ms_by_kernel": split,
-            "family_ms": stats["ms_by_shape"]}, fwd_launches
+            "family_ms": stats["ms_by_shape"]}, fwd_launches, seg_launches
+
+
+# ---------------------------------------------------------------------------
+# phase 18: MoE LM training
+
+
+@contextmanager
+def annotated_moe_train():
+    """While open, the MoE dispatch's and combine's gathers
+    (``moe.GatherRows``) run inside ``record_function`` ranges "moe:gather
+    forward" and "moe:gather backward", and the train step's AdamW update
+    inside "adamw", for :func:`lm_profile`'s split."""
+    from torch.profiler import record_function
+
+    from repro_torch.configs import base
+    from repro_torch.models import moe
+
+    kept, update = moe.GatherRows, base.adamw_update
+
+    class Annotated(kept):
+        @staticmethod
+        def forward(ctx, *args):
+            with record_function("moe:gather forward"):
+                return kept.forward(ctx, *args)
+
+        @staticmethod
+        def backward(ctx, g):
+            with record_function("moe:gather backward"):
+                return kept.backward(ctx, g)
+
+    def annotated_update(*args, **kwargs):
+        with record_function("adamw"):
+            return update(*args, **kwargs)
+
+    moe.GatherRows, base.adamw_update = Annotated, annotated_update
+    try:
+        yield
+    finally:
+        moe.GatherRows, base.adamw_update = kept, update
+
+
+def moe_plain64_grads(fp, m, x, cot, gate_i, slot_token, entry_slot,
+                      slot_entry, broken: str | None = None):
+    """The MoE loss sum(y cot) + router_aux_weight aux in float64 on a
+    given routing (gate_i, the slots), written with advanced indexing and
+    autograd's own backward of it. Returns (its gradients: the leaves of
+    ``fp`` in ``tree_leaves`` order, then x; and, without ``broken``, each
+    one's float32 rounding scale in units of 2^-24, from
+    :func:`moe_rounding_scales`). The broken versions keep the forward and
+    change the backward: "dispatch" gives a token only its k = 0 slot's
+    gradient, "combine" gives each dropped entry's gradient to the last
+    slot of its expert (a capacity clamp in place of the cut-off slot)."""
+    import torch
+
+    from repro_torch.models.common import act_fn, tree_leaves
+
+    T, d = x.shape
+    E, K = m.num_experts, m.top_k
+    C = slot_token.numel() // E
+    p64 = {k: ({kk: vv.detach().double().requires_grad_(True)
+                for kk, vv in v.items()} if isinstance(v, dict)
+               else v.detach().double().requires_grad_(True))
+           for k, v in fp.items()}
+    x64 = x.detach().double().requires_grad_(True)
+    logits = x64 @ p64["router"]
+    probs = torch.softmax(logits, dim=-1)
+    gw = probs.gather(1, gate_i)
+    gw = gw / gw.sum(-1, keepdim=True).clamp_min(1e-9)
+    rows = torch.cat([x64, x64.new_zeros((1, d))])[slot_token]
+    if broken == "dispatch":
+        first = (slot_entry % K == 0) | (slot_token == T)
+        rows = torch.where(first[:, None], rows, rows.detach())
+    xin = rows.reshape(E, C, d)
+    act = act_fn(m.act)
+    a, b = torch.bmm(xin, p64["w_gate"]), torch.bmm(xin, p64["w_up"])
+    h = act(a) * b
+    out = torch.bmm(h, p64["w_down"])
+    flat = torch.cat([out.reshape(E * C, d), x64.new_zeros((1, d))])
+    per = flat[entry_slot]
+    if broken == "combine":
+        dropped = (entry_slot == E * C)[:, None]
+        extra = flat[gate_i.reshape(-1) * C + C - 1]
+        per = per + torch.where(dropped, extra - extra.detach(), 0.0)
+    y = (per.reshape(T, K, d) * gw[..., None]).sum(1)
+    sp = p64.get("shared")
+    inner = {"logits": logits, "a": a, "b": b, "h": h, "out": out}
+    if sp is not None:
+        a_s, b_s = x64 @ sp["w_gate"], x64 @ sp["w_up"]
+        hs = act(a_s) * b_s
+        y = y + hs @ sp["w_down"]
+        inner.update(a_s=a_s, b_s=b_s, h_s=hs)
+    counts = torch.bincount(gate_i.reshape(-1), minlength=E).double()
+    aux = E * torch.sum(counts / (T * K) * probs.mean(dim=0))
+    loss = (y * cot.double()).sum() + m.router_aux_weight * aux
+    leaves = tree_leaves(p64)
+    got = torch.autograd.grad(loss, [*leaves, x64, *inner.values()])
+    grads = got[:len(leaves) + 1]
+    if broken is not None:
+        return grads, None
+    fwd = {k: v.detach() for k, v in inner.items()}
+    bwd = dict(zip(inner, got[len(leaves) + 1:]))
+    with torch.no_grad():
+        return grads, moe_rounding_scales(
+            p64, m, x64.detach(), cot.double(), gate_i, entry_slot,
+            probs.detach(), gw.detach(), xin.detach(), fwd, bwd)
+
+
+def moe_rounding_scales(p64, m, x, cot, gate_i, entry_slot, probs, gw, xin,
+                        fwd, bwd):
+    """First-order float32 rounding of each MoE gradient, in units of
+    2^-24, as a root sum of squares: a float32 product or sum rounds its
+    terms' sum by a random walk of ~1 unit of each term, so a dot product
+    over n terms errs by sqrt(sum_i (a_i b_i)^2) units plus what its
+    inputs' own errors carry, sqrt(sum_i (da_i b_i)^2 + (a_i db_i)^2).
+    Walked through the forward (a = x W_gate, b = x W_up, h = act(a) b,
+    out = h W_down, the logits) and the backward (dout = g gw, dh, da, db,
+    the gate weights' gradient, the softmax), the experts and the shared
+    experts alike. Returns one tensor a leaf, in ``tree_leaves`` order,
+    then x's."""
+    import torch
+
+    from repro_torch.models.common import act_fn, tree_leaves
+
+    T, d = x.shape
+    E, K = m.num_experts, m.top_k
+    act = act_fn(m.act)
+
+    def dot(u, w):             # u @ w's rounding: sqrt(u^2 @ w^2)
+        return (u.square() @ w.square()).sqrt()
+
+    def derivatives(z):        # act'(z), act''(z)
+        with torch.enable_grad():
+            zz = z.detach().requires_grad_(True)
+            d1 = torch.autograd.grad(act(zz).sum(), zz, create_graph=True)[0]
+            d2 = torch.autograd.grad(d1.sum(), zz)[0]
+        return d1.detach(), d2
+
+    def glu(xs, wg, wu, wd, a, b, h, da, db, dh, dout, e_dout):
+        """A GLU's scales: those of its three weights' gradients (each a
+        sum over the rows of xs), of its input's gradient terms (before
+        any gather) and of its output."""
+        ea, eb = dot(xs, wg), dot(xs, wu)
+        f, (f1, f2) = act(a), derivatives(a)
+        eh = (f1.square() * b.square() * ea.square() + f.square()
+              * eb.square() + h.square()).sqrt()
+        e_out = (dot(h, wd).square() + dot(eh, wd).square()).sqrt()
+        wdt = wd.transpose(-1, -2)
+        edh = (dot(dout, wdt).square() + dot(e_dout, wdt).square()).sqrt()
+        eda = (edh.square() * (f1 * b).square() + (dh * f2 * b * ea).square()
+               + (dh * f1 * eb).square() + da.square()).sqrt()
+        edb = (edh.square() * f.square() + (dh * f1 * ea).square()
+               + db.square()).sqrt()
+        xt = xs.transpose(-1, -2)
+        g_wg = (xt.square() @ (da.square() + eda.square())).sqrt()
+        g_wu = (xt.square() @ (db.square() + edb.square())).sqrt()
+        g_wd = ((h.square() + eh.square()).transpose(-1, -2) @ dout.square()
+                + h.square().transpose(-1, -2) @ e_dout.square()).sqrt()
+        g_x = (dot(da, wg.transpose(-1, -2)).square()
+               + dot(eda, wg.transpose(-1, -2)).square()
+               + dot(db, wu.transpose(-1, -2)).square()
+               + dot(edb, wu.transpose(-1, -2)).square())
+        return g_wg, g_wu, g_wd, g_x, e_out
+
+    scale = {}
+    dout = bwd["out"]
+    # dout = g gw: one rounding, and the gate weight's few
+    e_dout = 2.0 * dout.abs()
+    g_wg, g_wu, g_wd, slot_x, e_out = glu(
+        xin, p64["w_gate"], p64["w_up"], p64["w_down"], fwd["a"], fwd["b"],
+        fwd["h"], bwd["a"], bwd["b"], bwd["h"], dout, e_dout)
+    scale[id(p64["w_gate"])], scale[id(p64["w_up"])] = g_wg, g_wu
+    scale[id(p64["w_down"])] = g_wd
+    C = xin.shape[1]
+    x_sq = torch.cat([slot_x.reshape(E * C, d), x.new_zeros((1, d))]
+                     )[entry_slot].reshape(T, K, d).sum(1)
+    # the gate weights' gradients: dot products over d of each entry's
+    # expert output (with its error) and g
+    per = torch.cat([fwd["out"].reshape(E * C, d), x.new_zeros((1, d))]
+                    )[entry_slot].reshape(T, K, d)
+    e_per = torch.cat([e_out.reshape(E * C, d), x.new_zeros((1, d))]
+                      )[entry_slot].reshape(T, K, d)
+    e_gw = ((per.square() + e_per.square()) * cot.square()[:, None]
+            ).sum(-1).sqrt()
+    # through the renormalisation (sum S of the top-k probabilities) and
+    # the softmax; the logits' own rounding moves the softmax's output
+    S = probs.gather(1, gate_i).sum(-1, keepdim=True)
+    e_dp = torch.zeros_like(probs).scatter(1, gate_i, (
+        e_gw.square() + (gw * e_gw).square().sum(-1, keepdim=True)
+    ).sqrt() / S)
+    dl = bwd["logits"]
+    e_logit = dot(x, p64["router"])
+    e_dl = (probs.square() * (e_dp.square() + (probs * e_dp).square().sum(
+        -1, keepdim=True)) + dl.square() * (e_logit.square() + 4.0)).sqrt()
+    scale[id(p64["router"])] = (x.square().T @ (dl.square()
+                                                + e_dl.square())).sqrt()
+    x_sq = x_sq + dot(dl, p64["router"].T).square() \
+        + dot(e_dl, p64["router"].T).square()
+    sp = p64.get("shared")
+    if sp is not None:
+        g_wg, g_wu, g_wd, g_x, _ = glu(
+            x, sp["w_gate"], sp["w_up"], sp["w_down"], fwd["a_s"], fwd["b_s"],
+            fwd["h_s"], bwd["a_s"], bwd["b_s"], bwd["h_s"], cot,
+            torch.zeros_like(cot))
+        scale[id(sp["w_gate"])], scale[id(sp["w_up"])] = g_wg, g_wu
+        scale[id(sp["w_down"])] = g_wd
+        x_sq = x_sq + g_x
+    return [scale[id(p)] for p in tree_leaves(p64)] + [x_sq.sqrt()]
+
+
+def moe_grad_check(label: str, fp, m, xt) -> None:
+    """The MoE layer's gradients on the card, float32 parameters and input
+    (TF32 off), for the loss sum(y cot) + router_aux_weight aux with a
+    seeded cot, against float64 autograd of the plain formula on the same
+    routing (the run's top-k ids and slots), at the published capacity
+    factor and at MOE_DROP_FACTOR: every leaf and the input within
+    MOE_GRAD_RTOL |want| + MOE_GRAD_ULPS 2^-24 scale, the scale the entry's
+    first-order float32 rounding (``moe_rounding_scales``: it grows with
+    the terms' squares, not with the sum, which cancels); the dispatch's
+    and the combine's broken backwards refused (the combine's where
+    entries drop)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import moe
+    from repro_torch.models.common import tree_leaves
+
+    T, d = xt.shape
+    f32 = {k: ({kk: vv.detach().float() for kk, vv in v.items()}
+               if isinstance(v, dict) else v.detach().float())
+           for k, v in fp.items()}
+    names = [*(f"{k}/{kk}" if isinstance(v, dict) else k
+               for k, v in sorted(f32.items())
+               for kk in (sorted(v) if isinstance(v, dict) else [None])),
+             "x"]
+    x32 = xt.detach().float()
+    cot = torch.randn((T, d), generator=torch.Generator(
+        device=xt.device).manual_seed(MOE_GRAD_SEED), device=xt.device)
+    for factor in (m.capacity_factor, MOE_DROP_FACTOR):
+        mc = dataclasses.replace(m, capacity_factor=factor)
+        C = mc.capacity(T)
+        leaves = [t.requires_grad_(True) for t in tree_leaves(f32)]
+        x = x32.clone().requires_grad_(True)
+        y, aux = moe.moe_apply(f32, mc, x[None])
+        loss = (y[0] * cot).sum() + mc.router_aux_weight * aux
+        got = torch.autograd.grad(loss, [*leaves, x])
+        for t in leaves:
+            t.requires_grad_(False)
+        gate_i = moe.route(f32, mc, x32)[3]
+        _, slot_token, entry_slot, slot_entry = moe.bucket(
+            gate_i, mc.num_experts, C)
+        n_drop = int((entry_slot == mc.num_experts * C).sum())
+        want, units = moe_plain64_grads(f32, mc, x32, cot, gate_i,
+                                        slot_token, entry_slot, slot_entry)
+        limits = [MOE_GRAD_RTOL * w.abs() + MOE_GRAD_ULPS * 2.0**-24 * u
+                  for w, u in zip(want, units)]
+        ratios = {name: limit_ratio(g, w, lim)[1]
+                  for name, g, w, lim in zip(names, got, want, limits)}
+        print(f"  {label} MoE layer gradients (float32) at capacity factor "
+              f"{factor} (C={C}, {n_drop} of {T * mc.top_k} entries "
+              f"dropped) against float64 on the same routing, err/limit "
+              f"(rtol {MOE_GRAD_RTOL} + {MOE_GRAD_ULPS} 2^-24 x the "
+              f"rounding scale): "
+              + ", ".join(f"{n} {r:.4f}" for n, r in ratios.items()))
+        for name, r in ratios.items():
+            check(r <= 1.0, f"{label}: the MoE gradient of {name} at "
+                  f"capacity factor {factor} off (err/limit {r})")
+        broken = ["dispatch"] + (["combine"] if n_drop else [])
+        for kind in broken:
+            bad, _ = moe_plain64_grads(f32, mc, x32, cot, gate_i, slot_token,
+                                       entry_slot, slot_entry, broken=kind)
+            r = max(limit_ratio(b, w, lim)[1]
+                    for b, w, lim in zip(bad, want, limits))
+            what = ("a dispatch backward without the k >= 1 slots"
+                    if kind == "dispatch" else
+                    "a combine backward that gives dropped entries a "
+                    "gradient")
+            print(f"  {label} MoE broken: {what:58s} err/limit={r:.4g} "
+                  f"{'refused' if r > 1 else 'PASSED'}")
+            check(r > 1.0, f"{label}: the MoE gradient check passes a "
+                  f"broken backward ({kind}) at capacity factor {factor}")
+            del bad
+        del got, want, units, limits, y, aux, loss
+        torch.cuda.empty_cache()
+
+
+def phase18_moe_train(dev, gen, card: str) -> tuple[dict, int, int]:
+    """MoE LM training on the card: qwen2-moe-a2.7b's train_4k at full
+    width and sequence, cut in batch (LM_TRAIN_ACCUM micro-batches of
+    LM_TRAIN_MICRO sequences, remat) and depth (MOE_TRAIN_LAYERS layers),
+    LM_TRAIN_STEPS steps on one TokenStream batch through K6 and its
+    backward; the MoE layer's gradients at full width against float64; K6's
+    backward at the train shape against float64 plain and timed;
+    moonshot-v1-16b-a3b one step at 2 layers. Returns (K6's backward's
+    additions to its ``kernels`` row, K6's forward launches,
+    ``segment_reduce``'s)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import LM_SHAPES, get_arch
+    from repro_torch.configs.base import LMArch
+    from repro_torch.models import transformer
+    from repro_torch.optim import AdamWConfig
+
+    print(f"phase 18: MoE LM training (the router, the dispatch's and the "
+          f"combine's fixed-order backwards, K6's backward, AdamW), card "
+          f"{card}")
+    t_phase = time.perf_counter()
+    base = get_arch(MOE_TRAIN_ARCH)
+    cfg = dataclasses.replace(base.cfg, n_layers=MOE_TRAIN_LAYERS)
+    m = cfg.moe
+    B = LM_TRAIN_MICRO * LM_TRAIN_ACCUM
+    arch = LMArch(MOE_TRAIN_ARCH, cfg, base.smoke_cfg, opt=AdamWConfig(),
+                  grad_accum=LM_TRAIN_ACCUM)
+    shape = LM_SHAPES["train_4k"]
+    total = torch.cuda.get_device_properties(dev).total_memory
+    t0 = time.perf_counter()
+    params = arch.init_params(gen, dev)
+    n_params = sum(t.numel() for t in params.parameters())
+    check(n_params == cfg.param_count, f"{MOE_TRAIN_ARCH} has {n_params} "
+          f"parameters, config {cfg.param_count}")
+    per_layer = (base.cfg.param_count - n_params) // (
+        base.cfg.n_layers - MOE_TRAIN_LAYERS)
+    print(f"  cut: train_4k B={shape['batch']} S={shape['seq']} -> B={B} "
+          f"S={LM_TRAIN_SEQ} ({LM_TRAIN_ACCUM} micro-batches of "
+          f"{LM_TRAIN_MICRO}, each layer recomputed in the backward); "
+          f"{MOE_TRAIN_LAYERS} of {base.cfg.n_layers} layers at published "
+          f"width (d {cfg.d_model}, {cfg.n_heads} heads on "
+          f"{cfg.n_kv_heads}, Dh {cfg.head_dim}, {m.num_experts} experts "
+          f"top {m.top_k} of F {m.d_ff_expert}, {m.num_shared} shared, vocab "
+          f"{cfg.vocab}): {n_params} parameters ({per_layer} a layer, of "
+          f"{base.cfg.param_count} published); AdamW lr {arch.opt.lr} after "
+          f"a warm-up of {arch.opt.warmup_steps} steps, {LM_TRAIN_STEPS} "
+          f"steps on one TokenStream batch; init "
+          f"{time.perf_counter() - t0:.2f}s")
+    batches = [arch.make_inputs("train_4k", gen, dev, batch=B,
+                                seq=LM_TRAIN_SEQ, seed=0)] * LM_TRAIN_STEPS
+    micro = {k: v[:LM_TRAIN_MICRO] for k, v in batches[0].items()}
+    lm_repeat_check(MOE_TRAIN_ARCH, params, cfg, micro)
+    # layer 0's MoE input on the first sequence, for the gradient check
+    xt0 = moe_layer0_input(params, cfg, micro["tokens"])
+    fp0 = {k: ({kk: vv.clone() for kk, vv in v.items()}
+               if isinstance(v, dict) else v.clone())
+           for k, v in transformer.layer_params(params, 0)["ffn"].items()}
+    del micro
+
+    params, state, step, call, launches, peak = lm_train_steps(
+        MOE_TRAIN_ARCH, arch, params, batches, dev, card)
+    print(f"  the cut by peak: {peak / 1e9:.2f} GB at {MOE_TRAIN_LAYERS} "
+          f"layers of the card's {total / 1e9:.2f} GB; at the same "
+          f"{peak / n_params:.2f} bytes a parameter, {MOE_TRAIN_LAYERS + 1} "
+          f"layers would peak near "
+          f"{peak / n_params * (n_params + per_layer) / 1e9:.2f} GB")
+    with annotated_moe_train():
+        lm_profile(f"{MOE_TRAIN_ARCH} train_4k step",
+                   lambda: step(params, state, batches[-1]),
+                   ranges={"MoE gathers forward": "moe:gather forward",
+                           "MoE gathers backward": "moe:gather backward",
+                           "AdamW": "adamw"})
+    del params, state, batches
+    torch.cuda.empty_cache()
+
+    stats = {"max_abs_err": 0.0, "ms_by_shape": {}}
+    moe_grad_check(f"{MOE_TRAIN_ARCH} layer 0 T={LM_TRAIN_SEQ}", fp0, m, xt0)
+    del fp0, xt0
+    torch.cuda.empty_cache()
+    label = f"{MOE_TRAIN_ARCH} layer 0"
+    attention_bwd_check(label, call, stats)
+    times = attention_bwd_times(label, call, card)
+    stats["ms_by_shape"][MOE_TRAIN_ARCH] = {
+        "ms": times[0], "bound_ms": times[2], "library_ms": times[4],
+        "ms_by_kernel": times[5]}
+    del call
+    torch.cuda.empty_cache()
+    bwd = launches["flash_attention_bwd"]
+    fwd = launches["flash_attention"]
+    seg = launches["segment_reduce"]
+    for arch_id, layers in MOE_TRAIN_FAMILY:
+        got = lm_family_train(arch_id, layers, dev, gen, card, stats)
+        bwd += got["flash_attention_bwd"]
+        fwd += got["flash_attention"]
+        seg += got["segment_reduce"]
+        torch.cuda.empty_cache()
+    print(f"  phase 18 wall {time.perf_counter() - t_phase:.1f}s")
+    return {"launches": bwd, "max_abs_err": stats["max_abs_err"],
+            "family_ms": stats["ms_by_shape"]}, fwd, seg
 
 
 def main() -> int:
@@ -6827,8 +7309,17 @@ def main() -> int:
     k5["launches"] += din_bag
     segment_row["launches"] += din_segment
     torch.cuda.empty_cache()
-    bwd_row, lm_fwd = phase17_lm_train(dev, gen, card)
+    bwd_row, lm_fwd, lm_seg = phase17_lm_train(dev, gen, card)
     k6["launches"] += lm_fwd
+    segment_row["launches"] += lm_seg
+    torch.cuda.empty_cache()
+    moe_bwd, moe_fwd, moe_seg = phase18_moe_train(dev, gen, card)
+    k6["launches"] += moe_fwd
+    segment_row["launches"] += moe_seg
+    bwd_row["launches"] += moe_bwd["launches"]
+    bwd_row["max_abs_err"] = max(bwd_row["max_abs_err"],
+                                 moe_bwd["max_abs_err"])
+    bwd_row["family_ms"].update(moe_bwd["family_ms"])
     # the fold's launches on every path that drove it (counts zeroed before
     # each, read after)
     fold_row["launches"] = sum(FOLD_LAUNCHES.values())

@@ -19,9 +19,9 @@ The GNN family's cells are of the train kind: ``GNNArch.build_step``
 returns the JAX package's train step (the loss's gradient under autograd,
 then AdamW), and ``GNNArch.forward_step`` its forward half; DIN's
 ``train_batch`` cell the same through ``DINArch.build_step``, and the
-dense LMs' ``train_4k`` through ``LMArch.build_step`` (with the
-reference's ``grad_accum`` micro-batches and per-layer remat). The MoE
-LMs' training, meshes and partition specs come with later slices.
+LMs' ``train_4k``, dense and MoE, through ``LMArch.build_step`` (with
+the reference's ``grad_accum`` micro-batches and per-layer remat).
+Meshes and partition specs come with later slices.
 """
 
 from __future__ import annotations
@@ -43,10 +43,6 @@ from ..optim import AdamWConfig, adamw_update, global_norm
 from ..ppr.datasets import load
 from ..ppr.graph import Graph
 
-_TRAIN_LATER = ("the MoE LMs' training is not ported yet (queue 1, item "
-                "1b-ii of ROADMAP.md: a later slice of the port, with the "
-                "backwards of the router, dispatch and combine); the dense "
-                "LMs', the GNNs' and DIN's training are")
 # the JAX package's attention key block (LMConfig.attn_block_kv), which its
 # prefill byte count re-reads the keys and values by
 _JAX_ATTN_BLOCK_KV = 1024
@@ -145,10 +141,6 @@ class LMArch(ArchDef):
     def init_params(self, generator, device="cuda", smoke=False):
         return transformer.init(self.config(smoke), generator, device)
 
-    def _check_trainable(self) -> None:
-        if self.cfg.moe is not None:
-            raise NotImplementedError(f"{self.arch_id}: {_TRAIN_LATER}")
-
     def build_step(self, shape_id, *, smoke=False, **options):
         """Serving kinds: prefill(params, batch) -> (last logits, cache),
         decode(params, batch) -> (logits, cache). The train kind:
@@ -159,14 +151,13 @@ class LMArch(ArchDef):
         and losses summed in order and divided by ``grad_accum``, then
         :func:`~repro_torch.optim.adamw_update` with the arch's ``opt``,
         which writes the new parameters and moments into the ones given.
-        The MoE LMs' train kind raises ``NotImplementedError`` (queue 1,
-        item 1b-ii)."""
+        An MoE LM's loss adds its routers' aux loss times
+        ``router_aux_weight``, as the reference's does."""
         cfg = self.config(smoke)
         kind = self.kind(shape_id)
         if options:
             raise ValueError(f"no options for {kind}: {sorted(options)}")
         if kind == "train":
-            self._check_trainable()
             opt, accum = self.opt, self.grad_accum
             if accum < 1:
                 raise ValueError(f"grad_accum must be >= 1, got {accum}")
@@ -241,8 +232,6 @@ class LMArch(ArchDef):
         s = _cut(self.shapes[shape_id], cuts, ("batch", "seq"))
         cfg = self.cfg
         train = s["kind"] == "train"
-        if train:
-            self._check_trainable()
         tokens = s["batch"] * (s["seq"] if s["kind"] != "decode" else 1)
         # 2 N a token forward; training 6 N (2 forward + 4 backward)
         flops = (6.0 if train else 2.0) * cfg.flops_param_count * tokens
@@ -260,7 +249,6 @@ class LMArch(ArchDef):
         weights = 2.0 * cfg.param_count                 # bf16
         kv = L * B * S * cfg.n_kv_heads * cfg.head_dim * 2 * 2
         if s["kind"] == "train":
-            self._check_trainable()
             # weights read forward, again by the remat and the backward,
             # bf16 gradients written and read, float32 moments read and
             # written (20 bytes a parameter); the layers' checkpointed

@@ -8,18 +8,17 @@ the port's modules.
         --preset smoke --seq 64 --ckpt-dir build/ckpt [--resume] \\
         [--compress-grads] [--fail-at 15:0] [--device cuda]
 
-It trains the architecture's smoke config: a dense LM on a ``TokenStream``
-of ``--batch`` sequences of ``--seq`` tokens (``--preset lm100m``: the
-reference's ~100M-parameter LM instead; the loss and every gradient
-through ``transformer.value_and_grad``, attention through K6 and its
-backward on the card), DIN on a ``RecsysStream`` of ``--batch`` users (the
-loss and the tables' gradients through K5, its backward and
-``segment_reduce`` on the card), a GNN on one random graph of 128 nodes
-and 512 edges. ``--device`` defaults to ``cuda`` and raises without a
-card unless ``--device cpu`` is given. An MoE LM ``--arch`` raises
-``NotImplementedError``: its training is queue 1, item 1b-ii of
-ROADMAP.md. As in the reference, ``--preset`` and ``--seq`` are read by
-the LM branch alone.
+It trains the architecture's smoke config: an LM, dense or MoE, on a
+``TokenStream`` of ``--batch`` sequences of ``--seq`` tokens (``--preset
+lm100m``: the reference's ~100M-parameter LM instead; the loss, an MoE's
+aux loss included, and every gradient through
+``transformer.value_and_grad``, attention through K6 and its backward on
+the card), DIN on a ``RecsysStream`` of ``--batch`` users (the loss and
+the tables' gradients through K5, its backward and ``segment_reduce`` on
+the card), a GNN on one random graph of 128 nodes and 512 edges.
+``--device`` defaults to ``cuda`` and raises without a card unless
+``--device cpu`` is given. As in the reference, ``--preset`` and
+``--seq`` are read by the LM branch alone.
 
 What differs from the reference, so that a resumed run equals a straight
 one: a checkpoint is labelled with the steps it holds (the reference
@@ -59,10 +58,6 @@ from ..optim import (AdamWConfig, AdamWState, adamw_init, adamw_update,
                      compress_grads, compress_init, step_noise)
 from ..optim.compress import CompressState
 
-LM_LATER = ("MoE LM training is not ported yet: queue 1, item 1b-ii of "
-            "ROADMAP.md (the backwards of the router, dispatch and "
-            "combine); this entry point trains the dense LMs, DIN and the "
-            "GNNs")
 # the reference's custom ~100M-parameter LM (--preset lm100m)
 LM100M = transformer.LMConfig(
     name="lm100m", n_layers=8, d_model=512, n_heads=8, n_kv_heads=8,
@@ -121,8 +116,6 @@ def _model(arch, args, dev: torch.device, gen: torch.Generator
     """(params, grads(params, batch) -> (loss, gradients), an iterator of
     host batches)."""
     if isinstance(arch, LMArch):
-        if arch.cfg.moe is not None:
-            raise NotImplementedError(LM_LATER)
         cfg = build_lm(args.arch, args.preset)
         params = transformer.init(cfg, gen, dev)
         stream = iter(TokenStream(vocab=cfg.vocab, seq_len=args.seq,

@@ -24,6 +24,13 @@ and the combine gathers each token's k entries through the inverse of the
 sort order and adds them in k order (an ``index_add_`` would add them
 with float atomics on the card).
 
+Training keeps that rule. Autograd's backward of a ``rows[index]`` gather
+is an accumulating ``index_put_``, float atomics on the card; the dispatch
+and the combine gather through :class:`GatherRows` instead, whose
+backward gathers the incoming gradient through the inverse index and adds
+a source row's terms in k order: a token's K slots for the dispatch, the
+one entry that fills a slot for the combine. Nothing is scattered.
+
 The stages are module functions (:func:`route`, :func:`bucket`,
 :func:`dispatch`, :func:`experts`, :func:`combine`), called by name from
 :func:`moe_apply`.
@@ -110,13 +117,15 @@ def route(params, cfg: MoEConfig, xt: torch.Tensor
 
 
 def bucket(gate_i: torch.Tensor, num_experts: int, capacity: int
-           ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+           ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                      torch.Tensor]:
     """Capacity slots for the (token, k) entries of gate_i (T, K): entries
     sorted stably by expert, so that an expert keeps its first C entries in
     (token, k) order and drops the rest. Returns (counts (E,) int64, the
     entries routed to each expert; slot_token (E C,) int64, the token whose
     row fills each slot, T for an empty one; entry_slot (T K,) int64, each
-    entry's slot in (token, k) order, E C for a dropped one)."""
+    entry's slot in (token, k) order, E C for a dropped one; slot_entry
+    (E C,) int64, the entry that fills each slot, T K for an empty one)."""
     T, K = gate_i.shape
     E, C = num_experts, capacity
     flat_e = gate_i.reshape(T * K)
@@ -131,18 +140,49 @@ def bucket(gate_i: torch.Tensor, num_experts: int, capacity: int
     entry_slot = torch.empty_like(slot).scatter_(0, order, slot)
     # every dropped entry lands in slot E C, in no set order among
     # duplicates; that slot is cut off and never read
-    slot_token = torch.full((E * C + 1,), T, dtype=torch.long,
+    slot_entry = torch.full((E * C + 1,), T * K, dtype=torch.long,
                             device=flat_e.device
-                            ).scatter_(0, slot, order // K)[:E * C]
-    return counts, slot_token, entry_slot
+                            ).scatter_(0, slot, order)[:E * C]
+    return counts, slot_entry // K, entry_slot, slot_entry
 
 
-def dispatch(xt: torch.Tensor, slot_token: torch.Tensor, num_experts: int
-             ) -> torch.Tensor:
+def _with_zero_row(rows: torch.Tensor) -> torch.Tensor:
+    return torch.cat([rows, rows.new_zeros((1, rows.shape[1]))])
+
+
+class GatherRows(torch.autograd.Function):
+    """src (n_src, d) gathered through ``index`` (n_out,) into (n_out, d),
+    where index n_src reads a zero row. ``inverse`` (n_src, K') lists the
+    outputs that read each source row (n_out for none), and each output
+    is in at most one row's list. The backward gathers the incoming
+    gradient through ``inverse`` and adds a row's K' terms in k order:
+    d src[s] = sum_k g[inverse[s, k]], a fixed order and no scatter, where
+    autograd's backward of ``src[index]`` adds with float atomics on the
+    card."""
+
+    @staticmethod
+    def forward(ctx, src, index, inverse):
+        ctx.save_for_backward(inverse)
+        return _with_zero_row(src)[index]
+
+    @staticmethod
+    def backward(ctx, g):
+        (inverse,) = ctx.saved_tensors
+        terms = _with_zero_row(g)[inverse]
+        out = terms[:, 0]
+        for k in range(1, terms.shape[1]):
+            out = out + terms[:, k]
+        return out, None, None
+
+
+def dispatch(xt: torch.Tensor, slot_token: torch.Tensor,
+             entry_slot: torch.Tensor, num_experts: int) -> torch.Tensor:
     """The experts' inputs (E, C, d): token rows gathered into their slots,
-    zeros in an empty slot."""
-    rows = torch.cat([xt, xt.new_zeros((1, xt.shape[1]))])
-    return rows[slot_token].reshape(num_experts, -1, xt.shape[1])
+    zeros in an empty slot. A token's gradient is its K slots' gradients
+    added in k order, a dropped entry's a zero row."""
+    T, d = xt.shape
+    rows = GatherRows.apply(xt, slot_token, entry_slot.reshape(T, -1))
+    return rows.reshape(num_experts, -1, d)
 
 
 def experts(params, cfg: MoEConfig, expert_in: torch.Tensor) -> torch.Tensor:
@@ -154,16 +194,17 @@ def experts(params, cfg: MoEConfig, expert_in: torch.Tensor) -> torch.Tensor:
 
 
 def combine(out: torch.Tensor, entry_slot: torch.Tensor,
-            gate_w: torch.Tensor) -> torch.Tensor:
+            slot_entry: torch.Tensor, gate_w: torch.Tensor) -> torch.Tensor:
     """y (T, d) in out's dtype from the experts' outputs (E, C, d): each
     token's K entries gathered into (T, K, d) through ``entry_slot`` (a
     dropped entry reads a zero row), times its gate weight in out's dtype,
-    and added in k order."""
+    and added in k order. A slot's gradient is that of the one entry in
+    ``slot_entry`` that fills it (none for an empty slot)."""
     T, K = gate_w.shape
     d = out.shape[-1]
-    rows = torch.cat([out.reshape(-1, d), out.new_zeros((1, d))])
-    per_entry = rows[entry_slot].reshape(T, K, d) \
-        * gate_w.to(out.dtype)[..., None]
+    rows = GatherRows.apply(out.reshape(-1, d), entry_slot,
+                            slot_entry[:, None])
+    per_entry = rows.reshape(T, K, d) * gate_w.to(out.dtype)[..., None]
     y = per_entry[:, 0]
     for k in range(1, K):
         y = y + per_entry[:, k]
@@ -180,12 +221,13 @@ def moe_apply(params, cfg: MoEConfig, x: torch.Tensor
     E, K = cfg.num_experts, cfg.top_k
     xt = x.reshape(T, d)
     _, probs, gate_w, gate_i = route(params, cfg, xt)
-    counts, slot_token, entry_slot = bucket(gate_i, E, cfg.capacity(T))
+    counts, slot_token, entry_slot, slot_entry = bucket(gate_i, E,
+                                                        cfg.capacity(T))
     # E * sum_e f_e p_e, f_e from integer counts (the reference adds float
     # 1 / (T K) an entry: the two agree to rounding)
     aux = E * torch.sum(counts.float() / (T * K) * probs.mean(dim=0))
-    out = experts(params, cfg, dispatch(xt, slot_token, E))
-    y = combine(out, entry_slot, gate_w)
+    out = experts(params, cfg, dispatch(xt, slot_token, entry_slot, E))
+    y = combine(out, entry_slot, slot_entry, gate_w)
     if "shared" in params:
         sp = params["shared"]
         hs = act_fn(cfg.act)(xt @ sp["w_gate"]) * (xt @ sp["w_up"])

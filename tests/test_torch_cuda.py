@@ -11,10 +11,10 @@ on the card against the CPU, and K5's backward against its float64 plain
 version with DIN's train step on the card against the CPU, and K6's
 backward against its float64 plain version on both routes (the
 logsumexp its forward writes leaving the output's bits as they are)
-with the dense LMs' train step on the card against the CPU. Every test
-here needs an NVIDIA card and ``nvcc`` and skips without them; this file
-imports neither JAX nor ``repro``, so it runs where only torch is
-installed:
+with the LMs' train step, dense and MoE, on the card against the CPU.
+Every test here needs an NVIDIA card and ``nvcc`` and skips without them;
+this file imports neither JAX nor ``repro``, so it runs where only torch
+is installed:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 """
@@ -1769,13 +1769,17 @@ def test_flash_attention_autograd_on_card_is_the_kernels(card, dtype):
     assert all(torch.equal(a, b) for a, b in zip(grads, direct))
 
 
-@pytest.mark.parametrize("arch_id", ["gemma-2b", "qwen1.5-32b"])
+@pytest.mark.parametrize("arch_id", ["gemma-2b", "qwen1.5-32b",
+                                     "qwen2-moe-a2.7b",
+                                     "moonshot-v1-16b-a3b"])
 def test_lm_train_step_on_card_matches_cpu_and_repeats(card, arch_id):
     """An LM smoke config's train step (2 micro-batches) on the card
     against the CPU's: the loss within rtol 1e-5, the gradients within
     rtol 1e-4 of |g| + 1e-5 max|g| (float32 sums in other orders); a
     second run with the same bits; K6's forward twice a layer and
-    micro-batch (remat) and its backward once."""
+    micro-batch (remat) and its backward once. The MoE LMs' gradients
+    run through the dispatch's and the combine's fixed-order backwards
+    (``moe.GatherRows``)."""
     from repro_torch.kernels import flash_attention_bwd
     from repro_torch.models import transformer
 

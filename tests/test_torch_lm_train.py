@@ -14,7 +14,8 @@
   (``state_from_numpy``): the loss, the parameters and the moments.
 * ``model_flops``/``model_bytes`` of ``train_4k`` equal to the JAX
   package's, at the published shape and cut; ``make_inputs("train_4k")``
-  the first ``TokenStream`` batch; the MoE LMs' train kind raises.
+  the first ``TokenStream`` batch; the MoE LMs' train kind builds (its
+  parity is ``tests/test_torch_moe_train.py``'s).
 * The train step with the CUDA wrappers stood in by their plain versions:
   no float ``index_add``, ``scatter_add``, ``scatter_reduce`` or
   accumulating ``index_put_`` outside them, and the launches that
@@ -186,11 +187,9 @@ def test_train_inputs_and_the_moe_lms():
     assert LM_SHAPES["train_4k"] == dict(kind="train", seq=4096, batch=256)
     for arch_id in ("qwen2-moe-a2.7b", "moonshot-v1-16b-a3b"):
         moe = get_arch(arch_id)
-        for call in (lambda: moe.build_step("train_4k"),
-                     lambda: moe.model_flops("train_4k"),
-                     lambda: moe.model_bytes("train_4k")):
-            with pytest.raises(NotImplementedError, match="1b-ii"):
-                call()
+        assert callable(moe.build_step("train_4k"))
+        assert moe.model_flops("train_4k") > 0
+        assert moe.model_bytes("train_4k") > 0
     with pytest.raises(ValueError, match="no options"):
         arch.build_step("train_4k", grad_accum=2)
     with pytest.raises(ValueError, match="multiple of grad_accum"):

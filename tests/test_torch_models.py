@@ -360,13 +360,10 @@ def test_infer_run_smoke(arch_id):
 
 
 def test_unported_kinds_and_archs_raise():
-    # the MoE LMs' training is queue 1, item 1b-ii; the dense LMs' is
-    # ported (tests/test_torch_lm_train.py)
-    with pytest.raises(NotImplementedError, match="1b-ii"):
-        get_arch("qwen2-moe-a2.7b").build_step("train_4k")
+    # the LMs' training, dense and MoE, is ported
+    # (tests/test_torch_lm_train.py, tests/test_torch_moe_train.py)
+    assert callable(get_arch("qwen2-moe-a2.7b").build_step("train_4k"))
     assert callable(get_arch("din").build_step("train_batch"))  # ported
-    with pytest.raises(NotImplementedError, match="1b-ii"):
-        get_arch("qwen2-moe-a2.7b").model_flops("train_4k")
     pna = get_arch("pna")                      # GNN training is ported
     gen = torch.Generator().manual_seed(0)
     params = pna.init_params(gen, "cpu", shape_id="full_graph_sm")

@@ -85,7 +85,7 @@ def test_moe_apply_matches_jax_gather(name):
     # the same entries dropped: the port's buckets against the definition
     T, E = jgate.shape[0], tcfg.num_experts
     C = tcfg.capacity(T)
-    counts, slot_token, entry_slot = tmoe.bucket(gate_i, E, C)
+    counts, slot_token, entry_slot, slot_entry = tmoe.bucket(gate_i, E, C)
     dropped = _first_c(jgate, E, C)
     np.testing.assert_array_equal((entry_slot == E * C).numpy(),
                                   dropped.reshape(-1))
@@ -96,6 +96,13 @@ def test_moe_apply_matches_jax_gather(name):
     np.testing.assert_array_equal(
         slot_token[kept].numpy(),
         np.nonzero(~dropped.reshape(-1))[0] // tcfg.top_k)
+    # slot_entry inverts entry_slot on the kept entries, T K elsewhere
+    np.testing.assert_array_equal(slot_entry[kept].numpy(),
+                                  np.nonzero(~dropped.reshape(-1))[0])
+    empty = torch.ones(E * C, dtype=torch.bool)
+    empty[kept] = False
+    assert (slot_entry[empty] == T * tcfg.top_k).all()
+    assert (slot_token[empty] == T).all()
     if tcfg.capacity_factor < 1:
         assert dropped.any()
     else:

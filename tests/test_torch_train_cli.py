@@ -4,9 +4,9 @@ gradient compression and an injected failure improve the loss (the
 reference's own assertion, mean of the last 10 losses below the first
 10's) at the entry point's defaults (batch 8, lr 3e-4), a run resumed from
 its checkpoint gives the straight run's losses and final state bit for
-bit (DIN, GCN and gemma-2b's smoke LM), an MoE LM arch raises
-``NotImplementedError`` (queue 1, item 1b-ii), and ``--device cuda``
-raises without a card. The DIN run's losses and gradient norms, from the
+bit (DIN, GCN, gemma-2b's and qwen2-moe's smoke LMs), the MoE LM archs
+train two steps with finite losses, with and without gradient
+compression, and ``--device cuda`` raises without a card. The DIN run's losses and gradient norms, from the
 reference's initial parameters, are those that ``repro.launch.train``
 prints on the same arguments: each loss within half the printed last
 digit (4 decimals) plus 1e-5, each gradient norm printed the same (3
@@ -50,10 +50,11 @@ def test_smoke_run_improves_the_loss(arch, tmp_path):
     assert latest_step(tmp_path) == 30
 
 
-@pytest.mark.parametrize("arch", ["din", "gcn-cora", "gemma-2b"])
+@pytest.mark.parametrize("arch", ["din", "gcn-cora", "gemma-2b",
+                                  "qwen2-moe-a2.7b"])
 def test_resumed_run_equals_the_straight_run(arch, tmp_path):
-    extra = ("--compress-grads",) + (("--seq", "32") if arch == "gemma-2b"
-                                     else ())
+    lm = arch in ("gemma-2b", "qwen2-moe-a2.7b")
+    extra = ("--compress-grads",) + (("--seq", "32") if lm else ())
     straight = train.main(_args(arch, tmp_path / "a", 30, *extra))
     first = train.main(_args(arch, tmp_path / "b", 20, *extra))
     resumed = train.main(_args(arch, tmp_path / "b", 30, *extra,
@@ -71,9 +72,11 @@ def test_resumed_run_equals_the_straight_run(arch, tmp_path):
                                   ["--arch", "moonshot-v1-16b-a3b"],
                                   ["--arch", "qwen2-moe-a2.7b",
                                    "--compress-grads"]])
-def test_lm_training_raises(argv, tmp_path):
-    with pytest.raises(NotImplementedError, match="1b-ii"):
-        train.main([*argv, "--device", "cpu", "--ckpt-dir", str(tmp_path)])
+def test_moe_lm_training_runs(argv, tmp_path):
+    out = train.main([*argv, "--steps", "2", "--seq", "32", "--device",
+                      "cpu", "--ckpt-dir", str(tmp_path)])
+    assert len(out["losses"]) == 2 and np.isfinite(out["losses"]).all()
+    assert latest_step(tmp_path) == 2
 
 
 def test_cuda_without_a_card_raises(monkeypatch, tmp_path):
